@@ -1,0 +1,416 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`splendax_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+  1. build the CUDA kernels from `splendax_torch/csrc` (one nvcc per source,
+     in parallel) and print the build seconds;
+  2. hold each kernel against its plain PyTorch version on the card, and
+     time the kernel, the plain version and one PyTorch library call for the
+     same function at the main path's shapes;
+  3. check the engine on the card against the engine on the CPU, ply by
+     ply, on identical actions and ring;
+  4. env throughput: B=32768 games, uniform random legal actions, ring
+     autoreset with a 4096-row window (the workload of `bench.py`);
+  5. the flagship self-play rollout: 8192 games, hidden 768, pool of 12,
+     agent and pool slots loaded from the committed h768 checkpoints.  Every
+     kernel launch counter is zeroed just before it and read just after;
+  6. a profile of four flagship turns: host time per turn, device busy time
+     and the kernels that take it.
+
+Prints the card's name and power limit first, a JSON line with each
+kernel's numbers second to last, and `{"ok": true, "device": ...}` last.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Median over 5 runs of the mean time of `iters` back-to-back calls,
+    from CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[len(runs) // 2]
+
+
+def realistic_obs(B: int, plies: int, seed: int, device):
+    """Observations and masks of B games after `plies` random legal plies,
+    with row 0's mask cleared (a row with no legal action)."""
+    import torch
+
+    from splendax_torch.env import core
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    state, obs, mask = core.reset(B, g, device)
+    for _ in range(plies):
+        state, out = core.step(state, uniform_legal_action(mask, g), mask=mask)
+        obs, mask = out.obs, out.action_mask
+    mask = mask.clone()
+    mask[0] = False
+    return obs.contiguous(), mask.contiguous()
+
+
+def phase_kernels(device) -> dict:
+    """Each kernel against its plain version; times at the main path's shapes."""
+    import numpy as np
+    import torch
+
+    from splendax_torch.models import actor_critic as ac
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.ops import ring_take as rt
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    results = {}
+
+    # Kernel A: fused masked actor-critic forward.
+    err_a = 0.0
+    for H, src in ((256, "runs/ppo_splendor_2b/ppo_splendor_params.npz"),
+                   (768, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz")):
+        w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, src), device=device))
+        check(w[0].shape[1] == H, f"{src} has hidden {w[0].shape[1]}, expected {H}")
+        obs_all, mask_all = realistic_obs(8192, 30, seed=H, device=device)
+        for B in (1, 17, 257, 8192):
+            obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+            for with_value in (True, False):
+                lk, vk = fac.fused_masked_forward(w, obs, mask, with_value=with_value)
+                lp, vp = fac.fused_masked_forward_plain(w, obs, mask, with_value=with_value)
+                torch.cuda.synchronize()
+                pairs = [(lk, lp)] + ([(vk, vp)] if with_value else [])
+                for got, want in pairs:
+                    check(torch.isfinite(got).all().item(), f"kernel A non-finite at H={H} B={B}")
+                    ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+                    e = (got - want).abs().max().item()
+                    check(ok, f"kernel A disagrees at H={H} B={B}: max abs err {e}")
+                    err_a = max(err_a, e)
+                check((lk[0] > -1e8).all().item(), "kernel A masked a row with no legal action")
+        print(f"kernel A H={H}: max abs err vs plain {err_a:.3g}", flush=True)
+    # Times at the agent forward's shape: B = 8192, H = 768.
+    B, H = 8192, 768
+    x32 = obs.to(torch.float32)
+    ms = cuda_time_ms(lambda: fac.fused_masked_forward(w, obs, mask), 20)
+    plain_ms = cuda_time_ms(lambda: fac.fused_masked_forward_plain(w, obs, mask), 20)
+
+    def addmm_chain():
+        for o in (0, 6):
+            h = torch.tanh(torch.addmm(w[o + 1], x32, w[o]))
+            h = torch.tanh(torch.addmm(w[o + 3], h, w[o + 2]))
+            torch.addmm(w[o + 5], h, w[o + 4])
+
+    library_ms = cuda_time_ms(addmm_chain, 20)
+    n_weights = sum(t.numel() for t in w)
+    bytes_a = 4 * B * 297 + B * 45 + 4 * n_weights + 4 * B * 45 + 4 * B
+    flops_a = 2 * B * (2 * 297 * H + 2 * H * H + 46 * H)
+    results["fused_actor_critic"] = dict(
+        max_abs_err=err_a, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound=(bytes_a, flops_a),
+    )
+    print(f"kernel A B={B} H={H}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"addmm chain {library_ms:.4f} ms", flush=True)
+
+    # Kernel B: ring row take, at W = 8192 (the rollout's window).
+    rng = np.random.RandomState(0)
+    W, R = 8192, 16384
+    packed = torch.as_tensor(rng.randint(-1, 90, size=(R + W, 135)).astype(np.int8), device=device)
+    err_b = 0
+    for B, p_done, ptr0 in ((8192, 0.03, 5), (8192, 0.5, 12000), (8192, 1.0, R - 1),
+                            (8191, 0.5, 77), (12000, 1.0, 3)):
+        done = torch.as_tensor(rng.rand(B) < p_done, device=device)
+        rank = torch.cumsum(done, 0) - done.long()
+        ptr = torch.tensor(ptr0, dtype=torch.int64, device=device)
+        got = rt.take_rows(packed, ptr, rank, W)
+        want = rt.take_rows_plain(packed, ptr, rank, W)
+        torch.cuda.synchronize()
+        e = (got.int() - want.int()).abs().max().item()
+        check(e == 0, f"kernel B disagrees at B={B} p={p_done}: max abs err {e}")
+        if B > W and p_done == 1.0:
+            check(rank.max().item() > W - 1, "the overflow case did not overflow")
+    print("kernel B: exact against plain, overflow case included", flush=True)
+    B = 8192
+    done = torch.as_tensor(rng.rand(B) < 0.03, device=device)
+    rank = torch.cumsum(done, 0) - done.long()
+    ptr = torch.tensor(5, dtype=torch.int64, device=device)
+    idx = ptr + torch.clamp(rank, max=W - 1)
+    ms = cuda_time_ms(lambda: rt.take_rows(packed, ptr, rank, W), 200)
+    plain_ms = cuda_time_ms(lambda: rt.take_rows_plain(packed, ptr, rank, W), 200)
+    library_ms = cuda_time_ms(lambda: torch.index_select(packed, 0, idx), 200)
+    results["ring_take"] = dict(
+        max_abs_err=float(err_b), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound=(2 * B * 135 + 8 * B + 8, 0),
+    )
+    print(f"kernel B B={B} W={W}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_select {library_ms:.4f} ms", flush=True)
+    return results
+
+
+def phase_engine_agreement(device) -> None:
+    """The engine on the card against the engine on the CPU: identical
+    actions and ring, every state field and output equal on every ply."""
+    import numpy as np
+    import torch
+
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state
+    from splendax_torch.env import ring as ring_lib
+
+    B, plies = 512, 300
+    gen = torch.Generator().manual_seed(3)
+    cpu_ring = ring_lib.make_ring(4 * B, gen, "cpu", window=B)
+    st_c = initial_state(B, gen, "cpu")
+    gpu_ring = cpu_ring.replace(**{k: getattr(cpu_ring, k).to(device)
+                                   for k in ("packed", "mask0", "ptr", "overflow")})
+    st_g = st_c.map(lambda x: x.to(device))
+    rng = np.random.RandomState(3)
+    mask_c = None
+    finished = 0
+    for ply in range(plies):
+        m = (rules.legal_mask(st_c) if mask_c is None else mask_c).numpy()
+        a = torch.as_tensor(np.where(m.any(1), (rng.rand(B, 45) * m).argmax(1), 0))
+        st_c, out_c, obs_c, mask_c, cpu_ring = ring_lib.step_autoreset_ring(st_c, a, cpu_ring)
+        st_g, out_g, obs_g, mask_g, gpu_ring = ring_lib.step_autoreset_ring(
+            st_g, a.to(device), gpu_ring)
+        for name, x in st_c.items():
+            check(torch.equal(x, getattr(st_g, name).cpu()), f"engine: {name} differs at ply {ply}")
+        for name, x, y in (("obs", obs_c, obs_g), ("mask", mask_c, mask_g),
+                           ("reward", out_c.reward, out_g.reward),
+                           ("final_rewards", out_c.final_rewards, out_g.final_rewards),
+                           ("ptr", cpu_ring.ptr, gpu_ring.ptr)):
+            check(torch.equal(x, y.cpu()), f"engine: {name} differs at ply {ply}")
+        finished += int(out_c.terminated.sum())
+    check(finished > 0, "engine agreement run finished no game")
+    print(f"engine: card equals CPU on {plies} plies x {B} games ({finished} games ended)",
+          flush=True)
+
+
+def phase_env(device) -> float:
+    """Env steps/s at B=32768 with ring autoreset (bench.py's workload)."""
+    import torch
+
+    from splendax_torch.env import core
+    from splendax_torch.env import ring as ring_lib
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    B, steps = 32768, 64
+    g = torch.Generator(device=device).manual_seed(0)
+    state, obs, mask = core.reset(B, g, device)
+
+    def run(n):
+        nonlocal state, mask
+        ring = ring_lib.make_ring(B * max(1, -(-n // 64)), g, device, window=4096)
+        obs_sum = torch.zeros((), dtype=torch.int64, device=device)
+        r_sum = torch.zeros((), device=device)
+        for _ in range(n):
+            action = uniform_legal_action(mask, g)
+            state, out, obs, mask, ring = ring_lib.step_autoreset_ring(state, action, ring, mask=mask)
+            obs_sum += obs.sum()
+            r_sum += out.reward.sum()
+        return ring.overflow
+
+    run(4)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    overflow = run(steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(int(overflow) == 0, f"ring window overflow: {int(overflow)} lanes")
+    rate = B * steps / dt
+    print(f"env: {rate:.1f} env-steps/s (B={B}, {steps} steps, ring window 4096, "
+          f"{dt:.3f} s incl. ring deal)", flush=True)
+    return rate
+
+
+def phase_rollout(device):
+    """The flagship rollout through the port's entry points."""
+    import torch
+
+    from splendax_torch.models.actor_critic import import_params_npz
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.ops import ring_take as rt
+    from splendax_torch.selfplay import pool as pool_lib
+    from splendax_torch.train import ppo
+    from splendax_torch.train.config import PPOConfig
+
+    cfg = PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
+                    reset_ring_mult=2, rng_mode="fast")
+    agent = import_params_npz(os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"),
+                              device=device)
+    ts = ppo.init_train_state(cfg, params=agent, device=device)
+    pool = ts.pool
+    for src in ("runs/ppo_splendor_4b_h768/ppo_splendor_params.npz",
+                "runs/distill_h768/distilled_params.npz"):
+        pool = pool_lib.push_snapshot(pool, import_params_npz(os.path.join(ROOT, src), device=device))
+    ts.pool = pool
+    ts.opp_idx = pool_lib.sample_opponent_idx(pool, cfg.num_envs, ts.generator)
+
+    ppo.rollout(cfg.replace(num_steps=2), ts)  # warm-up, not kept
+    torch.cuda.synchronize()
+    fac.launches = 0
+    rt.launches = 0
+    t0 = time.perf_counter()
+    ts, traj = ppo.rollout(cfg, ts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"fused_actor_critic": fac.launches, "ring_take": rt.launches}
+
+    legal = traj.mask.gather(2, traj.action[..., None])[..., 0]
+    check(bool((legal | ~traj.mask.any(-1)).all()), "an agent action was illegal")
+    check(torch.isfinite(traj.logp).all().item() and torch.isfinite(traj.value).all().item(),
+          "non-finite logp or value")
+    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    episodes = int(traj.done.sum())
+    check(episodes > 0, "no episode finished")
+    check(int(traj.overflow) == 0, f"ring overflow {int(traj.overflow)}")
+    # The last turn's logp against the plain forward on the same inputs.
+    t = cfg.num_steps - 1
+    w = ts.pool.slot(ts.pool.pool_size)
+    lp, _ = fac.fused_masked_forward_plain(w, traj.obs[t], traj.mask[t])
+    want = torch.log_softmax(lp, -1).gather(1, traj.action[t][:, None])[:, 0]
+    e = (want - traj.logp[t]).abs().max().item()
+    check(e < 1e-4, f"rollout logp disagrees with the plain forward: {e}")
+    won = int(((traj.reward > 0.5) & traj.done).sum())
+    turns_per_s = cfg.num_steps / dt
+    print(f"rollout: {turns_per_s:.3f} turns/s = {turns_per_s * cfg.num_envs:.1f} agent "
+          f"steps/s (N={cfg.num_envs}, T={cfg.num_steps}, H={cfg.hidden}, "
+          f"{dt:.3f} s incl. ring deal); {episodes} episodes, {won} won; launches {launches}",
+          flush=True)
+    return launches, cfg, ts
+
+
+def phase_profile(cfg, ts, n: int = 4) -> None:
+    """Where a flagship turn's time goes: n turns timed on the host clock,
+    then the same under torch.profiler for the device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from splendax_torch.env import ring as ring_lib
+    from splendax_torch.selfplay import pool as pool_lib
+    from splendax_torch.train import ppo
+
+    pool = pool_lib.set_current(ts.pool, ts.params)
+    w = pool.slot(pool.pool_size)
+    ring = ring_lib.make_ring(cfg.reset_ring_mult * cfg.num_envs, ts.generator, ts.obs.device,
+                              window=cfg.num_envs)
+    carry = (ts.env_state, ts.obs, ts.mask, ts.opp_idx, ring, pool)
+
+    def turns(k):
+        nonlocal carry
+        for _ in range(k):
+            st, obs, mask, idx, rg, pl = carry
+            t = ppo.rollout_turn(cfg, w, pl, st, obs, mask, idx, rg, generator=ts.generator)
+            carry = (t.env_state, t.obs, t.mask, t.opp_idx, t.ring, t.pool)
+        torch.cuda.synchronize()
+
+    turns(1)
+    t0 = time.perf_counter()
+    turns(n)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        turns(n)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    count = sum(e.count for e in kernels) / n
+    if dev_ms == 0:
+        print("profile: the profiler saw no device time (not measured)", flush=True)
+        return
+    print(f"profile: {wall_ms:.3f} ms/turn on the host clock; device busy {dev_ms:.3f} ms/turn "
+          f"in {count:.0f} kernel launches ({100 * dev_ms / wall_ms:.1f}% busy)", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/turn  {e.count / n:6.1f}x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "splendax_torch", "csrc")):
+        print("chip_smoke: the splendax_torch package is not beside this script", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    device = torch.device("cuda", 0)
+
+    from splendax_torch.ops import _build
+
+    secs, reports = _build.timed_build()
+    print(f"build: {secs:.2f} s for {sorted(reports)}", flush=True)
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    kern = phase_kernels(device)
+    phase_engine_agreement(device)
+    phase_env(device)
+    launches, cfg, ts = phase_rollout(device)
+    phase_profile(cfg, ts)
+
+    meta = {
+        "fused_actor_critic": ("splendax_torch/csrc/fused_actor_critic.cu",
+                               "splendax/ops/fused_actor_critic.py:37"),
+        "ring_take": ("splendax_torch/csrc/ring_take.cu", "splendax/ops/ring_take.py:38"),
+    }
+    rows = []
+    for name, (source, replaces) in meta.items():
+        k = kern[name]
+        nbytes, flops = k["bound"]
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=k["max_abs_err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=max(t_bytes, t_ops),
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            library_ms=k["library_ms"],
+        ))
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+Each source in `splendax_torch/csrc/` is compiled by `nvcc` for `sm_90a`
+into its own shared library with a plain C interface, under `build/kernels/`
+at the root of the checkout, and loaded with `ctypes`.  A library is built
+on first use, or again when its source is newer.  `build` starts one `nvcc`
+per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+SOURCES = ("fused_actor_critic", "ring_take")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+
+
+def build(names=SOURCES, force: bool = False) -> dict:
+    """Compile the named kernels in parallel.  Returns {name: ptxas report}
+    for each library it built; raises with nvcc's output if any fails."""
+    todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = BUILD_DIR / f"lib{n}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (exit {proc.returncode})\n{out}")
+            continue
+        os.replace(tmp, _lib_path(n))
+        reports[n] = out
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        if _stale(name):
+            build((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = lib
+    return lib
+
+
+def timed_build(names=SOURCES) -> tuple[float, dict]:
+    """Force a fresh parallel build; returns (seconds, ptxas reports)."""
+    t0 = time.perf_counter()
+    reports = build(names, force=True)
+    return time.perf_counter() - t0, reports

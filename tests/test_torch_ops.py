@@ -1,0 +1,151 @@
+"""The port's kernels' plain versions and the modules around them against the
+JAX package: the fused actor-critic forward (the Pallas kernel in interpret
+mode, and the flagship h768 weights), and the ring row take (the Pallas
+kernel in interpret mode, and JAX `ring.take`).  The CUDA kernels themselves
+run only on the card: their tests are in test_torch_cuda.py."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from splendax.env import ring as jring
+from splendax.models import actor_critic as jac
+from splendax.ops.fused_actor_critic import fused_masked_forward as jax_fused
+from splendax.ops.ring_take import SLAB, slab_take_rows
+from splendax.train.checkpoint import import_params_npz as jax_import_npz
+from splendax_torch.engine import rules, state as S
+from splendax_torch.env import core, ring
+from splendax_torch.models import actor_critic as ac
+from splendax_torch.ops import fused_actor_critic as fac
+from splendax_torch.ops import ring_take as rt
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP = os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz")
+
+
+def numpy_params(rng, hidden):
+    """Flat npz-layout params, uniform +-1/sqrt(fan_in) as both inits draw."""
+    out = {}
+    for head, n_out in (("actor", 45), ("critic", 1)):
+        for i, (fi, fo) in enumerate(((297, hidden), (hidden, hidden), (hidden, n_out))):
+            bound = 1.0 / np.sqrt(fi)
+            out[f"{head}.{i}.w"] = rng.uniform(-bound, bound, (fi, fo)).astype(np.float32)
+            out[f"{head}.{i}.b"] = rng.uniform(-bound, bound, (fo,)).astype(np.float32)
+    return out
+
+
+def jax_params(flat):
+    return {h: [{"w": jnp.asarray(flat[f"{h}.{i}.w"]), "b": jnp.asarray(flat[f"{h}.{i}.b"])}
+                for i in range(3)] for h in ("actor", "critic")}
+
+
+@pytest.fixture(scope="module")
+def batch():
+    rng = np.random.RandomState(1)
+    obs = rng.randint(0, 8, size=(300, 297)).astype(np.int32)
+    mask = rng.rand(300, 45) < 0.4
+    mask[0] = False  # a row with no legal action
+    return obs, mask
+
+
+@pytest.mark.parametrize("B", [1, 17, 256, 257])
+def test_fused_forward_plain_matches_pallas_kernel(batch, B):
+    """rtol/atol 1e-5 (f32 sums in another order): the port's plain version
+    against the Pallas kernel in interpret mode, at H=64."""
+    flat = numpy_params(np.random.RandomState(0), 64)
+    obs, mask = batch[0][:B], batch[1][:B]
+    lj, vj = jax_fused(jax_params(flat), jnp.asarray(obs), jnp.asarray(mask), interpret=True)
+    w = ac.kernel_weights(ac.params_from_jax(flat, device="cpu"))
+    lp, vp = fac.fused_masked_forward(w, torch.from_numpy(obs), torch.from_numpy(mask))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=1e-5, atol=1e-5)
+    # the no-legal row stays unmasked; the others carry -1e9 exactly where illegal
+    assert (lp[0] > -1e8).all()
+    np.testing.assert_array_equal(lp.numpy()[1:] == fac.BIG_NEG, ~mask[1:])
+    lo, vo = fac.fused_masked_forward(w, torch.from_numpy(obs), torch.from_numpy(mask),
+                                      with_value=False)
+    assert vo is None and torch.equal(lo, lp)
+
+
+def test_flagship_weights_match_jax_forward():
+    """The committed h768 flagship through `import_params_npz`: logits and
+    values within 1e-4 of JAX `ac.forward` + `masked_logits` at B=64.  1e-4,
+    not 1e-5: the two CPU matmul backends sum the 768-long products in
+    different orders, and the flagship's logits reach tens in magnitude."""
+    model = ac.import_params_npz(FLAGSHIP, device="cpu")
+    assert model.hidden == 768
+    with np.load(FLAGSHIP) as d:
+        np.testing.assert_array_equal(model.actor[0].weight.detach().numpy().T, d["actor.0.w"])
+    rng = np.random.RandomState(2)
+    st = S.initial_state(64, torch.Generator().manual_seed(2), device="cpu")
+    for _ in range(20):
+        m = rules.legal_mask(st).numpy()
+        a = np.where(m.any(1), (rng.rand(64, 45) * m).argmax(1), 0)
+        st, out = core.step(st, torch.from_numpy(a))
+    obs, mask = out.obs, out.action_mask
+    jp = jax_import_npz(FLAGSHIP)
+    lj, vj = jac.forward(jp, jnp.asarray(obs.numpy()))
+    lj = jac.masked_logits(lj, jnp.asarray(mask.numpy()))
+    with torch.no_grad():
+        logits, value = model(obs)
+    lm = ac.masked_logits(logits, mask)
+    np.testing.assert_allclose(lm.numpy(), np.asarray(lj), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(value.numpy(), np.asarray(vj), rtol=1e-4, atol=1e-4)
+    lf, vf = fac.fused_masked_forward(ac.kernel_weights(model), obs, mask)
+    np.testing.assert_allclose(lf.numpy(), np.asarray(lj), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(vf.numpy(), np.asarray(vj), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("p_done", [0.03, 0.5, 1.0])
+def test_ring_take_plain_matches_pallas_kernel(p_done):
+    """Exact: the plain row take against `slab_take_rows` in interpret mode,
+    W=512, 1024 lanes (all done overflows the window)."""
+    rng = np.random.RandomState(0)
+    W, R, ptr0 = 512, 1024, 300
+    packed = rng.randint(-1, 90, size=(R + W, 135)).astype(np.int8)
+    done = rng.rand(1024) < p_done
+    rank = np.concatenate([[0], np.cumsum(done)[:-1]]).astype(np.int64)
+    clamped = np.minimum(rank, W - 1).astype(np.int32)
+    want = np.asarray(slab_take_rows(
+        jnp.asarray(packed[ptr0 : ptr0 + W + SLAB]), jnp.asarray(clamped), interpret=True))
+    got = rt.take_rows(torch.from_numpy(packed), torch.tensor(ptr0), torch.from_numpy(rank), W)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("p_done", [0.03, 0.5, 1.0])
+def test_ring_take_matches_jax_ring_take(p_done):
+    """Exact: the port's `ring.take` on a ring carried over from JAX
+    `make_ring`, against JAX `ring.take`: the fresh states, the pointer and
+    the overflow count (p_done=1.0 finishes more than W lanes)."""
+    B, size, W = 1024, 2048, 512
+    jr = jring.make_ring(jax.random.PRNGKey(0), size, window=W)
+    jr = jr.replace(ptr=jnp.int32(1900))  # so the take crosses the mirrored tail
+    pr = ring.FreshGameRing(
+        packed=torch.from_numpy(np.array(jr.packed)),
+        mask0=torch.from_numpy(np.array(jr.mask0)),
+        ptr=torch.tensor(int(jr.ptr)), overflow=torch.tensor(int(jr.overflow)), size=size,
+    )
+    done = np.random.RandomState(1).rand(B) < p_done
+    for _ in range(2):
+        jfresh, jmask, jr = jring.take(jr, jnp.asarray(done))
+        pfresh, pmask, pr = ring.take(pr, torch.from_numpy(done))
+        for k in S.FIELDS:
+            got, want = getattr(pfresh, k).numpy(), np.asarray(getattr(jfresh, k))
+            np.testing.assert_array_equal(got[done], want[done], err_msg=k)
+        np.testing.assert_array_equal(pmask.numpy(), np.asarray(jmask))
+        assert int(pr.ptr) == int(jr.ptr) and int(pr.overflow) == int(jr.overflow)
+    if p_done == 1.0:
+        assert int(pr.overflow) == 2 * (B - W)
+
+
+def test_ring_unpack_inverts_pack():
+    st = S.initial_state(32, torch.Generator().manual_seed(5), device="cpu")
+    back = ring._unpack_state(ring._pack(st))
+    for k in S.FIELDS:
+        assert torch.equal(getattr(back, k), getattr(st, k)), k
+
