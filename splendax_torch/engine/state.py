@@ -119,8 +119,9 @@ def initial_state(B: int, generator: torch.Generator, device="cuda") -> GameStat
     return GameState(**fields)
 
 
-def from_numpy(arrays, device="cpu") -> GameState:
+def from_numpy(arrays, device="cuda") -> GameState:
     """A GameState from a mapping (or object) of batched numpy arrays."""
+    device = resolve_device(device)
     get = arrays.__getitem__ if isinstance(arrays, dict) else lambda k: getattr(arrays, k)
     return GameState(**{k: torch.as_tensor(np.asarray(get(k)), device=device) for k in FIELDS})
 

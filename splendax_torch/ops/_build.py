@@ -4,7 +4,7 @@ Each source in `splendax_torch/csrc/` is compiled by `nvcc` for `sm_90a`
 into its own shared library with a plain C interface, under `build/kernels/`
 at the root of the checkout, and loaded with `ctypes`.  A library is built
 on first use, or again when its source is newer.  `build` starts one `nvcc`
-per source, all at once.
+per source, all at once (`compile_many`).
 """
 
 from __future__ import annotations
@@ -47,6 +47,28 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
 
 
+def compile_many(jobs: dict) -> dict:
+    """One nvcc per job, all started at once.  `jobs` maps a name to
+    (source .cu, output .so, extra nvcc flags).  Returns {name: nvcc's
+    output, the ptxas report}; raises with the output of every nvcc that
+    failed."""
+    nvcc = _nvcc()
+    procs = {
+        n: subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n, (src, out, flags) in jobs.items()
+    }
+    reports, failed = {}, []
+    for n, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (exit {proc.returncode})\n{out}")
+        reports[n] = out
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
 def build(names=SOURCES, force: bool = False) -> dict:
     """Compile the named kernels in parallel.  Returns {name: ptxas report}
     for each library it built; raises with nvcc's output if any fails."""
@@ -54,22 +76,10 @@ def build(names=SOURCES, force: bool = False) -> dict:
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
+    tmp = {n: BUILD_DIR / f"lib{n}.so.{os.getpid()}.tmp" for n in todo}
+    reports = compile_many({n: (CSRC / f"{n}.cu", tmp[n], ()) for n in todo})
     for n in todo:
-        tmp = BUILD_DIR / f"lib{n}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    reports, failed = {}, []
-    for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {n} (exit {proc.returncode})\n{out}")
-            continue
-        os.replace(tmp, _lib_path(n))
-        reports[n] = out
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp[n], _lib_path(n))
     return reports
 
 

@@ -4,9 +4,12 @@ Counterpart of the TPU kernel `splendax/ops/fused_actor_critic.py`: both MLPs
 (297 -> H -> H -> 45 actor, 297 -> H -> H -> 1 critic, tanh after the first
 two layers) and the masked-logits select in one pass.  On a CUDA tensor
 `fused_masked_forward` launches the hand-written kernel in
-`csrc/fused_actor_critic.cu`; on a CPU tensor it runs
-`fused_masked_forward_plain`, the same function in plain PyTorch, which is
-also what the kernel is held against.  `launches` counts kernel launches.
+`csrc/fused_actor_critic.cu` (3xTF32 on the tensor cores); on a CPU tensor it
+runs `fused_masked_forward_plain`, the same function in plain PyTorch.  The
+kernel is held within rtol/atol 1e-5 of the plain version, which computes in
+the weights' dtype: on the committed nets the plain float32 version is
+itself that far from the exact forward, so float64 weights give the
+reference.  `launches` counts kernel launches.
 
 `weights` is the list of the 12 weight and bias tensors in the JAX package's
 layout, [in, out]: aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2
@@ -37,8 +40,10 @@ def masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def fused_masked_forward_plain(weights, obs, mask, with_value: bool = True):
+    """The forward in plain PyTorch, in the weights' dtype: float32 as the
+    kernel takes them, or float64 for a reference closer to exact."""
     aw0, ab0, aw1, ab1, aw2, ab2, cw0, cb0, cw1, cb1, cw2, cb2 = weights
-    x = obs.to(torch.float32)
+    x = obs.to(aw0.dtype)
     h = torch.tanh(x @ aw0 + ab0)
     h = torch.tanh(h @ aw1 + ab1)
     logits = masked_logits(h @ aw2 + ab2, mask)

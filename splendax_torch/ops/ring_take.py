@@ -15,6 +15,7 @@ import torch
 
 from . import _build
 
+WIDTH = 135  # bytes of a packed game state; the kernel is built for this width
 launches = 0
 
 
@@ -27,8 +28,8 @@ def _lib():
     lib = _build.load("ring_take")
     fn = lib.ring_take_rows
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -48,12 +49,15 @@ def take_rows(packed: torch.Tensor, ptr: torch.Tensor, rank: torch.Tensor, windo
             raise ValueError(f"take_rows: {name} must be contiguous {dt} on {packed.device}")
     if packed.dim() != 2 or ptr.numel() != 1 or rank.dim() != 1:
         raise ValueError("take_rows: expected packed [R, width], scalar ptr, rank [B]")
+    if packed.shape[1] != WIDTH or max(packed.numel(), rank.shape[0] * WIDTH) >= 2**31:
+        raise ValueError(f"take_rows: the kernel takes rows of {WIDTH} bytes and 32-bit "
+                         f"offsets, got packed {tuple(packed.shape)}, {rank.shape[0]} ranks")
     if not 1 <= window <= packed.shape[0]:
         raise ValueError(f"take_rows: window {window} outside [1, {packed.shape[0]}]")
-    B, width = rank.shape[0], packed.shape[1]
-    rows = torch.empty((B, width), dtype=torch.int8, device=packed.device)
+    B = rank.shape[0]
+    rows = torch.empty((B, WIDTH), dtype=torch.int8, device=packed.device)
     err = _lib()(
-        packed.data_ptr(), ptr.data_ptr(), rank.data_ptr(), B, width, window,
+        packed.data_ptr(), ptr.data_ptr(), rank.data_ptr(), B, WIDTH, window,
         rows.data_ptr(), torch.cuda.current_stream(packed.device).cuda_stream,
     )
     if err != 0:

@@ -35,26 +35,70 @@ def numpy_params(rng, hidden):
     return out
 
 
+def check_fused(w, obs, mask):
+    """Kernel A with and without value within rtol/atol 1e-5 (f32 accuracy;
+    sums in another order) of its plain version; one launch per call."""
+    lp, vp = fac.fused_masked_forward_plain(w, obs, mask)
+    lp_only, _ = fac.fused_masked_forward_plain(w, obs, mask, with_value=False)
+    before = fac.launches
+    lk, vk = fac.fused_masked_forward(w, obs, mask)
+    lo, vo = fac.fused_masked_forward(w, obs, mask, with_value=False)
+    assert fac.launches == before + 2
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lo, lp_only, rtol=1e-5, atol=1e-5)
+    assert vo is None and torch.equal(lo, lk)  # the critic does not touch the logits
+    return lk
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [256, 512, 768, 1024])
-@pytest.mark.parametrize("B", [1, 17, 257, 4096])
+@pytest.mark.parametrize("H", [37, 64, 100, 256, 768, 1024])
+@pytest.mark.parametrize("B", [1, 17, 31, 33, 257, 2048, 4096, 4097, 4127])
 def test_fused_kernel_matches_plain(cuda, H, B):
-    """rtol/atol 1e-5 (f32 sums in another order): kernel A against its
-    plain version, with a row that has no legal action."""
+    """Kernel A against its plain version across the row-tile edges and
+    ragged hidden widths (37: 4-byte weight copies; 100: a part tile), with a
+    row that has no legal action.  On a 132-SM H100 the kernel takes 16-row
+    tiles up to B = 2112 (ragged at 1, 17, 31, 33, 257) and 32-row tiles
+    from 4096 on (ragged at 4097, 4127)."""
     rng = np.random.RandomState(H + B)
     w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
     obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
     mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
     mask[0] = False
-    before = fac.launches
-    lk, vk = fac.fused_masked_forward(w, obs, mask)
-    lo, vo = fac.fused_masked_forward(w, obs, mask, with_value=False)
-    lp, vp = fac.fused_masked_forward_plain(w, obs, mask)
-    assert fac.launches == before + 2
-    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-5)
-    assert vo is None and torch.equal(lo, lk)
+    lk = check_fused(w, obs, mask)
     assert (lk[0] > -1e8).all()
+
+
+@pytest.mark.cuda
+def test_fused_kernel_zero_weights(cuda):
+    """All-zero weights: logits 0 where legal, -1e9 where not, 0 throughout
+    the row with no legal action; value 0."""
+    w = [torch.zeros_like(t) for t in ac.kernel_weights(
+        ac.params_from_jax(numpy_params(np.random.RandomState(1), 100), device=cuda))]
+    rng = np.random.RandomState(2)
+    obs = torch.as_tensor(rng.randint(0, 8, size=(33, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(33, 45) < 0.4, device=cuda)
+    mask[0] = False
+    logits, value = fac.fused_masked_forward(w, obs, mask)
+    assert torch.equal(logits, torch.where(mask | ~mask.any(1, keepdim=True), 0.0, -1e9))
+    assert torch.equal(value, torch.zeros_like(value))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [257, 4127])
+def test_fused_kernel_obs_beyond_tf32(cuda, B):
+    """An obs of 4097 is not exact in TF32, so the kernel takes layer 1's
+    third product for that block; dropping it would miss by 1 x 1e-3 in the
+    first layer.  B = 257 runs 16-row tiles, 4127 32-row tiles."""
+    rng = np.random.RandomState(3)
+    flat = numpy_params(rng, 256)
+    for head in ("actor", "critic"):
+        flat[f"{head}.0.w"][0] = rng.uniform(-1e-3, 1e-3, 256).astype(np.float32)
+    w = ac.kernel_weights(ac.params_from_jax(flat, device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+    obs[B - 57::7, 0] = 4097  # the blocks of the last 57 rows only
+    mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+    check_fused(w, obs, mask)
 
 
 @pytest.mark.cuda
@@ -82,6 +126,38 @@ def test_ring_take_kernel_matches_plain(cuda, p_done):
     got = rt.take_rows(packed, ptr, rank, W)
     assert rt.launches == before + 1
     assert torch.equal(got, rt.take_rows_plain(packed, ptr, rank, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 1000, 8191])
+@pytest.mark.parametrize("ptr0", [0, 1, 5, 13, 700, 1023])
+def test_ring_take_kernel_edges(cuda, B, ptr0):
+    """Exact: kernel B with sources at every 16-byte phase (ptr0), ragged
+    last stores and blocks (B), and past the window (all done at B > W = 512
+    overflows it)."""
+    rng = np.random.RandomState(B + ptr0)
+    W, R = 512, 1024
+    packed = torch.as_tensor(rng.randint(-1, 90, size=(R + W, 135)).astype(np.int8), device=cuda)
+    ptr = torch.tensor(ptr0, device=cuda)
+    for p_done in (0.03, 0.5, 1.0):
+        done = torch.as_tensor(rng.rand(B) < p_done, device=cuda)
+        rank = torch.cumsum(done, 0) - done.long()
+        assert torch.equal(rt.take_rows(packed, ptr, rank, W), rt.take_rows_plain(packed, ptr, rank, W))
+
+
+@pytest.mark.cuda
+def test_ring_take_kernel_gathers_any_rank(cuda):
+    """Exact for ranks that are no prefix sum and for a `packed` view that is
+    not 16-byte aligned; a width other than 135 raises."""
+    rng = np.random.RandomState(4)
+    W, R, B = 512, 1024, 777
+    full = torch.as_tensor(rng.randint(-1, 90, size=(R + W + 1, 135)).astype(np.int8), device=cuda)
+    rank = torch.as_tensor(rng.randint(0, 2 * W, size=B), device=cuda)
+    ptr = torch.tensor(300, device=cuda)
+    for packed in (full[:-1], full[1:]):
+        assert torch.equal(rt.take_rows(packed, ptr, rank, W), rt.take_rows_plain(packed, ptr, rank, W))
+    with pytest.raises(ValueError, match="135"):
+        rt.take_rows(full[:, :134].contiguous(), ptr, rank, W)
 
 
 @pytest.mark.cuda

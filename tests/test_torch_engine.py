@@ -70,6 +70,17 @@ def test_default_device_is_the_gpu():
         S.initial_state(4, torch.Generator())
 
 
+def test_from_numpy_defaults_to_the_gpu():
+    """`from_numpy` too runs on the card unless told otherwise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    arrays = S.to_numpy(S.initial_state(2, torch.Generator().manual_seed(0), device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.from_numpy(arrays)
+    back = S.from_numpy(arrays, device="cpu")
+    assert all(torch.equal(torch.as_tensor(arrays[k]), x) for k, x in back.items())
+
+
 def _numpy_deals(rng, B):
     """B deals from numpy permutations, some lanes pushed near the token cap."""
     s = {k: np.broadcast_to(np.asarray(v), (B,) + np.shape(v)).copy()
@@ -108,7 +119,7 @@ def test_lockstep_games_match_jax_exactly(seed):
     B = 64
     rng = np.random.RandomState(seed)
     s = _numpy_deals(rng, B)
-    pst, jst = S.from_numpy(s), _jax_state(s)
+    pst, jst = S.from_numpy(s, device="cpu"), _jax_state(s)
     jstep = jax.jit(jax.vmap(jcore.step))
     ended = np.zeros(B, bool)
     returned = 0
