@@ -13,14 +13,24 @@ Phases, in order; any failure exits non-zero:
   4. the flagship self-play rollout: 8192 games, hidden 768, pool of 12,
      agent and pool slots loaded from the committed h768 checkpoints.  Every
      kernel launch counter is zeroed just before it and read just after;
-  5. hold each kernel against its plain PyTorch version on the card, and
-     time the kernel, the plain version and one PyTorch library call for the
+  5. the learner: three `update_step`s of the league recipe at full width
+     (one warm-up, two timed, split into rollout, GAE and epochs), with the
+     loss, its gradients and GAE held against the CPU, and the kernel's
+     log-probs against the autograd forward's; then the eval suite at 256
+     games.  The launch counters are zeroed and read around the timed
+     updates;
+  6. `train.train` through its entry point into a temporary directory (1024
+     games, hidden 768, 4 updates, 3 evals), its files, its npz and a
+     resumed run; the launch counters are zeroed and read around it;
+  7. hold each kernel against its plain PyTorch version on the card, at
+     every batch and window size that phases 4 to 6 give it, and time the
+     kernel, the plain version and one PyTorch library call for the
      same function at the main path's shapes, on the device clock (the
      summed kernel time under torch.profiler);
-  6. a profile of four flagship turns: host time per turn, device busy time
+  8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it.
 
-The host-clock rates (phases 3 and 4) are taken before the first
+The host-clock rates (phases 3 to 6) are taken before the first
 torch.profiler session of the process, so that no profiler state is left
 behind in them.
 
@@ -31,10 +41,13 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -144,7 +157,9 @@ def phase_kernels(device) -> dict:
     # tolerance), so against it the kernel is held within F32_PLAIN_SLACK
     # times the tolerance; both shares are printed.
     err_a = 0.0
-    checked_b = (1, 17, 257, 2048, 3072, 8192)
+    # 8192, 2048 and 3072 are the league rollout's shapes, 256 its eval's;
+    # 1024 and 64 are the train phase's agent and eval forwards.
+    checked_b = (1, 17, 64, 256, 257, 1024, 2048, 3072, 8192)
 
     def share(got, want):
         """max |got - want| as a share of the rtol/atol 1e-5 tolerance."""
@@ -186,13 +201,14 @@ def phase_kernels(device) -> dict:
               f"{shares[0]:.3f} of the rtol/atol 1e-5 tolerance; the float32 plain version: "
               f"{shares[1]:.3f} of it vs float64; kernel vs float32 plain: {shares[2]:.3f} "
               f"(at most {F32_PLAIN_SLACK}; B in {checked_b}, with and without value)", flush=True)
-    # Times at H = 768: the agent forward (B = 8192, with value) and the pool
-    # slots' forwards (B = 2048, 3072, no value), each beside the addmm chain
-    # for the same rows and heads.
+    # Times at H = 768: the agent forward and the bootstrap value (B = 8192,
+    # with value), the pool slots' forwards (B = 2048, 3072, no value) and the
+    # eval suite's greedy forward (B = 256, no value), each beside the addmm
+    # chain for the same rows and heads.
     H = 768
     l1_products = 2 if obs_all.abs().max().item() <= 2048 else 3
     shapes = []
-    for B, with_value in ((8192, True), (2048, False), (3072, False)):
+    for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False)):
         obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
         x32 = obs.to(torch.float32)
 
@@ -221,12 +237,16 @@ def phase_kernels(device) -> dict:
         checked_against="plain version in float64, rtol/atol 1e-5", by_shape=shapes,
     )
 
-    # Kernel B: ring row take, at W = 8192 (the rollout's window).
+    # Kernel B: ring row take, at W = 8192 (the league rollout's window) and
+    # at B = W = 1024 (the train phase's).
     rng = np.random.RandomState(0)
-    W, R = 8192, 16384
-    packed = torch.as_tensor(rng.randint(-1, 90, size=(R + W, 135)).astype(np.int8), device=device)
-    for B, p_done, ptr0 in ((8192, 0.03, 5), (8192, 0.5, 12000), (8192, 1.0, R - 1),
-                            (8191, 0.5, 77), (12000, 1.0, 3)):
+    R = 16384
+    packed = torch.as_tensor(rng.randint(-1, 90, size=(R + 8192, 135)).astype(np.int8),
+                             device=device)
+    for B, W, p_done, ptr0 in ((8192, 8192, 0.03, 5), (8192, 8192, 0.5, 12000),
+                               (8192, 8192, 1.0, R - 1), (8191, 8192, 0.5, 77),
+                               (12000, 8192, 1.0, 3), (1024, 1024, 0.03, 5),
+                               (1024, 1024, 1.0, 2047), (1500, 1024, 1.0, 3)):
         done = torch.as_tensor(rng.rand(B) < p_done, device=device)
         rank = torch.cumsum(done, 0) - done.long()
         ptr = torch.tensor(ptr0, dtype=torch.int64, device=device)
@@ -234,11 +254,12 @@ def phase_kernels(device) -> dict:
         want = rt.take_rows_plain(packed, ptr, rank, W)
         torch.cuda.synchronize()
         e = (got.int() - want.int()).abs().max().item()
-        check(e == 0, f"kernel B disagrees at B={B} p={p_done}: max abs err {e}")
+        check(e == 0, f"kernel B disagrees at B={B} W={W} p={p_done}: max abs err {e}")
         if B > W and p_done == 1.0:
             check(rank.max().item() > W - 1, "the overflow case did not overflow")
-    print("kernel B: exact against plain, overflow case included", flush=True)
-    B = 8192
+    print("kernel B: exact against plain at W=8192 and W=1024, overflow cases included",
+          flush=True)
+    B = W = 8192
     done = torch.as_tensor(rng.rand(B) < 0.03, device=device)
     rank = torch.cumsum(done, 0) - done.long()
     ptr = torch.tensor(5, dtype=torch.int64, device=device)
@@ -268,7 +289,9 @@ def phase_engine_agreement(device) -> None:
     from splendax_torch.engine import rules
     from splendax_torch.engine.state import initial_state
     from splendax_torch.env import ring as ring_lib
+    from splendax_torch.eval.suite import heuristic_policy
 
+    heuristics = {name: heuristic_policy(name)[0] for name in ("greedy_v1", "greedy_v2", "noble")}
     B, plies = 512, 300
     gen = torch.Generator().manual_seed(3)
     cpu_ring = ring_lib.make_ring(4 * B, gen, "cpu", window=B)
@@ -292,10 +315,14 @@ def phase_engine_agreement(device) -> None:
                            ("final_rewards", out_c.final_rewards, out_g.final_rewards),
                            ("ptr", cpu_ring.ptr, gpu_ring.ptr)):
             check(torch.equal(x, y.cpu()), f"engine: {name} differs at ply {ply}")
+        for name, fn in heuristics.items():
+            check(torch.equal(fn(None, obs_c, mask_c, st_c, None),
+                              fn(None, obs_g, mask_g, st_g, None).cpu()),
+                  f"heuristic {name}: card differs from CPU at ply {ply}")
         finished += int(out_c.terminated.sum())
     check(finished > 0, "engine agreement run finished no game")
-    print(f"engine: card equals CPU on {plies} plies x {B} games ({finished} games ended)",
-          flush=True)
+    print(f"engine: card equals CPU on {plies} plies x {B} games ({finished} games ended); "
+          f"so do the heuristics {sorted(heuristics)}", flush=True)
 
 
 def phase_env(device) -> float:
@@ -335,19 +362,14 @@ def phase_env(device) -> float:
     return rate
 
 
-def phase_rollout(device):
-    """The flagship rollout through the port's entry points."""
-    import torch
-
+def flagship_state(cfg, device):
+    """A TrainState at flagship width: the agent from the committed 2B-step
+    h768 run, two frozen pool slots from the 4B-step and the distilled h768
+    nets."""
     from splendax_torch.models.actor_critic import import_params_npz
-    from splendax_torch.ops import fused_actor_critic as fac
-    from splendax_torch.ops import ring_take as rt
     from splendax_torch.selfplay import pool as pool_lib
     from splendax_torch.train import ppo
-    from splendax_torch.train.config import PPOConfig
 
-    cfg = PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
-                    reset_ring_mult=2, rng_mode="fast")
     agent = import_params_npz(os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"),
                               device=device)
     ts = ppo.init_train_state(cfg, params=agent, device=device)
@@ -357,16 +379,44 @@ def phase_rollout(device):
         pool = pool_lib.push_snapshot(pool, import_params_npz(os.path.join(ROOT, src), device=device))
     ts.pool = pool
     ts.opp_idx = pool_lib.sample_opponent_idx(pool, cfg.num_envs, ts.generator)
+    return ts
+
+
+def read_launches() -> dict:
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.ops import ring_take as rt
+
+    return {"fused_actor_critic": fac.launches, "ring_take": rt.launches}
+
+
+def zero_launches() -> None:
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.ops import ring_take as rt
+
+    fac.launches = 0
+    rt.launches = 0
+
+
+def phase_rollout(device):
+    """The flagship rollout through the port's entry points."""
+    import torch
+
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.train import ppo
+    from splendax_torch.train.config import PPOConfig
+
+    cfg = PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
+                    reset_ring_mult=2, rng_mode="fast")
+    ts = flagship_state(cfg, device)
 
     ppo.rollout(cfg.replace(num_steps=2), ts)  # warm-up, not kept
     torch.cuda.synchronize()
-    fac.launches = 0
-    rt.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     ts, traj = ppo.rollout(cfg, ts)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"fused_actor_critic": fac.launches, "ring_take": rt.launches}
+    launches = read_launches()
 
     legal = traj.mask.gather(2, traj.action[..., None])[..., 0]
     check(bool((legal | ~traj.mask.any(-1)).all()), "an agent action was illegal")
@@ -390,6 +440,233 @@ def phase_rollout(device):
           f"{dt:.3f} s incl. ring deal); {episodes} episodes, {won} won; launches {launches}",
           flush=True)
     return launches, cfg, ts
+
+
+@contextlib.contextmanager
+def timed_learner_phases(ppo, seconds: dict, last: dict):
+    """While open, `ppo.rollout`, `ppo._gae` and `ppo._ppo_epochs` add their
+    synchronised host seconds to `seconds` and leave their last arguments
+    and results in `last`."""
+    import torch
+
+    originals = {name: getattr(ppo, name) for name in ("rollout", "_gae", "_ppo_epochs")}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            last[name] = (args, out)
+            return out
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(ppo, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(ppo, name, fn)
+
+
+def phase_update(device) -> dict:
+    """The league recipe's learner at full width: one warm-up `update_step`,
+    two timed ones, and the learner's arithmetic held against the CPU."""
+    import torch
+
+    from splendax_torch.eval import suite
+    from splendax_torch.models import actor_critic as ac
+    from splendax_torch.train import ppo
+    from splendax_torch.train.config import PPOConfig
+
+    # runs/ppo_splendor_2b_h768_league/config.json without its search slot.
+    cfg = PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
+                    reset_ring_mult=2, minibatch_size=32768, update_epochs=4, lr=2.5e-4,
+                    lr_anneal=True, target_kl=0.02, snapshot_every_updates=16,
+                    total_timesteps=2_000_000_000, rng_mode="fast")
+    eval_games = 256
+    check(not torch.backends.cuda.matmul.allow_tf32, "the learner's products must be float32")
+    ts = flagship_state(cfg, device)
+    before = [p.detach().clone() for p in ts.params.parameters()]
+    ts, _ = ppo.update_step(cfg, ts)  # warm-up, not timed
+    torch.cuda.synchronize()
+
+    n_updates = 2
+    seconds, last, counts = {}, {}, []
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with timed_learner_phases(ppo, seconds, last):
+        for _ in range(n_updates):
+            count0 = ts.opt_state.count
+            ts, metrics = ppo.update_step(cfg, ts)
+            counts.append(ts.opt_state.count - count0)
+            values = {k: v.item() for k, v in metrics.items()}
+            check(all(v == v and abs(v) != float("inf") for v in values.values()),
+                  f"update: a metric is not finite: {values}")
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_updates
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["fused_actor_critic"] >= n_updates * (cfg.num_steps + 1),
+          f"update: kernel A launched {launches['fused_actor_critic']} times")
+    check(launches["ring_take"] == n_updates * cfg.num_steps,
+          f"update: kernel B launched {launches['ring_take']} times")
+    after = list(ts.params.parameters())
+    check(all(torch.isfinite(p).all().item() for p in after), "update: a parameter is not finite")
+    check(any(not torch.equal(a, b) for a, b in zip(before, after)), "update: no parameter moved")
+    check(ts.update_idx == 3 and ts.global_step == 3 * cfg.batch_size, "update: wrong counters")
+    per = {k: v / n_updates for k, v in seconds.items()}
+    steps = sum(counts) / n_updates
+    print(f"update: {dt:.4f} s per update_step = {cfg.batch_size / dt:.1f} agent steps/s "
+          f"(N={cfg.num_envs}, T={cfg.num_steps}, H={cfg.hidden}, minibatch {cfg.minibatch_size}, "
+          f"{cfg.update_epochs} epochs): rollout {per['rollout']:.4f} s, GAE {per['_gae']:.4f} s, "
+          f"epochs {per['_ppo_epochs']:.4f} s in {steps:.1f} optimizer steps "
+          f"({1e3 * per['_ppo_epochs'] / max(steps, 1):.3f} ms a minibatch; the KL stop left "
+          f"{counts} of {cfg.update_epochs * cfg.num_minibatches} steps); "
+          f"peak memory {peak} bytes; launches {launches}; last metrics {values}", flush=True)
+
+    # GAE on the card against GAE on the CPU, on the last update's rollout.
+    (_, traj, last_value), (adv, returns) = last["_gae"]
+    cpu_traj = ppo.Rollout(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                              for k, v in vars(traj).items()})
+    adv_c, ret_c = ppo._gae(cfg, cpu_traj, last_value.cpu())
+    e = max((adv.cpu() - adv_c).abs().max().item(), (returns.cpu() - ret_c).abs().max().item())
+    check(e < 1e-5, f"GAE on the card differs from the CPU by {e}")
+
+    # The loss and every gradient on the card (float32) against the CPU in
+    # float64, on 4,096 rows spread over the last rollout: rtol 1e-4, with an
+    # atol of 1e-5 of each tensor's largest value for the entries near 0.
+    (_, _, batch, _, ent_coef), _ = last["_ppo_epochs"]
+    rows = [x[::max(1, cfg.batch_size // 4096)].contiguous() for x in batch]
+    model = ts.params
+    loss, aux = ppo.ppo_loss(cfg, ent_coef, model, *rows)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    model64 = copy.deepcopy(model).cpu().double()
+    rows64 = [x.cpu().double() if x.is_floating_point() else x.cpu() for x in rows]
+    loss64, aux64 = ppo.ppo_loss(cfg, ent_coef, model64, *rows64)
+    grads64 = torch.autograd.grad(loss64, list(model64.parameters()))
+    worst = 0.0
+    for name, got, want in ([("loss", loss, loss64)]
+                            + [(f"aux[{i}]", a, b) for i, (a, b) in enumerate(zip(aux, aux64))]
+                            + [(f"grad[{i}]", a, b) for i, (a, b) in enumerate(zip(grads, grads64))]):
+        got = got.detach().cpu().double()
+        atol = 1e-5 * want.abs().max().item()
+        err = ((got - want).abs() / (atol + 1e-4 * want.abs())).max().item()
+        check(err <= 1.0, f"ppo_loss {name} on the card is {err:.3f} of rtol 1e-4 off float64")
+        worst = max(worst, err)
+    print(f"update: GAE card vs CPU max abs err {e:.3g}; ppo_loss and 12 gradients on {rows[0].shape[0]} rows "
+          f"within {worst:.3f} of rtol 1e-4 of the CPU in float64", flush=True)
+
+    # The eval suite at the league recipe's eval_games=256 (four matches).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = suite.run_evaluation_suite(ts.params, eval_games, seed=0, device=device)
+    torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
+    check(all(r["n"] == eval_games and r["illegal_action_rate"] == 0 for r in results.values()),
+          f"eval: {results}")
+    print(f"eval: {4 * eval_games / dt_eval:.1f} games/s ({dt_eval:.3f} s for 4 matches of "
+          f"{eval_games} games); "
+          + ", ".join(f"{k} wr={r['win_rate']:.3f} turns={r['avg_turns']:.1f}"
+                      for k, r in results.items()), flush=True)
+
+    # Kernel A's log-probs against the autograd forward's: an update cut to
+    # one minibatch at lr 0 reads approx_kl = mean(logp_kernel - logp_autograd),
+    # a signed mean in which errors cancel, so every row of that rollout is
+    # also held within 1e-4 (lr 0 leaves the parameters where they were).
+    probe = cfg.replace(num_steps=4, minibatch_size=4 * cfg.num_envs, update_epochs=1, lr=0.0,
+                        lr_anneal=False, snapshot_every_updates=10**9)
+    with timed_learner_phases(ppo, {}, last):
+        ts, m = ppo.update_step(probe, ts)
+    kl = m["approx_kl"].item()
+    check(abs(kl) < 1e-4, f"kernel A's logp is {kl} off the autograd forward's in approx_kl")
+    p_obs, p_mask, p_action, p_logp = last["_ppo_epochs"][0][2][:4]
+    with torch.no_grad():
+        new_logp, _ = ac.log_prob_entropy(ts.params(p_obs)[0], p_mask, p_action)
+    row_err = (new_logp - p_logp).abs().max().item()
+    check(row_err < 1e-4, f"kernel A's logp is {row_err} off the autograd forward's on a row")
+    print(f"update: approx_kl of one minibatch at lr 0 (kernel logp vs autograd): {kl:.3g}; "
+          f"max over its {p_logp.shape[0]} rows of |logp_kernel - logp_autograd|: {row_err:.3g}",
+          flush=True)
+
+    # What the KL stop's host read costs: the last full rollout's epochs at
+    # lr 0, once without the read (target_kl 0) and once with a read a
+    # minibatch that never stops (target_kl 1e9).
+    times = {0.0: [], 1e9: []}
+    for target_kl in (0.0, 1e9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppo._ppo_epochs(cfg.replace(target_kl=target_kl), ts, batch, 0.0, ent_coef)
+        torch.cuda.synchronize()
+        times[target_kl].append(time.perf_counter() - t0)
+    n = cfg.update_epochs * cfg.num_minibatches
+    print(f"update: {n} minibatch steps without the KL read {times[0.0]} s, with it "
+          f"{times[1e9]} s", flush=True)
+    return launches
+
+
+def phase_train(device) -> dict:
+    """`train.train` through its entry point on the card: small depth, the
+    flagship's hidden width."""
+    import numpy as np
+    import torch
+
+    from splendax_torch.models.actor_critic import import_params_npz
+    from splendax_torch.train import train
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        cfg = train.parse_args([
+            "--num-envs", "1024", "--num-steps", "16", "--hidden", "768",
+            "--total-timesteps", str(4 * 16384), "--eval-games", "64",
+            "--eval-every-updates", "2", "--checkpoint-every-updates", "1",
+            "--log-dir", log_dir])
+        zero_launches()
+        t0 = time.perf_counter()
+        ts = train.train(cfg, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        # Each update: a turn launches kernel A for the agent and for at least
+        # one pool slot, then the bootstrap value; kernel B once a turn.
+        n_up, T = 4, cfg.num_steps
+        check(launches["fused_actor_critic"] >= n_up * (2 * T + 1),
+              f"train: kernel A launched {launches['fused_actor_critic']} times")
+        check(launches["ring_take"] == n_up * T,
+              f"train: kernel B launched {launches['ring_take']} times")
+        check(ts.update_idx == 4, f"train: ended at update {ts.update_idx}")
+        for name in ("ppo_splendor_latest.pt", "config.json", "metrics.jsonl",
+                     "ppo_splendor_params.npz"):
+            check(os.path.isfile(os.path.join(log_dir, name)), f"train: {name} is missing")
+        again = import_params_npz(os.path.join(log_dir, "ppo_splendor_params.npz"), device=device)
+        check(all(torch.equal(a, b) for a, b in zip(again.parameters(), ts.params.parameters())),
+              "train: the npz does not reload to the trained parameters")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        evals = [r for r in recs if r["type"] == "eval"]
+        check([r["step"] for r in evals] == [0, 2 * 16384, 4 * 16384], "train: wrong eval cadence")
+        for r in evals:
+            for name in ("random", "greedy_v1", "basic", "self"):
+                check(r[name]["n"] == 64 and r[name]["illegal_action_rate"] == 0,
+                      f"train: eval vs {name} at step {r['step']}: {r[name]}")
+        trained = [r for r in recs if r["type"] == "train"]
+        check(len(trained) == 4 and all(np.isfinite(list(r.values())[1:]).all() for r in trained),
+              f"train: metrics {trained}")
+        # A resumed run starts at update 4, evaluates nothing and trains nothing.
+        calls = []
+        resumed = train.train(cfg.replace(resume=True), eval_fn=lambda p, seed: calls.append(seed),
+                              device=device)
+        check(resumed.update_idx == 4 and not calls
+              and resumed.opt_state.count == ts.opt_state.count
+              and all(torch.equal(a, b) for a, b in zip(resumed.params.parameters(),
+                                                        ts.params.parameters())),
+              "train: the resumed run did not start where the first ended")
+    print(f"train: 4 updates of {cfg.num_envs} x {cfg.num_steps} at H={cfg.hidden} with 3 evals of "
+          f"4 x {cfg.eval_games} games in {dt:.3f} s; files, npz and resume check out; "
+          f"launches {launches}", flush=True)
+    return launches
 
 
 def phase_profile(cfg, ts, n: int = 4) -> None:
@@ -465,6 +742,7 @@ def main() -> int:
     phase_engine_agreement(device)
     phase_env(device)
     launches, cfg, ts = phase_rollout(device)
+    by_path = {"rollout": launches, "update": phase_update(device), "train": phase_train(device)}
     kern = phase_kernels(device)
     phase_profile(cfg, ts)
 
@@ -476,8 +754,10 @@ def main() -> int:
     rows = []
     for name, (source, replaces) in meta.items():
         k = kern[name]
+        # launches: the sum over the three driven paths, each counted from 0.
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=launches[name], **k))
+                         launches=sum(p[name] for p in by_path.values()),
+                         launches_by_path={path: p[name] for path, p in by_path.items()}, **k))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

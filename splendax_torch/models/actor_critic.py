@@ -11,6 +11,7 @@ uniform +-1/sqrt(fan_in) for weights and biases, as the JAX package's
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -50,8 +51,9 @@ class ActorCritic(nn.Module):
         return [m for head in (self.actor, self.critic) for m in head if isinstance(m, nn.Linear)]
 
     def forward(self, obs: torch.Tensor):
-        """obs [B, 297] -> (logits [B, 45], value [B])."""
-        x = obs.to(torch.float32)
+        """obs [B, 297] -> (logits [B, 45], value [B]), in the weights' dtype
+        (float32, or float64 after `.double()` for a reference)."""
+        x = obs.to(self.actor[0].weight.dtype)
         return self.actor(x), self.critic(x)[:, 0]
 
 
@@ -82,6 +84,33 @@ def sample_action(logits: torch.Tensor, mask: torch.Tensor, generator=None, nois
 def greedy_action(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Argmax of the masked logits (first index on ties)."""
     return torch.argmax(masked_logits(logits, mask), dim=-1)
+
+
+def log_prob_entropy(logits: torch.Tensor, mask: torch.Tensor, action: torch.Tensor):
+    """Per-sample log-prob of `action` and entropy of the masked categorical
+    -> (f32 [B], f32 [B]).  Illegal actions carry probability 0 and add
+    nothing to the entropy."""
+    logp = torch.log_softmax(masked_logits(logits, mask), dim=-1)
+    p = torch.exp(logp)
+    ent = -torch.where(p > 0, p * logp, 0.0).sum(-1)
+    return logp.gather(-1, action.long()[:, None])[:, 0], ent
+
+
+def critic_value(model: ActorCritic, obs: torch.Tensor) -> torch.Tensor:
+    """obs [B, 297] -> value [B], the critic head alone."""
+    return model.critic(obs.to(model.critic[0].weight.dtype))[:, 0]
+
+
+def export_params_npz(model: ActorCritic, path: str) -> None:
+    """Write the params as a flat npz in the JAX package's key layout
+    (`actor.0.w` ... `critic.2.b`, weights [in, out])."""
+    flat = {}
+    for i, layer in enumerate(model.linears()):
+        head, j = HEADS[i // 3], i % 3
+        flat[f"{head}.{j}.w"] = layer.weight.detach().t().cpu().numpy().copy()
+        flat[f"{head}.{j}.b"] = layer.bias.detach().cpu().numpy().copy()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flat)
 
 
 def params_from_jax(np_params: dict, device="cuda") -> ActorCritic:

@@ -1,12 +1,60 @@
-"""Opponent policies.
+"""Opponent policies on whole batches.
 
-Counterpart of `splendax/selfplay/opponents.py`.  This slice ports only the
-uniform random legal action; the heuristic opponents come later.
+Counterpart of the device policies of `splendax/selfplay/opponents.py`:
+`random`, `greedy_v1`, `basic` and `greedy_v2`, each a function
+`fn(obs int32 [B, 297], mask bool [B, 45], state GameState [B],
+generator=None) -> action int64 [B]`.  `greedy_v1` and `greedy_v2` are
+deterministic; `random` and `basic` break ties with uniform draws from
+`generator`.  `device_policy(name, generator)` closes one over a generator as
+the `policy(obs, mask, state)` that `dual.dual_step` takes.
+
+The action space: take-3 0..9, take-2 10..14, buy a visible card 15..26,
+reserve 27..41, buy a reserved card 42..44.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from ..engine import rules
+
+_A = torch.arange(rules.TOTAL_ACTIONS)
+# The action families, bool [45] each.
+GROUPS = {
+    "take3": _A <= 9,
+    "take2": (_A >= 10) & (_A <= 14),
+    "buy_vis": (_A >= 15) & (_A <= 26),
+    "reserve": (_A >= 27) & (_A <= 41),
+    "buy_res": _A >= 42,
+    "buys": ((_A >= 15) & (_A <= 26)) | (_A >= 42),
+}
+
+
+def first_legal(mask: torch.Tensor) -> torch.Tensor:
+    """The lowest True index of each row of a bool mask (0 where there is
+    none)."""
+    return torch.argmax(mask.to(torch.int32), dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _groups_on(device: torch.device) -> dict:
+    return {name: g.to(device) for name, g in GROUPS.items()}
+
+
+def in_group(mask: torch.Tensor, name: str) -> torch.Tensor:
+    """The legal actions of one action family: `mask & GROUPS[name]`."""
+    return mask & _groups_on(mask.device)[name]
+
+
+def choose(*cases, default: torch.Tensor) -> torch.Tensor:
+    """The action of the first case whose condition holds, row by row:
+    `cases` are (bool [B], action [B]) pairs in order of priority."""
+    out = default
+    for cond, action in reversed(cases):
+        out = torch.where(cond, action, out)
+    return out
 
 
 def uniform_legal_action(mask: torch.Tensor, generator=None, u=None) -> torch.Tensor:
@@ -22,3 +70,74 @@ def uniform_legal_action(mask: torch.Tensor, generator=None, u=None) -> torch.Te
     before = torch.cumsum(m, -1) - m  # legal actions before each action
     hit = mask & (before == k)
     return torch.argmax(hit.to(torch.int32), dim=-1)
+
+
+def random_policy(obs, mask, state, generator=None):
+    """Uniform over all legal actions."""
+    return uniform_legal_action(mask, generator)
+
+
+def greedy_v1_policy(obs, mask, state, generator=None):
+    """buy > take-2 > take-3 > reserve, the first legal action of each
+    group.  Deterministic."""
+    groups = [in_group(mask, g) for g in ("buys", "take2", "take3", "reserve")]
+    return choose(*((m.any(-1), first_legal(m)) for m in groups), default=first_legal(mask))
+
+
+def basic_priority_policy(obs, mask, state, generator=None):
+    """The visible buy with the most points > a reserved buy > take-3 >
+    take-2 > reserve > first legal, each tie broken at random.  Card points
+    are read from the observation (`obs[32 + 13 * slot + 2]`)."""
+    B = mask.shape[0]
+    u1, u2 = torch.rand((2, B), generator=generator, device=mask.device)
+    buy_vis = in_group(mask, "buy_vis")
+    pts45 = torch.zeros((B, rules.TOTAL_ACTIONS), dtype=obs.dtype, device=obs.device)
+    pts45[:, 15:27] = obs[:, 34 : 34 + 12 * 13 : 13]
+    best_pts = torch.where(buy_vis, pts45, -1).amax(-1, keepdim=True)
+    best_vis = buy_vis & (pts45 == best_pts)
+    cases = [(buy_vis.any(-1), uniform_legal_action(best_vis, u=u1))]
+    for group, u in (("buy_res", u1), ("take3", u2), ("take2", u2), ("reserve", u2)):
+        m = in_group(mask, group)
+        cases.append((m.any(-1), uniform_legal_action(m, u=u)))
+    return choose(*cases, default=first_legal(mask))
+
+
+def greedy_v2_policy(obs, mask, state, generator=None):
+    """Scarcity-aware greedy: buys first; else the take-2 of the scarcest
+    bank colour; else the take-3 with the least bank tokens over its three
+    colours; else the reserve with the highest action index.  Reads the bank
+    from the game state (public information), hence `privileged`."""
+    t = rules.tables(mask.device)
+    bank5 = state.bank[:, :5].long()
+    buys = in_group(mask, "buys")
+    # Scores are unique within a row, so ties go to the lowest action index.
+    t2 = in_group(mask, "take2")
+    t2_score = bank5 * 64 + t.ar5
+    a_t2 = 10 + torch.argmin(torch.where(t2[:, 10:15], t2_score, 10_000), dim=-1)
+    t3 = in_group(mask, "take3")
+    combo_sum = (t.combo[None] * bank5[:, None, :]).sum(-1)  # [B, 10]
+    t3_score = combo_sum * 64 + torch.arange(10, device=mask.device)
+    a_t3 = torch.argmin(torch.where(t3[:, :10], t3_score, 10_000), dim=-1)
+    rsv = in_group(mask, "reserve")
+    a_rsv = 44 - first_legal(rsv.flip(-1))
+    return choose((buys.any(-1), first_legal(buys)), (t2.any(-1), a_t2), (t3.any(-1), a_t3),
+                  (rsv.any(-1), a_rsv), default=first_legal(mask))
+
+
+greedy_v2_policy.privileged = True  # reads GameState, not only the observation
+
+DEVICE_POLICIES = {
+    "random": random_policy,
+    "greedy_v1": greedy_v1_policy,
+    "basic": basic_priority_policy,
+    "greedy_v2": greedy_v2_policy,
+}
+
+
+def device_policy(name: str, generator=None):
+    """`DEVICE_POLICIES[name]` as `policy(obs, mask, state) -> action [B]`,
+    drawing its random tie-breaks from `generator`."""
+    if name not in DEVICE_POLICIES:  # registered when its module is imported
+        from ..eval import noble  # noqa: F401
+    fn = DEVICE_POLICIES[name]
+    return lambda obs, mask, state: fn(obs, mask, state, generator)

@@ -1,21 +1,39 @@
-"""Masked-PPO self-play: the rollout half.
+"""Masked-PPO self-play trainer: the rollout and the learner.
 
-Counterpart of the rollout in `splendax/train/ppo.py` (`_rollout`): T
-complete self-play turns for N games.  Each turn runs the agent forward and
-a masked sample, the pooled opponents' greedy forward, the two engine plies,
-and the fresh-game ring autoreset.  The agent and opponent forwards run the
-fused actor-critic kernel; the ring take runs the ring-take kernel.
+Counterpart of `splendax/train/ppo.py`.  `update_step` is one PPO update:
+T complete self-play turns for N games, the bootstrap value, GAE, the
+advantage normalisation, `update_epochs x num_minibatches` clipped-PPO steps
+with the target-KL early stop, and the snapshot push into the opponent pool.
+
+Each turn runs the agent forward and a masked sample, the opponents' move
+(the pool's greedy forward, or a heuristic when `self_play` is off), the two
+engine plies, and the fresh-game ring autoreset.  Every forward that needs
+no gradient (agent, opponents, bootstrap value) runs the fused actor-critic
+kernel; the ring take runs the ring-take kernel.  The loss differentiates
+the plain forward (`ActorCritic.forward`) under autograd, as the JAX package
+differentiates its plain forward.  Those products are float32:
+`torch.backends.cuda.matmul.allow_tf32` is left off (PyTorch's default), so
+the ratio of the first minibatch differs from 1 only by the kernel's 1e-5.
 
 `rollout_turn` is one turn with its random inputs (the action noise, the
-opponent resample and the ring) open to the caller, so a test can drive it
-in lockstep with the JAX functions.  The learner half (GAE, the clipped
-loss, the optimizer) is not ported yet.
+opponent resample and the ring) open to the caller, and `_ppo_epochs` takes
+its permutations the same way, so a test can drive both in lockstep with
+the JAX functions.
+
+The target-KL early stop is a `break` on the host: the minibatch whose
+approx-KL passes `target_kl` still takes its step, the rest of that epoch is
+not run, and the next epoch starts afresh.  The JAX package runs those
+minibatches as no-ops; the params, both Adam moments, the step count and the
+reported metrics come out the same.  It costs one host read of the KL per
+minibatch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -25,13 +43,16 @@ from ..env import ring as ring_lib
 from ..models import actor_critic as ac
 from ..ops.fused_actor_critic import fused_masked_forward
 from ..selfplay import dual
+from ..selfplay import opponents
 from ..selfplay import pool as pool_lib
+from . import optim
 from .config import PPOConfig
 
 
 @dataclass
 class TrainState:
     params: ac.ActorCritic
+    opt_state: optim.AdamState
     pool: pool_lib.OpponentPool
     env_state: GameState  # [N]
     obs: torch.Tensor  # int32 [N, 297]
@@ -74,26 +95,36 @@ class Turn:
 
 
 def _check_supported(cfg: PPOConfig) -> None:
-    if not cfg.self_play:
-        raise NotImplementedError("self_play=False (heuristic opponents) is not ported yet")
     if cfg.search_opponent:
-        raise NotImplementedError("search_opponent=True (the league slot) is not ported yet")
+        raise NotImplementedError(
+            "search_opponent=True (the league slot) waits for the search slice of the port")
     if cfg.reset_ring_mult <= 0:
-        raise NotImplementedError("reset_ring_mult=0 (full-batch autoreset) is not ported")
+        raise NotImplementedError(
+            "reset_ring_mult=0 (full-batch autoreset) waits for the host-API slice of the port")
+    if cfg.rng_mode != "fast":
+        raise NotImplementedError(
+            f"rng_mode={cfg.rng_mode!r} waits for the MT19937 parity slice of the port")
+    if cfg.dp != 0 or cfg.tp != 1:
+        raise NotImplementedError(
+            "dp/tp other than 0/1 wait for the torch.distributed slice of the port")
 
 
 def _sample_opponents(cfg: PPOConfig, pool, generator, n: int):
     return pool_lib.sample_opponent_idx(pool, n, generator, cfg.opponent_sampling)
 
 
-def _opponent_policy(cfg: PPOConfig, pool, opp_idx):
-    return pool_lib.pool_greedy_policy(pool, opp_idx)
+def _opponent_policy(cfg: PPOConfig, pool, opp_idx, generator=None):
+    """The opponents' move: each game's pool slot played greedily, or with
+    `self_play` off the heuristic `cfg.train_opponent` for every game."""
+    if cfg.self_play:
+        return pool_lib.pool_greedy_policy(pool, opp_idx)
+    return opponents.device_policy(cfg.train_opponent, generator)
 
 
 def init_train_state(cfg: PPOConfig, params: ac.ActorCritic | None = None,
                      device="cuda") -> TrainState:
-    """Fresh params (unless given), pool, games and opponents, all drawn from
-    one generator seeded with `cfg.seed`."""
+    """Fresh params (unless given), optimizer state, pool, games and
+    opponents, all drawn from one generator seeded with `cfg.seed`."""
     _check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -101,7 +132,8 @@ def init_train_state(cfg: PPOConfig, params: ac.ActorCritic | None = None,
     pool = pool_lib.init_pool(model, cfg.pool_size, cfg.p_current)
     env_state, obs, mask = core.reset(cfg.num_envs, gen, device)
     return TrainState(
-        params=model, pool=pool, env_state=env_state, obs=obs, mask=mask,
+        params=model, opt_state=optim.init(model.parameters()), pool=pool,
+        env_state=env_state, obs=obs, mask=mask,
         opp_idx=_sample_opponents(cfg, pool, gen, cfg.num_envs), generator=gen,
     )
 
@@ -116,11 +148,13 @@ def rollout_turn(cfg: PPOConfig, weights, pool, env_state, obs, mask, opp_idx, r
     """
     logits, value = fused_masked_forward(weights, obs, mask)
     action, logp = ac.sample_action(logits, mask, generator=generator, noise=noise)
-    policy = _opponent_policy(cfg, pool, opp_idx)
+    policy = _opponent_policy(cfg, pool, opp_idx, generator)
     env_state, out, obs_next, mask_next, done, ring = dual.dual_step_autoreset_ring(
         env_state, action, policy, ring, cfg.rng_mode
     )
-    if cfg.opponent_sampling == "pfsp":
+    # Per-slot outcome counts only where PFSP reads them; against a heuristic
+    # the credit would go to pool slots that did not play.
+    if cfg.opponent_sampling == "pfsp" and cfg.self_play:
         pool = pool_lib.record_outcomes(pool, opp_idx, done, out.agent_reward > 0.5)
     if new_idx is None:
         new_idx = _sample_opponents(cfg, pool, generator, obs.shape[0])
@@ -166,9 +200,124 @@ def rollout(cfg: PPOConfig, ts: TrainState):
         env_state, obs, mask, opp_idx = turn.env_state, turn.obs, turn.mask, turn.opp_idx
         ring, pool = turn.ring, turn.pool
     traj.overflow = ring.overflow
-    ts = TrainState(
-        params=ts.params, pool=pool, env_state=env_state, obs=obs, mask=mask,
-        opp_idx=opp_idx, generator=ts.generator, update_idx=ts.update_idx,
-        global_step=ts.global_step,
-    )
+    ts = dataclasses.replace(ts, pool=pool, env_state=env_state, obs=obs, mask=mask,
+                             opp_idx=opp_idx)
     return ts, traj
+
+
+def _anneal(cfg: PPOConfig, update_idx: int):
+    """The learning rate and entropy coefficient of update `update_idx`,
+    computed in float32 as the JAX package computes them."""
+    f32 = np.float32
+    progress = f32(update_idx) / f32(max(1, cfg.num_updates - 1))
+    lr = f32(cfg.lr) * (f32(1.0) - progress) if cfg.lr_anneal else f32(cfg.lr)
+    ent = f32(cfg.ent_coef) + (f32(cfg.ent_coef_final) - f32(cfg.ent_coef)) * progress
+    return float(lr), float(ent)
+
+
+def _gae(cfg: PPOConfig, traj: Rollout, last_value: torch.Tensor):
+    """Generalised advantage estimation, backwards over the T turns ->
+    (advantages [T, N], returns [T, N])."""
+    T = traj.reward.shape[0]
+    adv = torch.empty_like(traj.value)
+    nonterminal = 1.0 - traj.done.to(torch.float32)
+    lastgaelam = torch.zeros_like(last_value)
+    next_value = last_value
+    for t in range(T - 1, -1, -1):
+        delta = traj.reward[t] + cfg.gamma * next_value * nonterminal[t] - traj.value[t]
+        lastgaelam = delta + cfg.gamma * cfg.gae_lambda * nonterminal[t] * lastgaelam
+        adv[t] = lastgaelam
+        next_value = traj.value[t]
+    return adv, adv + traj.value
+
+
+def ppo_loss(cfg: PPOConfig, ent_coef_now, params: ac.ActorCritic, mo, mm, ma, mlp, mv,
+             madv, mret):
+    """The clipped PPO minibatch loss -> (loss, (pg_loss, v_loss, mean
+    entropy, approx KL)): ratio clip, value clip, the entropy term (with
+    the reference trainer's inverted sign behind
+    `cfg.reference_entropy_quirk`), and the approx-KL that the early stop
+    reads."""
+    logits, value = params(mo)
+    new_logp, ent = ac.log_prob_entropy(logits, mm, ma)
+    ratio = torch.exp(new_logp - mlp)
+    clip_adv = torch.clamp(ratio, 1 - cfg.clip_coef, 1 + cfg.clip_coef) * madv
+    pg_loss = -torch.minimum(ratio * madv, clip_adv).mean()
+    v_clipped = mv + torch.clamp(value - mv, -cfg.vclip, cfg.vclip)
+    v_loss = 0.5 * torch.maximum((value - mret) ** 2, (v_clipped - mret) ** 2).mean()
+    mean_ent = ent.mean()
+    ent_sign = 1.0 if cfg.reference_entropy_quirk else -1.0
+    loss = pg_loss + cfg.vf_coef * v_loss + ent_coef_now * ent_sign * mean_ent
+    approx_kl = (mlp - new_logp).mean()
+    return loss, (pg_loss, v_loss, mean_ent, approx_kl)
+
+
+METRIC_KEYS = ("pg_loss", "v_loss", "entropy", "approx_kl", "loss")
+
+
+def _ppo_epochs(cfg: PPOConfig, ts: TrainState, batch, lr: float, ent_coef_now: float,
+                perms=None):
+    """`update_epochs` passes over the batch in minibatches, each a clipped
+    Adam step in place on `ts.params`, with the target-KL early stop.
+
+    `batch` is (obs, mask, action, logp, value, adv, returns), each [B, ...].
+    `perms` (one int64 permutation of B per epoch) is drawn from
+    `ts.generator` unless given.  Returns (ts, the last taken step's
+    metrics as device scalars)."""
+    B = batch[0].shape[0]
+    mb = min(cfg.minibatch_size, B)
+    n_mb = B // mb
+    dev = batch[0].device
+    model = ts.params
+    params = list(model.parameters())
+    metrics = {k: torch.zeros((), device=dev) for k in METRIC_KEYS}
+    for epoch in range(cfg.update_epochs):
+        perm = (torch.randperm(B, generator=ts.generator, device=dev) if perms is None
+                else perms[epoch])
+        for idxs in perm[: n_mb * mb].reshape(n_mb, mb):
+            loss, aux = ppo_loss(cfg, ent_coef_now, model, *(x[idxs] for x in batch))
+            grads = torch.autograd.grad(loss, params)
+            optim.step(params, grads, ts.opt_state, lr)
+            metrics = dict(zip(METRIC_KEYS, (*(a.detach() for a in aux), loss.detach())))
+            # The one host read of a minibatch; the step above is kept.
+            if cfg.target_kl > 0 and metrics["approx_kl"].item() > cfg.target_kl:
+                break
+    return ts, metrics
+
+
+def update_step(cfg: PPOConfig, ts: TrainState):
+    """One full PPO update: rollout, GAE, epochs and pool maintenance ->
+    (new TrainState, metrics dict of device scalars)."""
+    lr, ent_coef_now = _anneal(cfg, ts.update_idx)
+
+    ts, traj = rollout(cfg, ts)
+    with torch.no_grad():
+        # The CURRENT slot still holds the params the rollout ran.
+        _, last_value = fused_masked_forward(ts.pool.slot(ts.pool.pool_size), ts.obs, ts.mask)
+        adv, returns = _gae(cfg, traj, last_value)
+        b_adv = adv.reshape(-1)
+        # The population standard deviation, as jnp.std gives it.
+        b_adv = (b_adv - b_adv.mean()) / (b_adv.std(correction=0) + 1e-8)
+        batch = tuple(x.reshape((-1,) + tuple(x.shape[2:])) for x in (
+            traj.obs, traj.mask, traj.action, traj.logp, traj.value)) + (
+            b_adv, returns.reshape(-1))
+    ts, metrics = _ppo_epochs(cfg, ts, batch, lr, ent_coef_now)
+
+    pool = ts.pool
+    if cfg.self_play and (ts.update_idx + 1) % max(1, cfg.snapshot_every_updates) == 0:
+        pool = pool_lib.push_snapshot(pool, ts.params)
+
+    dev = traj.reward.device
+    ep_done = traj.done.sum()
+    ep_won = ((traj.reward > 0.5) & traj.done).sum()
+    metrics = dict(
+        metrics,
+        lr=torch.tensor(lr, device=dev),
+        ent_coef=torch.tensor(ent_coef_now, device=dev),
+        episodes=ep_done,
+        rollout_win_rate=ep_won / torch.clamp(ep_done, min=1),
+        mean_reward=traj.reward.mean(),
+    )
+    ts = dataclasses.replace(ts, pool=pool, update_idx=ts.update_idx + 1,
+                             global_step=ts.global_step + cfg.num_envs * cfg.num_steps)
+    return ts, metrics

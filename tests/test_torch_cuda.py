@@ -170,3 +170,65 @@ def test_rollout_runs_through_both_kernels(cuda):
     legal = traj.mask.gather(2, traj.action[..., None])[..., 0]
     assert bool((legal | ~traj.mask.any(-1)).all())
     assert int(traj.overflow) == 0
+
+
+@pytest.mark.cuda
+def test_fused_kernel_at_the_eval_shape(cuda):
+    """Kernel A at the eval suite's shape: B=256 (the league recipe's
+    eval_games), H=768, no value."""
+    rng = np.random.RandomState(6)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, 768), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(256, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(256, 45) < 0.4, device=cuda)
+    check_fused(w, obs, mask)
+
+
+@pytest.mark.cuda
+def test_ppo_loss_gradients_on_the_card_match_float64(cuda):
+    """The loss and its 12 gradients on the card in float32 against the CPU
+    in float64: rtol 1e-4, atol 1e-5 of each tensor's largest entry."""
+    import copy
+
+    rng = np.random.RandomState(7)
+    B = 2048
+    model = ac.params_from_jax(numpy_params(rng, 256), device=cuda)
+    obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+    mask[0] = False
+    mask[1:, 0] |= ~mask[1:].any(1)
+    action = torch.argmax(mask.int() * torch.as_tensor(rng.rand(B, 45), device=cuda), dim=-1)
+    with torch.no_grad():
+        logp, _ = ac.log_prob_entropy(model(obs)[0], mask, action)
+    floats = [logp + torch.as_tensor(0.3 * rng.randn(B), dtype=torch.float32, device=cuda)] + [
+        torch.as_tensor(rng.randn(B), dtype=torch.float32, device=cuda) for _ in range(3)]
+    cfg = PPOConfig()
+    loss, aux = ppo.ppo_loss(cfg, 0.02, model, obs, mask, action, *floats)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    model64 = copy.deepcopy(model).cpu().double()
+    loss64, aux64 = ppo.ppo_loss(cfg, 0.02, model64, obs.cpu(), mask.cpu(), action.cpu(),
+                                 *[f.cpu().double() for f in floats])
+    grads64 = torch.autograd.grad(loss64, list(model64.parameters()))
+    for got, want in zip((loss, *aux, *grads), (loss64, *aux64, *grads64)):
+        torch.testing.assert_close(got.detach().cpu().double(), want.detach(), rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_update_step_on_the_card(cuda):
+    """One whole update on the card: the rollout and the bootstrap value go
+    through kernel A, the autoreset through kernel B, the params move, and
+    the first minibatch's approx-KL (kernel log-probs against the autograd
+    forward's) stays below 1e-4 at lr 0."""
+    cfg = PPOConfig(num_envs=256, num_steps=8, hidden=64, pool_size=3, minibatch_size=512,
+                    update_epochs=2, total_timesteps=256 * 8 * 4)
+    ts = ppo.init_train_state(cfg, device=cuda)
+    before = [p.detach().clone() for p in ts.params.parameters()]
+    a0, b0 = fac.launches, rt.launches
+    ts, m = ppo.update_step(cfg, ts)
+    assert fac.launches - a0 >= cfg.num_steps + 1 and rt.launches - b0 == cfg.num_steps
+    assert all(torch.isfinite(v).item() and v.is_cuda for v in m.values())
+    assert any(not torch.equal(a, b) for a, b in zip(before, ts.params.parameters()))
+    assert ts.update_idx == 1 and ts.opt_state.count > 0
+    probe = cfg.replace(lr=0.0, update_epochs=1, minibatch_size=cfg.batch_size)
+    ts, m = ppo.update_step(probe, ts)
+    assert abs(m["approx_kl"].item()) < 1e-4

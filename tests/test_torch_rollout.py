@@ -144,9 +144,16 @@ def test_rollout_on_cpu():
 
 
 def test_unported_options_raise():
-    for kw in (dict(search_opponent=True), dict(self_play=False), dict(reset_ring_mult=0)):
-        with pytest.raises(NotImplementedError):
+    """Each option of a part not ported yet raises, naming the slice it
+    waits for; heuristic opponents (self_play=False) no longer do."""
+    for kw, slice_name in ((dict(search_opponent=True), "search"),
+                           (dict(reset_ring_mult=0), "host-API"),
+                           (dict(rng_mode="parity"), "parity"),
+                           (dict(dp=2), "torch.distributed"),
+                           (dict(tp=2), "torch.distributed")):
+        with pytest.raises(NotImplementedError, match=slice_name):
             ppo.init_train_state(PPOConfig(num_envs=4, hidden=8, **kw), device="cpu")
+    ppo.init_train_state(PPOConfig(num_envs=4, hidden=8, self_play=False), device="cpu")
 
 
 def test_pool_bookkeeping_matches_jax():
