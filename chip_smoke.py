@@ -28,9 +28,24 @@ Phases, in order; any failure exits non-zero:
      same function at the main path's shapes, on the device clock (the
      summed kernel time under torch.profiler);
   8. a profile of four flagship turns: host time per turn, device busy time
-     and the kernels that take it.
+     and the kernels that take it;
+  9. the searches: without a network, `determinize`, the Gumbel search
+     (plain and censored), the flat-MC Q and the PUCT root counts on the card
+     equal the CPU on the same draws; with the flagship net every action is
+     legal and the forced-win fixture is won; then the time per move of mc,
+     gumbel, cgumbel and uct at the eval CLI's defaults on 256 games;
+ 10. the league recipe WITH its search slot (static, m=8, k0=4, horizon 2) at
+     full width: one warm-up `update_step`, one timed, and one with the
+     search timed and its launches counted; the launch counts are asserted.
+     Then four of its turns under the profiler, as in 8;
+ 11. the engine in parity mode (MT19937 token return) on the card against
+     the CPU, 100 plies x 512 games from `initial_state_parity` deals;
+ 12. the eval CLI on the card: `vs-search --algo gumbel --agent basic` with
+     the flagship net as `--search-npz` (and `pool-elo` on the checkpoint of
+     phase 6, inside that phase).
 
-The host-clock rates (phases 3 to 6) are taken before the first
+Phases 9 to 12 run after phase 6 and before phase 7, so the host-clock
+rates (phases 3 to 6 and 9 to 12) are taken before the first
 torch.profiler session of the process, so that no profiler state is left
 behind in them.
 
@@ -158,8 +173,11 @@ def phase_kernels(device) -> dict:
     # times the tolerance; both shares are printed.
     err_a = 0.0
     # 8192, 2048 and 3072 are the league rollout's shapes, 256 its eval's;
-    # 1024 and 64 are the train phase's agent and eval forwards.
-    checked_b = (1, 17, 64, 256, 257, 1024, 2048, 3072, 8192)
+    # 1024 and 64 are the train phase's agent and eval forwards.  The league
+    # slot's search runs 32768 playout lanes (with and without value) and a
+    # root prior on 1024 rows; the search phase and the eval CLI give 32,
+    # 24576 (256 games x 96 Gumbel lanes) and 92160 (256 x 45 x 8 MC lanes).
+    checked_b = (1, 17, 32, 64, 256, 257, 1024, 2048, 3072, 8192, 24576, 32768, 92160)
 
     def share(got, want):
         """max |got - want| as a share of the rtol/atol 1e-5 tolerance."""
@@ -171,7 +189,7 @@ def phase_kernels(device) -> dict:
         w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, src), device=device))
         w64 = [t.double() for t in w]
         check(w[0].shape[1] == H, f"{src} has hidden {w[0].shape[1]}, expected {H}")
-        obs_all, mask_all = realistic_obs(8192, 30, seed=H, device=device)
+        obs_all, mask_all = realistic_obs(max(checked_b), 30, seed=H, device=device)
         err_h, shares = 0.0, [0.0, 0.0, 0.0]
         for B in checked_b:
             obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
@@ -203,12 +221,15 @@ def phase_kernels(device) -> dict:
               f"(at most {F32_PLAIN_SLACK}; B in {checked_b}, with and without value)", flush=True)
     # Times at H = 768: the agent forward and the bootstrap value (B = 8192,
     # with value), the pool slots' forwards (B = 2048, 3072, no value) and the
-    # eval suite's greedy forward (B = 256, no value), each beside the addmm
-    # chain for the same rows and heads.
+    # eval suite's greedy forward (B = 256, no value), then the league slot's
+    # search: its leaves (B = 32768, with value, logits dropped), its playout
+    # moves (B = 32768, no value) and its root prior (B = 1024, no value);
+    # each beside the addmm chain for the same rows and heads.
     H = 768
     l1_products = 2 if obs_all.abs().max().item() <= 2048 else 3
     shapes = []
-    for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False)):
+    for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False),
+                          (32768, True), (32768, False), (1024, False)):
         obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
         x32 = obs.to(torch.float32)
 
@@ -378,7 +399,7 @@ def flagship_state(cfg, device):
                 "runs/distill_h768/distilled_params.npz"):
         pool = pool_lib.push_snapshot(pool, import_params_npz(os.path.join(ROOT, src), device=device))
     ts.pool = pool
-    ts.opp_idx = pool_lib.sample_opponent_idx(pool, cfg.num_envs, ts.generator)
+    ts.opp_idx = ppo._sample_opponents(cfg, pool, ts.generator, cfg.num_envs)
     return ts
 
 
@@ -622,7 +643,7 @@ def phase_train(device) -> dict:
             "--num-envs", "1024", "--num-steps", "16", "--hidden", "768",
             "--total-timesteps", str(4 * 16384), "--eval-games", "64",
             "--eval-every-updates", "2", "--checkpoint-every-updates", "1",
-            "--log-dir", log_dir])
+            "--snapshot-every-updates", "2", "--log-dir", log_dir])
         zero_launches()
         t0 = time.perf_counter()
         ts = train.train(cfg, device=device)
@@ -663,13 +684,344 @@ def phase_train(device) -> dict:
               and all(torch.equal(a, b) for a, b in zip(resumed.params.parameters(),
                                                         ts.params.parameters())),
               "train: the resumed run did not start where the first ended")
+        # The Elo ladder over the checkpoint's pool: two snapshots and CURRENT.
+        from splendax_torch.eval import cli
+
+        elo_json = os.path.join(log_dir, "elo.json")
+        t0 = time.perf_counter()
+        cli.main(["pool-elo", "--checkpoint", os.path.join(log_dir, "ppo_splendor_latest.pt"),
+                  "--games", "16", "--json-out", elo_json], device=device)
+        dt_elo = time.perf_counter() - t0
+        with open(elo_json) as f:
+            league = json.load(f)
+        check(sorted(league["elo"]) == ["current", "snap0", "snap1"]
+              and len(league["pairs"]) == 6 and all(r["n"] == 16 for r in league["pairs"].values())
+              and abs(sum(league["elo"].values()) / 3 - 1000.0) < 1e-6,
+              f"pool-elo: {league['elo']}")
+        print(f"cli pool-elo: 6 ordered pairs of 16 games in {dt_elo:.3f} s; Elo {league['elo']}",
+              flush=True)
     print(f"train: 4 updates of {cfg.num_envs} x {cfg.num_steps} at H={cfg.hidden} with 3 evals of "
           f"4 x {cfg.eval_games} games in {dt:.3f} s; files, npz and resume check out; "
           f"launches {launches}", flush=True)
     return launches
 
 
-def phase_profile(cfg, ts, n: int = 4) -> None:
+def forced_win_state(device):
+    """Player 0 at 14 prestige holding the tokens to buy the one card on the
+    board, a 1-point card: action 15 wins on the spot."""
+    import torch
+
+    from splendax_torch.engine.state import initial_state_parity
+
+    st = initial_state_parity(3, device)
+    st.prestige[0] = torch.tensor([14, 0], dtype=torch.int32)
+    st.tokens[0, 0] = torch.tensor([7, 7, 7, 7, 7, 3], dtype=torch.int32)
+    st.board[:] = -1
+    st.board[0, 0, 0] = 7  # tier-1 card 7: 1 point
+    return st
+
+
+def phase_search(device) -> dict:
+    """The four searches on the card: exact against the CPU without a
+    network, sane with the flagship net, and timed at the CLI's defaults."""
+    import torch
+
+    from splendax_torch import search
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.encode import encode_observation
+    from splendax_torch.env import core
+    from splendax_torch.models.actor_critic import import_params_npz, kernel_weights
+    from splendax_torch.search import gumbel, ismc, mc, uct
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    def midgame(B, plies, seed, dev):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        state, obs, mask = core.reset(B, g, dev)
+        for _ in range(plies):
+            state, out = core.step(state, uniform_legal_action(mask, g), mask=mask)
+            obs, mask = out.obs, out.action_mask
+        return state, obs, mask
+
+    def on(dev, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, dict):
+            return {k: on(dev, v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [on(dev, v) for v in x]
+        return x.map(lambda t: t.to(dev))  # a GameState
+
+    # Without a network, on the same draws: the card equals the CPU exactly.
+    B, m, k0, hz = 64, 8, 2, 2
+    cg = torch.Generator().manual_seed(11)
+    st_c, obs_c, mask_c = midgame(B, 41, 5, "cpu")  # player 1 to move, reserves on both sides
+    rounds = m.bit_length() - 1
+    draws = {
+        "g": gumbel.gumbel_noise((B, 45), cg, "cpu"),
+        "playout": [[torch.rand(B * m * k0, generator=cg) for _ in range(hz)] for _ in range(rounds)],
+        "det": [torch.rand((B * (m * k0 // (m >> r)), 3, ismc.EXT), generator=cg)
+                for r in range(rounds)],
+    }
+    st_g, obs_g, mask_g, draws_g = on(device, st_c), on(device, obs_c), on(device, mask_c), on(device, draws)
+    u = torch.rand((B, 3, ismc.EXT), generator=cg)
+    det_c, det_g = ismc.determinize(st_c, u=u), ismc.determinize(st_g, u=u.to(device))
+    moved = 0
+    for name, x in det_c.items():
+        check(torch.equal(x, getattr(det_g, name).cpu()), f"determinize: {name} differs on the card")
+        moved += int((x != getattr(st_c, name)).sum())
+    check(moved > 0, "determinize moved nothing")
+    check(torch.equal(encode_observation(det_g), obs_g), "determinize changed the observation")
+    for censored in (False, True):
+        fn = gumbel.gumbel_search_fn(m=m, k0=k0, horizon=hz,
+                                     determinize_fn=ismc.determinize if censored else None)
+        info_c, info_g = {}, {}
+        a_c = fn(None, obs_c, mask_c, st_c, draws=draws, info=info_c)
+        a_g = fn(None, obs_g, mask_g, st_g, draws=draws_g, info=info_g)
+        check(torch.equal(a_c, a_g.cpu()) and torch.equal(info_c["q_hat"], info_g["q_hat"].cpu()),
+              f"gumbel search (censored={censored}): the card differs from the CPU")
+        check(bool((mask_c.gather(1, a_c[:, None])[:, 0] | ~mask_c.any(1)).all()),
+              "gumbel search: illegal action")
+    mc_draws = [torch.rand(B * 45 * 2, generator=cg) for _ in range(3)]
+    q_c = mc.mc_search_q(2, 3)(None, obs_c, mask_c, st_c, draws=mc_draws)
+    q_g = mc.mc_search_q(2, 3)(None, obs_g, mask_g, st_g, draws=on(device, mc_draws))
+    check(torch.equal(q_c, q_g.cpu()), "mc_search_q: the card differs from the CPU")
+    n_c, rq_c = uct.uct_search(st_c.map(lambda x: x[:32]), None, 16, 8, 1.5)
+    n_g, rq_g = uct.uct_search(st_g.map(lambda x: x[:32]), None, 16, 8, 1.5)
+    check(torch.equal(n_c, n_g.cpu()) and torch.equal(rq_c, rq_g.cpu()),
+          "uct: root counts or values on the card differ from the CPU")
+    check(bool((n_c.sum(1) == 16).all()), "uct: a simulation did not back up through the root")
+    print(f"search: without a network the card equals the CPU on the same draws: determinize "
+          f"({moved} entries moved, obs unchanged), gumbel m{m} k{k0} h{hz} plain and censored "
+          f"(actions and mean values), mc_search_q r2 h3, uct root counts and values at 16 sims "
+          f"({B} games, 32 for uct)", flush=True)
+
+    # With the flagship net: legal actions, and the forced win is taken.
+    net = import_params_npz(os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"),
+                            device=device)
+    w = kernel_weights(net)
+    gen = torch.Generator(device=device).manual_seed(1)
+    win = forced_win_state(device)
+    win_obs, win_mask = encode_observation(win), rules.legal_mask(win)
+    check(bool(win_mask[0, 15]), "the forced-win fixture cannot buy")
+    specs = {
+        "mc": search.mc_search_policy(1, 1, net),
+        "cmc": search.censored_mc_policy(1, 1, net),
+        "uct": search.uct_search_policy(64, net),
+        "gumbel": search.gumbel_search_policy(m=32, k0=2, horizon=1, params=net, c_scale=1e4),
+        "cgumbel": search.censored_gumbel_policy(m=32, k0=2, horizon=1, params=net, c_scale=1e4),
+    }
+    for name, (fn, ctx) in specs.items():
+        a = int(fn(ctx, win_obs, win_mask, win, gen)[0])
+        check(a == 15, f"{name} with the flagship net played {a} on the forced-win fixture")
+    small = {
+        "mc": search.mc_search_policy(2, 4, net), "cmc": search.censored_mc_policy(2, 4, net),
+        "uct": search.uct_search_policy(16, net, max_depth=8),
+        "gumbel": search.gumbel_search_policy(8, 4, 2, net, greedy_final=True),
+        "cgumbel": search.censored_gumbel_policy(8, 4, 2, net),
+    }
+    for name, (fn, ctx) in small.items():
+        a = fn(ctx, obs_g, mask_g, st_g, gen)
+        check(bool((mask_g.gather(1, a[:, None])[:, 0] | ~mask_g.any(1)).all()),
+              f"{name} with the flagship net: illegal action")
+    print("search: with the flagship net every action is legal and mc, cmc, uct, gumbel and "
+          "cgumbel all buy the winning card", flush=True)
+
+    # Time per move at the eval CLI's defaults, 256 games in mid-game, with
+    # the flagship net (as --search-npz) and without one.
+    st, obs, mask = midgame(256, 30, 9, device)
+    times = {}
+    for label, leaf in (("net", net), ("no net", None)):
+        timed = {
+            "mc": search.mc_search_policy(8, 24, leaf),
+            "gumbel": search.gumbel_search_policy(16, 6, 24, leaf),
+            "cgumbel": search.censored_gumbel_policy(16, 6, 24, leaf),
+            "uct": search.uct_search_policy(64, leaf),
+        }
+        for name, (fn, ctx) in timed.items():
+            if label == "no net" and name == "cgumbel":
+                continue
+            fn(ctx, obs, mask, st, gen)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            a = fn(ctx, obs, mask, st, gen)
+            torch.cuda.synchronize()
+            times[f"{name} ({label})"] = time.perf_counter() - t0
+            check(bool((mask.gather(1, a[:, None])[:, 0] | ~mask.any(1)).all()),
+                  f"{name}: illegal action at 256 games")
+            print(f"search: {fn.__name__} ({label}) {times[f'{name} ({label})']:.4f} s per move of "
+                  f"256 games; peak memory {torch.cuda.max_memory_allocated()} bytes", flush=True)
+    return times
+
+
+def league_cfg():
+    """runs/ppo_splendor_2b_h768_league/config.json, its search slot
+    included."""
+    from splendax_torch.train.config import PPOConfig
+
+    return PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
+                     reset_ring_mult=2, minibatch_size=32768, update_epochs=4, lr=2.5e-4,
+                     lr_anneal=True, target_kl=0.02, snapshot_every_updates=16,
+                     total_timesteps=2_000_000_000, rng_mode="fast", eval_games=256,
+                     search_opponent=True, search_static=True, p_search=0.125, search_m=8,
+                     search_k0=4, search_horizon=2)
+
+
+def phase_league(device):
+    """The league recipe with its search slot at full width: a warm-up
+    update, a timed one, and one more with the search timed on its own."""
+    import torch
+
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.train import ppo
+
+    cfg = league_cfg()
+    S = cfg.n_search_static
+    check(S == 1024 and cfg.search_stride == 8, f"static slot: {S} rows, stride {cfg.search_stride}")
+    ts = flagship_state(cfg, device)
+    sent = ts.pool.pool_size + 1
+    check(int((ts.opp_idx == sent).sum()) == S and bool((ts.opp_idx[::8] == sent).all()),
+          "the static sentinel rows are not rows 0, 8, 16, ...")
+    ts, _ = ppo.update_step(cfg, ts)  # warm-up, not timed
+    torch.cuda.synchronize()
+
+    # Kernel A per turn, as the code implies: the agent forward; one per
+    # pool slot that has games (1 to 3 here: two frozen slots and CURRENT);
+    # in the search the root prior, then per halving round `horizon` guided
+    # playout plies and one leaf evaluation.  Plus the bootstrap value.
+    rounds = cfg.search_m.bit_length() - 1
+    per_search = 1 + rounds * (cfg.search_horizon + 1)
+    T = cfg.num_steps
+    seconds, last = {}, {}
+    steps0 = ts.opt_state.count
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with timed_learner_phases(ppo, seconds, last):
+        ts, metrics = ppo.update_step(cfg, ts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = ts.opt_state.count - steps0
+    values = {k: v.item() for k, v in metrics.items()}
+    check(all(v == v and abs(v) != float("inf") for v in values.values()),
+          f"league: a metric is not finite: {values}")
+    lo, hi = T * (1 + 1 + per_search) + 1, T * (1 + 3 + per_search) + 1
+    check(lo <= launches["fused_actor_critic"] <= hi,
+          f"league: kernel A launched {launches['fused_actor_critic']} times, not {lo}..{hi}")
+    check(launches["ring_take"] == T, f"league: kernel B launched {launches['ring_take']} times")
+    traj = last["rollout"][1][1]
+    check(int(traj.overflow) == 0 and int(traj.done.sum()) > 0, "league: ring overflow or no episode")
+    check(int((ts.opp_idx == sent).sum()) == S, "league: the sentinel rows moved")
+    check(float(ts.pool.games.sum()) == 0.0, "league: uniform sampling keeps no PFSP counts")
+    print(f"league update (with its search slot, static, m{cfg.search_m} k{cfg.search_k0} "
+          f"h{cfg.search_horizon}, {S} sentinel rows): {dt:.4f} s per update_step = "
+          f"{cfg.batch_size / dt:.1f} agent steps/s: rollout {seconds['rollout']:.4f} s "
+          f"({100 * seconds['rollout'] / dt:.1f}%), GAE {seconds['_gae']:.4f} s, epochs "
+          f"{seconds['_ppo_epochs']:.4f} s in {steps} optimizer steps (the KL stop left that many "
+          f"of {cfg.update_epochs * cfg.num_minibatches}); peak memory {peak} bytes; "
+          f"launches {launches} "
+          f"(kernel A {launches['fused_actor_critic'] / T:.2f} a turn incl. the bootstrap; "
+          f"{per_search} of them in the search); last metrics {values}", flush=True)
+
+    # Once more with the search timed on its own (two synchronisations a turn).
+    made = ppo.gumbel_search_fn
+    spent = {"s": 0.0, "calls": 0, "launches": 0}
+
+    def timed_factory(*args, **kw):
+        fn = made(*args, **kw)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), fac.launches
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            spent["launches"] += fac.launches - n0
+            return out
+        return timed
+
+    ppo.gumbel_search_fn = timed_factory
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, traj2 = ppo.rollout(cfg, ts)
+        torch.cuda.synchronize()
+        dt_roll = time.perf_counter() - t0
+    finally:
+        ppo.gumbel_search_fn = made
+    check(spent["calls"] == T and spent["launches"] == T * per_search,
+          f"league: {spent['calls']} searches launched kernel A {spent['launches']} times, "
+          f"not {T} x {per_search}")
+    print(f"league rollout with the search timed: {dt_roll:.4f} s for {T} turns; the search "
+          f"{1e3 * spent['s'] / T:.3f} ms per opponent move ({100 * spent['s'] / dt_roll:.1f}% of "
+          f"the rollout), {per_search} kernel A launches each on up to "
+          f"{S * cfg.search_m * cfg.search_k0} lanes", flush=True)
+    return launches, cfg, ts
+
+
+def phase_parity(device) -> None:
+    """The engine in parity mode (MT19937 token return) on the card against
+    the CPU, from `initial_state_parity` deals, on identical actions."""
+    import numpy as np
+    import torch
+
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state_parity
+    from splendax_torch.env import core
+
+    B, plies = 512, 100
+    st_c = initial_state_parity(range(1000, 1000 + B), "cpu")
+    st_g = st_c.map(lambda x: x.to(device))
+    rng = np.random.RandomState(5)
+    returned = 0
+    t0 = time.perf_counter()
+    for ply in range(plies):
+        mask = rules.legal_mask(st_c)
+        m = mask.numpy()
+        a = torch.as_tensor(np.where(m.any(1), (rng.rand(B, 45) * m).argmax(1), 0))
+        # A mover who holds 10 tokens and takes more must return some.
+        held = st_c.tokens[torch.arange(B), st_c.to_play.long()].sum(1)
+        returned += int(((held == 10) & (a < 15) & mask.any(1)).sum())
+        st_c, out_c = core.step(st_c, a, rng_mode="parity", mask=mask)
+        st_g, out_g = core.step(st_g, a.to(device), rng_mode="parity")
+        for name, x in st_c.items():
+            check(torch.equal(x, getattr(st_g, name).cpu()), f"parity: {name} differs at ply {ply}")
+        for name in ("obs", "action_mask", "reward", "terminated", "final_rewards"):
+            check(torch.equal(getattr(out_c, name), getattr(out_g, name).cpu()),
+                  f"parity: {name} differs at ply {ply}")
+    check(returned > 0, "parity: no game reached the token cap")
+    print(f"parity: the engine in parity mode on the card equals the CPU on {plies} plies x {B} "
+          f"games ({returned} takes from a full hand of 10, each a token return) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def phase_cli(device) -> None:
+    """The eval CLI on the card: the basic heuristic against the Gumbel
+    search with the flagship net."""
+    from splendax_torch.eval import cli
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        path = os.path.join(out_dir, "vs_search.json")
+        t0 = time.perf_counter()
+        cli.main(["vs-search", "--algo", "gumbel", "--agent", "basic", "--games", "32",
+                  "--horizon", "4", "--greedy-final", "--search-npz",
+                  os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"),
+                  "--json-out", path], device=device)
+        dt = time.perf_counter() - t0
+        with open(path) as f:
+            res = json.load(f)
+    (name, r), = res.items()
+    check(name == "basic_vs_gumbel(m16,k6,h4)" and r["n"] == 32 and r["illegal_action_rate"] == 0
+          and r["privileged"] == {"agent": False, "opponent": True}, f"cli vs-search: {res}")
+    check(r["losses"] > r["wins"], f"cli vs-search: basic beat the flagship's search: {r}")
+    print(f"cli vs-search: {name} over 32 games in {dt:.3f} s: basic won {r['wins']}, "
+          f"lost {r['losses']}", flush=True)
+
+
+def phase_profile(cfg, ts, n: int = 4, label: str = "profile") -> None:
     """Where a flagship turn's time goes: n turns timed on the host clock,
     then the same under torch.profiler for the device time by kernel."""
     import torch
@@ -704,7 +1056,7 @@ def phase_profile(cfg, ts, n: int = 4) -> None:
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     count = sum(e.count for e in kernels) / n
     check(dev_ms > 0, "profile: the profiler saw no device time")
-    print(f"profile: {wall_ms:.3f} ms/turn on the host clock; device busy {dev_ms:.3f} ms/turn "
+    print(f"{label}: {wall_ms:.3f} ms/turn on the host clock; device busy {dev_ms:.3f} ms/turn "
           f"in {count:.0f} kernel launches ({100 * dev_ms / wall_ms:.1f}% busy)", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/turn  {e.count / n:6.1f}x  "
@@ -743,8 +1095,19 @@ def main() -> int:
     phase_env(device)
     launches, cfg, ts = phase_rollout(device)
     by_path = {"rollout": launches, "update": phase_update(device), "train": phase_train(device)}
+    zero_launches()
+    phase_search(device)
+    by_path["search"] = read_launches()
+    by_path["league"], cfg_league, ts_league = phase_league(device)
+    phase_parity(device)
+    zero_launches()
+    phase_cli(device)
+    by_path["cli"] = read_launches()
+    check(by_path["search"]["fused_actor_critic"] > 0 and by_path["cli"]["fused_actor_critic"] > 0,
+          f"a search path did not launch kernel A: {by_path}")
     kern = phase_kernels(device)
     phase_profile(cfg, ts)
+    phase_profile(cfg_league, ts_league, label="profile (league slot)")
 
     meta = {
         "fused_actor_critic": ("splendax_torch/csrc/fused_actor_critic.cu",
@@ -754,7 +1117,7 @@ def main() -> int:
     rows = []
     for name, (source, replaces) in meta.items():
         k = kern[name]
-        # launches: the sum over the three driven paths, each counted from 0.
+        # launches: the sum over the driven paths, each counted from 0.
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(p[name] for p in by_path.values()),
                          launches_by_path={path: p[name] for path, p in by_path.items()}, **k))

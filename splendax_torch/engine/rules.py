@@ -6,9 +6,10 @@ and `gather`; the one-hot contractions of the JAX engine were TPU workarounds
 and are not carried over.  Actions are int tensors [B] in the 45-wide layout
 below.
 
-The token return that enforces the 10-token cap is ported in fast mode only:
-its uniforms come from a threefry key derived from the game state, bit for
-bit as in the JAX engine.  Parity mode (MT19937) belongs to a later slice.
+The token return that enforces the 10-token cap draws, in fast mode, its
+uniforms from a threefry key derived from the game state and, in parity mode,
+from CPython's MT19937 under the same seed (`mt19937`), bit for bit as in the
+JAX engine in both modes.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import functools
 import torch
 
 from . import data as D
+from . import mt19937
 from .state import GameState, NUM_PLAYERS, TOKEN_CAP, TURN_LIMIT
 from .threefry import M32, uniform_from_key_words
 
@@ -260,17 +262,45 @@ def _state_hash_seed(state: GameState, tokens_p: torch.Tensor):
     return lo, hi
 
 
+def _return_tokens_mt(tokens, bank, k, lo, hi):
+    """The parity-mode token return: CPython's `random.Random(seed)` seeded
+    from the state hash, one `_randbelow(n)` per returned token over the n
+    colours still held, on the lanes that are over the cap only (setting up
+    MT19937 is over a thousand dependent steps).  A lane that is done draws
+    no more, so each stream is consumed as the reference engine consumes it.
+    Costs one host read for the lanes over the cap and one per round of
+    draws.  Returns (tokens, bank, returned)."""
+    returned = torch.zeros_like(k)
+    over = torch.nonzero(k > 0)[:, 0]
+    if over.numel() == 0:
+        return tokens, bank, returned
+    tok, bnk, need = tokens[over], bank[over], k[over]
+    stream = mt19937.init_from_seed_words(lo[over], hi[over])
+    done = torch.zeros_like(need)
+    ar6 = torch.arange(6, device=k.device)
+    while True:
+        nonzero = tok[:, :5] > 0
+        n = nonzero.sum(1)
+        active = (done < need) & (n > 0)
+        if not bool(active.any()):
+            break
+        stream, r = mt19937.randbelow(stream, torch.clamp(n, min=1), active)
+        cum = torch.cumsum(nonzero, 1)
+        color = torch.argmax((cum == (r + 1)[:, None]).to(torch.int32), 1)  # (r+1)-th held colour
+        delta = ((ar6[None] == color[:, None]) & active[:, None]).long()
+        tok, bnk, done = tok - delta, bnk + delta, done + active.long()
+    tokens, bank = tokens.clone(), bank.clone()
+    tokens[over], bank[over], returned[over] = tok, bnk, done
+    return tokens, bank, returned
+
+
 def _auto_return_tokens(state: GameState, p: torch.Tensor, rng_mode: str) -> GameState:
     """Return tokens until the mover holds at most 10: each draw returns one
     token of a uniformly chosen color among those held (gold only when no
     other color is left).  Fast mode draws from threefry seeded by the state
-    hash; every lane runs all 12 draw steps, masked once it is done."""
-    if rng_mode != "fast":
-        if rng_mode == "parity":
-            raise NotImplementedError(
-                "rng_mode='parity' (MT19937 token return) is not ported yet; "
-                "it is the next engine slice"
-            )
+    hash; every lane runs all 12 draw steps, masked once it is done.  Parity
+    mode draws from MT19937 under the same seed (`_return_tokens_mt`)."""
+    if rng_mode not in ("fast", "parity"):
         raise ValueError(f"unknown rng_mode {rng_mode!r}")
     T = tables(state.bank.device)
     B = p.shape[0]
@@ -279,20 +309,24 @@ def _auto_return_tokens(state: GameState, p: torch.Tensor, rng_mode: str) -> Gam
     bank = state.bank.long()
     k = torch.clamp(tokens.sum(1) - TOKEN_CAP, min=0)
     lo, hi = _state_hash_seed(state, tokens)
-    u = uniform_from_key_words(hi, lo, _MAX_RETURNS)  # [B, 12] f32
-    returned = torch.zeros_like(k)
-    for i in range(_MAX_RETURNS):
-        nonzero = tokens[:, :5] > 0
-        n = nonzero.sum(1)
-        active = (returned < k) & (n > 0)
-        # float32 product, truncated, as the JAX engine computes it
-        r = torch.minimum((u[:, i] * n.to(torch.float32)).to(torch.int64), torch.clamp(n - 1, min=0))
-        cum = torch.cumsum(nonzero, 1)
-        color = torch.argmax((cum == (r + 1)[:, None]).to(torch.int32), 1)
-        delta = _onehot(color, 6, T.ar6) & active[:, None]
-        tokens = tokens - delta.long()
-        bank = bank + delta.long()
-        returned = returned + active.long()
+    if rng_mode == "parity":
+        tokens, bank, returned = _return_tokens_mt(tokens, bank, k, lo, hi)
+    else:
+        u = uniform_from_key_words(hi, lo, _MAX_RETURNS)  # [B, 12] f32
+        returned = torch.zeros_like(k)
+        for i in range(_MAX_RETURNS):
+            nonzero = tokens[:, :5] > 0
+            n = nonzero.sum(1)
+            active = (returned < k) & (n > 0)
+            # float32 product, truncated, as the JAX engine computes it
+            r = torch.minimum((u[:, i] * n.to(torch.float32)).to(torch.int64),
+                              torch.clamp(n - 1, min=0))
+            cum = torch.cumsum(nonzero, 1)
+            color = torch.argmax((cum == (r + 1)[:, None]).to(torch.int32), 1)
+            delta = _onehot(color, 6, T.ar6) & active[:, None]
+            tokens = tokens - delta.long()
+            bank = bank + delta.long()
+            returned = returned + active.long()
     give = torch.minimum(torch.clamp(k - returned, min=0), tokens[:, D.GOLD])
     gold_row = (T.ar6 == D.GOLD).long()[None]
     tokens = tokens - gold_row * give[:, None]

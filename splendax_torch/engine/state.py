@@ -119,6 +119,34 @@ def initial_state(B: int, generator: torch.Generator, device="cuda") -> GameStat
     return GameState(**fields)
 
 
+def initial_state_parity(seeds, device="cuda") -> GameState:
+    """The freshly dealt game of each seed (an int, or a sequence for a
+    batch), dealt on the host as the reference engine deals it: one CPython
+    `random.Random(seed)` shuffles the tier-1 deck and pops 4 cards to board
+    slots 0..3, the same for tiers 2 and 3, then shuffles the nobles and
+    shows the first 3.  Equal to the JAX package's `initial_state_parity`
+    on every field."""
+    import random
+
+    games = []
+    for seed in [seeds] if isinstance(seeds, int) else list(seeds):
+        rng = random.Random(seed)
+        b = _blank_state_np()
+        for t in range(3):
+            n = int(D.TIER_SIZES[t])
+            ids = list(range(int(D.TIER_OFFSETS[t]), int(D.TIER_OFFSETS[t]) + n))
+            rng.shuffle(ids)
+            for slot in range(4):
+                b["board"][t, slot] = ids.pop()
+            b["deck_perm"][t, : n - 4] = ids
+            b["deck_count"][t] = n - 4
+        nobles = list(range(D.NUM_NOBLES))
+        rng.shuffle(nobles)
+        b["noble_ids"] = np.asarray(nobles[:NUM_NOBLES_VISIBLE], np.int32)
+        games.append(b)
+    return from_numpy({k: np.stack([np.asarray(g[k]) for g in games]) for k in FIELDS}, device)
+
+
 def from_numpy(arrays, device="cuda") -> GameState:
     """A GameState from a mapping (or object) of batched numpy arrays."""
     device = resolve_device(device)

@@ -66,6 +66,12 @@ def kernel_weights(model: ActorCritic) -> list:
     return out
 
 
+def gumbel_noise(shape, generator, device) -> torch.Tensor:
+    """Standard Gumbel draws f32 `shape`: -log(-log(u)), u uniform in (0, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+
+
 def sample_action(logits: torch.Tensor, mask: torch.Tensor, generator=None, noise=None):
     """Sample from the masked categorical by Gumbel-argmax, as
     `jax.random.categorical` does.  `noise` (f32 [B, 45] Gumbel draws) may be
@@ -73,9 +79,7 @@ def sample_action(logits: torch.Tensor, mask: torch.Tensor, generator=None, nois
     [B], log-prob f32 [B])."""
     ml = masked_logits(logits, mask)
     if noise is None:
-        u = torch.rand(ml.shape, generator=generator, device=ml.device)
-        u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-        noise = -torch.log(-torch.log(u))
+        noise = gumbel_noise(ml.shape, generator, ml.device)
     action = torch.argmax(ml + noise, dim=-1)
     logp = torch.log_softmax(ml, dim=-1).gather(-1, action[:, None])[:, 0]
     return action, logp

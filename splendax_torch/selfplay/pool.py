@@ -27,6 +27,7 @@ import torch
 
 from ..models.actor_critic import ActorCritic, kernel_weights
 from ..ops.fused_actor_critic import fused_masked_forward
+from .opponents import first_legal
 
 
 @dataclass
@@ -95,7 +96,8 @@ def push_snapshot(pool: OpponentPool, model: ActorCritic) -> OpponentPool:
 
 def record_outcomes(pool: OpponentPool, opp_idx, done, won) -> OpponentPool:
     """Add finished episodes to the per-slot counts (`opp_idx` int [B],
-    `done`/`won` bool [B])."""
+    `done`/`won` bool [B]).  An index past CURRENT (the league slot's
+    sentinel) matches no slot, so those episodes add nothing."""
     oh = (torch.arange(pool.pool_size + 1, device=opp_idx.device)[None] == opp_idx[:, None])
     oh = oh.to(torch.float32)
     d = done.to(torch.float32)[:, None]
@@ -132,7 +134,13 @@ def sample_opponent_idx(pool: OpponentPool, n: int, generator=None, mode: str = 
 
 def pool_greedy_policy(pool: OpponentPool, opp_idx: torch.Tensor):
     """Opponent policy for `dual_step`: the greedy action of each game's
-    pool slot, `policy(obs, mask, state) -> action int64 [B]`."""
+    pool slot, `policy(obs, mask, state) -> action int64 [B]`.
+
+    A game whose slot lies past CURRENT (the league slot's sentinel,
+    `train/ppo._sample_opponents`) matches no slot: no kernel runs on its
+    row and it takes the first legal action, as the all-zero logits of the
+    JAX package's unmatched one-hot give; the league slot's search then
+    overwrites it."""
 
     def policy(obs, mask, state):
         order = torch.argsort(opp_idx, stable=True)
@@ -141,13 +149,16 @@ def pool_greedy_policy(pool: OpponentPool, opp_idx: torch.Tensor):
         counts = torch.bincount(opp_idx, minlength=pool.pool_size + 1).tolist()
         action = torch.empty(obs.shape[0], dtype=torch.int64, device=obs.device)
         start = 0
-        for s, c in enumerate(counts):
+        for s, c in enumerate(counts[: pool.pool_size + 1]):
             if c == 0:
                 continue
             rows = order[start : start + c]
             start += c
             logits, _ = fused_masked_forward(pool.slot(s), obs[rows], mask[rows], with_value=False)
             action[rows] = torch.argmax(logits, dim=-1)  # logits come masked
+        if start < obs.shape[0]:
+            rows = order[start:]
+            action[rows] = first_legal(mask[rows])
         return action
 
     return policy

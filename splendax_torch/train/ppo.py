@@ -6,8 +6,9 @@ advantage normalisation, `update_epochs x num_minibatches` clipped-PPO steps
 with the target-KL early stop, and the snapshot push into the opponent pool.
 
 Each turn runs the agent forward and a masked sample, the opponents' move
-(the pool's greedy forward, or a heuristic when `self_play` is off), the two
-engine plies, and the fresh-game ring autoreset.  Every forward that needs
+(the pool's greedy forward, a Gumbel search over the current snapshot for
+the games of the league slot, or a heuristic when `self_play` is off), the
+two engine plies, and the fresh-game ring autoreset.  Every forward that needs
 no gradient (agent, opponents, bootstrap value) runs the fused actor-critic
 kernel; the ring take runs the ring-take kernel.  The loss differentiates
 the plain forward (`ActorCritic.forward`) under autograd, as the JAX package
@@ -42,6 +43,8 @@ from ..env import core
 from ..env import ring as ring_lib
 from ..models import actor_critic as ac
 from ..ops.fused_actor_critic import fused_masked_forward
+from ..search.gumbel import gumbel_search_fn
+from ..search.ismc import determinize
 from ..selfplay import dual
 from ..selfplay import opponents
 from ..selfplay import pool as pool_lib
@@ -95,30 +98,86 @@ class Turn:
 
 
 def _check_supported(cfg: PPOConfig) -> None:
-    if cfg.search_opponent:
-        raise NotImplementedError(
-            "search_opponent=True (the league slot) waits for the search slice of the port")
     if cfg.reset_ring_mult <= 0:
         raise NotImplementedError(
             "reset_ring_mult=0 (full-batch autoreset) waits for the host-API slice of the port")
-    if cfg.rng_mode != "fast":
-        raise NotImplementedError(
-            f"rng_mode={cfg.rng_mode!r} waits for the MT19937 parity slice of the port")
+    if cfg.rng_mode not in ("fast", "parity"):
+        raise ValueError(f"unknown rng_mode {cfg.rng_mode!r}")
     if cfg.dp != 0 or cfg.tp != 1:
         raise NotImplementedError(
             "dp/tp other than 0/1 wait for the torch.distributed slice of the port")
 
 
+def _static_sentinel_rows(cfg: PPOConfig, n: int, device) -> torch.Tensor:
+    """bool [n]: the rows the static league partition pins to the sentinel:
+    rows 0, stride, 2 * stride, ..., `n_search_static` of them."""
+    rows = torch.arange(n, device=device)
+    k = cfg.search_stride
+    return (rows % k == 0) & (rows < cfg.n_search_static * k)
+
+
 def _sample_opponents(cfg: PPOConfig, pool, generator, n: int):
-    return pool_lib.sample_opponent_idx(pool, n, generator, cfg.opponent_sampling)
+    """The opponent slot of each of n new episodes.  With
+    `cfg.search_opponent` the sentinel `pool_size + 1`, one past CURRENT,
+    marks "the current snapshot wrapped in a Gumbel search": drawn with
+    probability `p_search`, or with `search_static` pinned to a strided set
+    of rows.  `record_outcomes` matches the sentinel to no slot, so those
+    episodes stay out of the PFSP counts."""
+    idx = pool_lib.sample_opponent_idx(pool, n, generator, cfg.opponent_sampling)
+    if not cfg.search_opponent:
+        return idx
+    if cfg.search_static:
+        use_search = _static_sentinel_rows(cfg, n, idx.device)
+    else:
+        use_search = torch.rand(n, generator=generator, device=idx.device) < cfg.p_search
+    return torch.where(use_search, pool.pool_size + 1, idx)
 
 
-def _opponent_policy(cfg: PPOConfig, pool, opp_idx, generator=None):
+def _opponent_policy(cfg: PPOConfig, pool, opp_idx, generator=None, search_draws=None):
     """The opponents' move: each game's pool slot played greedily, or with
-    `self_play` off the heuristic `cfg.train_opponent` for every game."""
-    if cfg.self_play:
-        return pool_lib.pool_greedy_policy(pool, opp_idx)
-    return opponents.device_policy(cfg.train_opponent, generator)
+    `self_play` off the heuristic `cfg.train_opponent` for every game.
+
+    With `cfg.search_opponent`, the games whose slot is the sentinel face
+    the CURRENT snapshot improved by a Gumbel sequential-halving search
+    (`greedy_final`: the slot is a sparring partner, so it acts by the mean
+    values alone; `search_censored` runs it over determinizations of the
+    mover's information set).  The search runs on the sentinel rows only:
+    the static strided slice, or the rows the Bernoulli draw marked, which
+    costs one host read of their number.  `search_draws` passes the
+    search's random inputs (`gumbel.gumbel_search_fn`'s `draws`)."""
+    if not cfg.self_play:
+        return opponents.device_policy(cfg.train_opponent, generator)
+    base = pool_lib.pool_greedy_policy(pool, opp_idx)
+    if not cfg.search_opponent:
+        return base
+    search_fn = gumbel_search_fn(
+        m=cfg.search_m, k0=cfg.search_k0, horizon=cfg.search_horizon, rng_mode=cfg.rng_mode,
+        greedy_final=True, determinize_fn=determinize if cfg.search_censored else None)
+    cur = pool.slot(pool.pool_size)
+
+    if cfg.search_static:
+        lim, k = cfg.n_search_static * cfg.search_stride, cfg.search_stride
+
+        def policy(obs, mask, state):
+            action = base(obs, mask, state)
+            if lim == 0:
+                return action
+            action[:lim:k] = search_fn(
+                cur, obs[:lim:k].contiguous(), mask[:lim:k].contiguous(),
+                state.map(lambda x: x[:lim:k]), generator, draws=search_draws)
+            return action
+
+        return policy
+
+    def policy(obs, mask, state):
+        action = base(obs, mask, state)
+        rows = torch.nonzero(opp_idx == pool.pool_size + 1)[:, 0]
+        if rows.numel() > 0:
+            action[rows] = search_fn(cur, obs[rows], mask[rows], state.map(lambda x: x[rows]),
+                                     generator, draws=search_draws)
+        return action
+
+    return policy
 
 
 def init_train_state(cfg: PPOConfig, params: ac.ActorCritic | None = None,
@@ -139,16 +198,17 @@ def init_train_state(cfg: PPOConfig, params: ac.ActorCritic | None = None,
 
 
 def rollout_turn(cfg: PPOConfig, weights, pool, env_state, obs, mask, opp_idx, ring,
-                 generator=None, noise=None, new_idx=None) -> Turn:
+                 generator=None, noise=None, new_idx=None, search_draws=None) -> Turn:
     """One complete self-play turn for every game.
 
     `weights` are the agent's fused-forward weights.  `noise` (Gumbel
     [N, 45]) and `new_idx` (the opponent slots for games that start anew)
-    are drawn from `generator` unless given.
+    are drawn from `generator` unless given, and so are the league slot's
+    search inputs `search_draws`.
     """
     logits, value = fused_masked_forward(weights, obs, mask)
     action, logp = ac.sample_action(logits, mask, generator=generator, noise=noise)
-    policy = _opponent_policy(cfg, pool, opp_idx, generator)
+    policy = _opponent_policy(cfg, pool, opp_idx, generator, search_draws)
     env_state, out, obs_next, mask_next, done, ring = dual.dual_step_autoreset_ring(
         env_state, action, policy, ring, cfg.rng_mode
     )
@@ -190,6 +250,14 @@ def rollout(cfg: PPOConfig, ts: TrainState):
         overflow=ring.overflow,
     )
     env_state, obs, mask, opp_idx = ts.env_state, ts.obs, ts.mask, ts.opp_idx
+    if cfg.self_play and cfg.search_opponent and cfg.search_static:
+        # A checkpoint of a Bernoulli run resumed under the static partition
+        # may hold the sentinel on rows outside the static set, where no
+        # search would run: pin the static rows to the sentinel and clamp
+        # stray sentinels to CURRENT.  A no-op for states made under this
+        # partition.
+        opp_idx = torch.where(_static_sentinel_rows(cfg, N, dev), pool.pool_size + 1,
+                              torch.clamp(opp_idx, max=pool.pool_size))
     for t in range(T):
         traj.obs[t] = obs
         traj.mask[t] = mask

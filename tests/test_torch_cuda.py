@@ -232,3 +232,103 @@ def test_update_step_on_the_card(cuda):
     probe = cfg.replace(lr=0.0, update_epochs=1, minibatch_size=cfg.batch_size)
     ts, m = ppo.update_step(probe, ts)
     assert abs(m["approx_kl"].item()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 768])
+def test_fused_kernel_at_the_search_lane_batch(cuda, H):
+    """Kernel A at the league slot's lane batch, B = 1024 rows x m=8 x k0=4 =
+    32768, with value (the leaves) and without (the playout moves)."""
+    rng = np.random.RandomState(8)
+    B = 32768
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+    mask[5] = False
+    check_fused(w, obs, mask)
+
+
+def _midgame(B, plies, seed):
+    """B games after `plies` uniformly random legal plies, on the CPU."""
+    from splendax_torch.env import core
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    g = torch.Generator().manual_seed(seed)
+    st, obs, mask = core.reset(B, g, "cpu")
+    for _ in range(plies):
+        st, out = core.step(st, uniform_legal_action(mask, g), mask=mask)
+        obs, mask = out.obs, out.action_mask
+    return st, obs, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("censored", [False, True])
+def test_gumbel_search_on_the_card_equals_the_cpu(cuda, censored):
+    """Without a network, on the same draws: actions and mean values of the
+    Gumbel search (m=8 k0=2 horizon 2) on the card equal the CPU's exactly."""
+    from splendax_torch.search import gumbel, ismc
+
+    B, m, k0, hz = 64, 8, 2, 2
+    g = torch.Generator().manual_seed(3)
+    st, obs, mask = _midgame(B, 41, 4)
+    rounds = m.bit_length() - 1
+    draws = {"g": gumbel.gumbel_noise((B, 45), g, "cpu"),
+             "playout": [[torch.rand(B * m * k0, generator=g) for _ in range(hz)]
+                         for _ in range(rounds)],
+             "det": [torch.rand((B * (m * k0 // (m >> r)), 3, ismc.EXT), generator=g)
+                     for r in range(rounds)]}
+    on_card = {"g": draws["g"].to(cuda), "playout": [[u.to(cuda) for u in r] for r in draws["playout"]],
+               "det": [u.to(cuda) for u in draws["det"]]}
+    fn = gumbel.gumbel_search_fn(m=m, k0=k0, horizon=hz,
+                                 determinize_fn=ismc.determinize if censored else None)
+    info_c, info_g = {}, {}
+    a_c = fn(None, obs, mask, st, draws=draws, info=info_c)
+    a_g = fn(None, obs.to(cuda), mask.to(cuda), st.map(lambda x: x.to(cuda)), draws=on_card,
+             info=info_g)
+    assert torch.equal(a_c, a_g.cpu()) and torch.equal(info_c["q_hat"], info_g["q_hat"].cpu())
+    assert bool((mask.gather(1, a_c[:, None])[:, 0] | ~mask.any(1)).all())
+
+
+@pytest.mark.cuda
+def test_league_update_on_the_card(cuda):
+    """One update with the static league slot on the card: per turn kernel A
+    runs for the agent, for 1 to 3 pool slots, and 1 + rounds * (horizon + 1)
+    times in the search; kernel B once; the metrics are finite."""
+    cfg = PPOConfig(num_envs=256, num_steps=8, hidden=64, pool_size=3, minibatch_size=512,
+                    update_epochs=1, total_timesteps=256 * 8 * 4, search_opponent=True,
+                    search_static=True, p_search=0.125, search_m=4, search_k0=2, search_horizon=2)
+    ts = ppo.init_train_state(cfg, device=cuda)
+    a0, b0 = fac.launches, rt.launches
+    ts, m = ppo.update_step(cfg, ts)
+    per_search = 1 + 2 * (cfg.search_horizon + 1)
+    T = cfg.num_steps
+    assert T * (2 + per_search) + 1 <= fac.launches - a0 <= T * (4 + per_search) + 1
+    assert rt.launches - b0 == T
+    assert all(torch.isfinite(v).item() for v in m.values())
+    assert int((ts.opp_idx == cfg.pool_size + 1).sum()) == cfg.n_search_static == 32
+
+
+@pytest.mark.cuda
+def test_parity_mode_on_the_card_equals_the_cpu(cuda):
+    """The engine in parity mode (MT19937 token return) on the card against
+    the CPU: 60 plies x 128 games, every field exact, with token returns."""
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state_parity
+    from splendax_torch.env import core
+
+    B = 128
+    st_c = initial_state_parity(range(B), "cpu")
+    st_g = st_c.map(lambda x: x.to(cuda))
+    rng = np.random.RandomState(9)
+    returns = 0
+    for ply in range(60):
+        mask = rules.legal_mask(st_c)
+        m = mask.numpy()
+        a = torch.as_tensor(np.where(m.any(1), (rng.rand(B, 45) * m).argmax(1), 0))
+        held = st_c.tokens[torch.arange(B), st_c.to_play.long()].sum(1)
+        returns += int(((held == 10) & (a < 15) & mask.any(1)).sum())
+        st_c, _ = core.step(st_c, a, rng_mode="parity", mask=mask)
+        st_g, _ = core.step(st_g, a.to(cuda), rng_mode="parity")
+        for name, x in st_c.items():
+            assert torch.equal(x, getattr(st_g, name).cpu()), f"{name} at ply {ply}"
+    assert returns > 0

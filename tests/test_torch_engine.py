@@ -147,6 +147,15 @@ def test_lockstep_games_match_jax_exactly(seed):
 
 
 def test_parity_mode_is_not_ported_yet():
+    """(The name is from before parity mode was ported.)  `rng_mode="parity"`
+    no longer raises: a ply under the token cap is the same in both modes
+    (`tests/test_torch_parity.py` holds the mode against JAX); a mode that
+    does not exist raises `ValueError`."""
     st = S.initial_state(2, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="parity"):
-        rules.apply_action(st, torch.zeros(2, dtype=torch.int64), rng_mode="parity")
+    a = torch.zeros(2, dtype=torch.int64)
+    parity = rules.apply_action(st, a, rng_mode="parity")
+    fast = rules.apply_action(st, a, rng_mode="fast")
+    for k, v in fast.items():
+        assert torch.equal(v, getattr(parity, k)), k
+    with pytest.raises(ValueError, match="rng_mode"):
+        rules.apply_action(st, a, rng_mode="exact")

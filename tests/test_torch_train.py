@@ -181,11 +181,33 @@ def test_parse_args_defaults_equal_the_jax_cli():
         assert got == want
 
 
-@pytest.mark.parametrize("flags", [["--search-opponent"], ["--rng-mode", "parity"], ["--dp", "2"]])
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--dp", "2", "--tp", "2"]])
 def test_flags_of_unported_parts_parse_then_raise(tmp_path, flags):
     cfg = train.parse_args(flags + ["--log-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="slice of the port"):
         train.train(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [["--search-opponent", "--p-search", "0.5"],
+                                   ["--search-opponent", "--search-static", "--search-censored"],
+                                   ["--rng-mode", "parity"]])
+def test_league_slot_and_parity_flags_train(tmp_path, flags):
+    """The league slot's flags and `--rng-mode parity` train through
+    `train()`: two updates of 8 x 8 on the CPU, metrics finite."""
+    cfg = train.parse_args(flags + [
+        "--num-envs", "8", "--num-steps", "8", "--hidden", "16", "--total-timesteps", "128",
+        "--minibatch-size", "32", "--update-epochs", "1", "--eval-every-updates", "99",
+        "--eval-games", "2", "--search-m", "4", "--search-k0", "1", "--search-horizon", "1",
+        "--log-dir", str(tmp_path)])
+    ts = train.train(cfg, device="cpu")
+    assert ts.update_idx == 2
+    with open(tmp_path / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["policy_loss"] + r["value_loss"] for r in rows if r["type"] == "train"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    with open(tmp_path / "config.json") as f:
+        saved = json.load(f)
+    assert saved["rng_mode"] == cfg.rng_mode and saved["search_opponent"] == cfg.search_opponent
 
 
 def test_train_defaults_to_the_gpu(tmp_path):
