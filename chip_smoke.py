@@ -42,10 +42,21 @@ Phases, in order; any failure exits non-zero:
      the CPU, 100 plies x 512 games from `initial_state_parity` deals;
  12. the eval CLI on the card: `vs-search --algo gumbel --agent basic` with
      the flagship net as `--search-npz` (and `pool-elo` on the checkpoint of
-     phase 6, inside that phase).
+     phase 6, inside that phase);
+ 13. the host APIs: the native C++ library built from the checkout; the gym
+     env's torch backend on the card against its native backend over 8
+     parity games; `core.step_autoreset` (200 plies) and
+     `dual_step_autoreset` (100 turns) on the card against the CPU at
+     B=8192; `SplendaxVectorEnv(8192)` in both autoreset modes on both
+     backends; `DualStepSelfPlayWrapper` with
+     `frozen_policy_from` on the flagship net against the float64 forward;
+     `game_logger --policy model`; the flagship rollout with
+     `reset_ring_mult=0` and one `update_step`, then its turns/s against the
+     ring rollout's.  Kernel A's launches from the wrapper to the update are
+     the "host" path.
 
-Phases 9 to 12 run after phase 6 and before phase 7, so the host-clock
-rates (phases 3 to 6 and 9 to 12) are taken before the first
+Phases 9 to 13 run after phase 6 and before phase 7, so the host-clock
+rates (phases 3 to 6 and 9 to 13) are taken before the first
 torch.profiler session of the process, so that no profiler state is left
 behind in them.
 
@@ -223,13 +234,14 @@ def phase_kernels(device) -> dict:
     # with value), the pool slots' forwards (B = 2048, 3072, no value) and the
     # eval suite's greedy forward (B = 256, no value), then the league slot's
     # search: its leaves (B = 32768, with value, logits dropped), its playout
-    # moves (B = 32768, no value) and its root prior (B = 1024, no value);
-    # each beside the addmm chain for the same rows and heads.
+    # moves (B = 32768, no value) and its root prior (B = 1024, no value),
+    # then the host policies' greedy move (B = 1, no value); each beside the
+    # addmm chain for the same rows and heads.
     H = 768
     l1_products = 2 if obs_all.abs().max().item() <= 2048 else 3
     shapes = []
     for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False),
-                          (32768, True), (32768, False), (1024, False)):
+                          (32768, True), (32768, False), (1024, False), (1, False)):
         obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
         x32 = obs.to(torch.float32)
 
@@ -1021,6 +1033,265 @@ def phase_cli(device) -> None:
           f"lost {r['losses']}", flush=True)
 
 
+def same_step(got, want) -> bool:
+    """Two gym step results equal: obs, flags and every info entry exactly,
+    rewards as float32 (the native engine returns C++ doubles, -0.01 where
+    float32 reads -0.009999999776)."""
+    import numpy as np
+
+    f32 = np.float32
+    (o1, r1, t1, tr1, i1), (o2, r2, t2, tr2, i2) = got, want
+    if not (np.array_equal(o1, o2) and (f32(r1), t1, tr1) == (f32(r2), t2, tr2)
+            and sorted(i1) == sorted(i2)):
+        return False
+    for k, v in i2.items():
+        w = i1[k]
+        if isinstance(v, np.ndarray):
+            ok = np.array_equal(w, v) and w.dtype == v.dtype
+        elif isinstance(v, dict):
+            ok = {p: f32(x) for p, x in w.items()} == {p: f32(x) for p, x in v.items()}
+        else:
+            ok = w == v
+        if not ok:
+            return False
+    return True
+
+
+def phase_host(device) -> dict:
+    """The host APIs on the card: the native library built from the repo,
+    the single env's torch backend on the card against its native backend,
+    the full-batch autoreset on the card against the CPU, the vector env,
+    the self-play wrapper with the flagship net, the flagship rollout with
+    `reset_ring_mult=0` and one `update_step`, and a logged game.  The
+    launch counts are zeroed before the wrapper and read after the update."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from splendax_torch import native
+    from splendax_torch.env import _gym, core
+    from splendax_torch.env.gym_compat import SplendorEnv
+    from splendax_torch.env.vector import SplendaxVectorEnv
+    from splendax_torch.models import actor_critic as ac
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.selfplay import dual, opponents, wrappers
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+    from splendax_torch.tools import game_logger
+    from splendax_torch.train import ppo
+    from splendax_torch.train.config import PPOConfig
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native._load()
+    print(f"host: native library built from splendax_torch/native/engine.cpp and loaded in "
+          f"{time.perf_counter() - t0:.2f} s; gymnasium: "
+          + (_gym.gym.__version__ if _gym.HAVE_GYMNASIUM else "absent (stand-ins)"), flush=True)
+
+    # The single env: torch on the card against native, 8 whole parity games.
+    rng = np.random.RandomState(0)
+    secs, steps, plies = {"torch": 0.0, "native": 0.0}, 0, []
+    for game in range(8):
+        envs = {b: SplendorEnv(backend=b, device=device) for b in ("torch", "native")}
+        res = {b: e.reset(seed=100 + game) for b, e in envs.items()}
+        check(same_step(*[(o, 0.0, False, False, i) for o, i in res.values()]),
+              f"single env: reset differs in game {game}")
+        info = res["native"][1]
+        for ply in range(400):
+            legal = np.flatnonzero(info["action_mask"])
+            a = int(rng.choice(legal)) if len(legal) else 0
+            if game == 0 and ply == 3:
+                a = int(np.flatnonzero(info["action_mask"] == 0)[0])  # an illegal action
+            for b, e in envs.items():
+                t0 = time.perf_counter()
+                res[b] = e.step(a)
+                secs[b] += time.perf_counter() - t0
+            steps += 1
+            check(same_step(res["torch"], res["native"]),
+                  f"single env: torch on the card differs from native at game {game} ply {ply}")
+            if game == 0 and ply == 3:
+                check(res["torch"][4].get("illegal_action") is True, "the illegal action passed")
+            info = res["native"][4]
+            if res["native"][2]:
+                break
+        check(res["native"][2], f"single env: game {game} did not end")
+        plies.append(ply + 1)
+    cpu_env = SplendorEnv(backend="torch", device="cpu")
+    _, info = cpu_env.reset(seed=1)
+    t0 = time.perf_counter()
+    for n_cpu in range(1, 151):
+        legal = np.flatnonzero(info["action_mask"])
+        _, _, term, _, info = cpu_env.step(int(rng.choice(legal)) if len(legal) else 0)
+        if term:
+            _, info = cpu_env.reset()
+    cpu_rate = n_cpu / (time.perf_counter() - t0)
+    print(f"host: SplendorEnv torch on the card equals native on every ply of 8 parity games "
+          f"({plies} plies, one illegal action); steps/s: torch on the card "
+          f"{steps / secs['torch']:.1f}, native {steps / secs['native']:.1f}, torch on the CPU "
+          f"{cpu_rate:.1f} ({n_cpu} steps)", flush=True)
+
+    # The full-batch autoreset on the card against the CPU, on one CPU deal.
+    B = 8192
+    g = torch.Generator().manual_seed(1)
+    st_c, _, mask_c = core.reset(B, g, "cpu")
+    fresh_c = core.reset(B, g, "cpu")
+    fresh_g = (fresh_c[0].map(lambda x: x.to(device)),) + tuple(x.to(device) for x in fresh_c[1:])
+    st_g, mask_g = st_c.map(lambda x: x.to(device)), mask_c.to(device)
+
+    def agree(what, pairs):
+        for name, x, y in pairs:
+            check(torch.equal(x, y.cpu()), f"{what}: {name} on the card differs from the CPU")
+
+    t0, ended = time.perf_counter(), [0, 0]
+    for t in range(200):
+        a = uniform_legal_action(mask_c, g)
+        st_c, out_c, obs_c, mask_c = core.step_autoreset(st_c, a, fresh=fresh_c, mask=mask_c)
+        st_g, out_g, obs_g, mask_g = core.step_autoreset(st_g, a.to(device), fresh=fresh_g,
+                                                         mask=mask_g)
+        agree(f"step_autoreset ply {t}", [(k, v, getattr(st_g, k)) for k, v in st_c.items()]
+              + [(k, getattr(out_c, k), getattr(out_g, k)) for k in vars(out_c)]
+              + [("obs_next", obs_c, obs_g), ("mask_next", mask_c, mask_g)])
+        ended[0] += int(out_c.terminated.sum())
+    for t in range(100):  # 200 plies: the CPU side sets this loop's time
+        a = uniform_legal_action(mask_c, g)
+        st_c, out_c, obs_c, mask_c, done_c = dual.dual_step_autoreset(
+            st_c, a, opponents.greedy_v1_policy, fresh=fresh_c)
+        st_g, out_g, obs_g, mask_g, done_g = dual.dual_step_autoreset(
+            st_g, a.to(device), opponents.greedy_v1_policy, fresh=fresh_g)
+        agree(f"dual_step_autoreset turn {t}", [(k, v, getattr(st_g, k)) for k, v in st_c.items()]
+              + [(k, getattr(out_c, k), getattr(out_g, k)) for k in vars(out_c)]
+              + [("obs_next", obs_c, obs_g), ("mask_next", mask_c, mask_g), ("done", done_c, done_g)])
+        ended[1] += int(done_c.sum())
+    check(min(ended) > 0, f"the full-batch autoreset ended no game: {ended}")
+    print(f"host: core.step_autoreset (200 plies) and dual_step_autoreset (100 turns) on the card "
+          f"equal the CPU at B={B} ({ended} games ended) in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    # The vector env at 8192 lanes, both autoreset modes, both backends.
+    rates = {}
+    for backend in ("torch", "native"):
+        for mode in ("NextStep", "SameStep"):
+            v = SplendaxVectorEnv(B, autoreset_mode=mode, backend=backend, device=device)
+            obs, info = v.reset(seed=7)
+            pending, spent, terminated = np.zeros(B, bool), 0.0, 0
+            for _ in range(200):
+                m = info["action_mask"]
+                acts = np.where(m.any(1), (rng.rand(B, 45) * m).argmax(1), 0)
+                t0 = time.perf_counter()
+                obs, r, term, trunc, info = v.step(acts)
+                spent += time.perf_counter() - t0
+                where = f"vector env ({backend}, {mode})"
+                check(obs.min() >= 0 and obs.max() <= 200, f"{where}: obs outside [0, 200]")
+                check("illegal_action" not in info or not info["illegal_action"][~pending].any(),
+                      f"{where}: a legal action was flagged illegal")
+                if mode == "NextStep":
+                    check((r[pending] == 0).all() and not term[pending].any()
+                          and (obs[pending, 295] == 0).all(),
+                          f"{where}: a pending lane did not restart with reward 0")
+                    pending = term.copy()
+                else:
+                    fo = info.get("final_obs")
+                    on = np.zeros(B, bool) if fo is None else np.array([x is not None for x in fo])
+                    check(np.array_equal(on, term) and (not term.any() or
+                                                        np.array_equal(info["_final_obs"], term)),
+                          f"{where}: final_obs is not exactly on the terminated lanes")
+                terminated += int(term.sum())
+            check(terminated > 0, f"vector env ({backend}, {mode}): no game ended")
+            rates[f"{backend} {mode}"] = B * 200 / spent
+    print(f"host: SplendaxVectorEnv({B}), 200 steps each, env steps/s: "
+          + ", ".join(f"{k} {x:.1f}" for k, x in rates.items()), flush=True)
+
+    # From here the host path's launches are counted.
+    net_path = os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz")
+    net = ac.import_params_npz(net_path, device=device)
+    zero_launches()
+    greedy, seen = wrappers.frozen_policy_from(net), []
+
+    def recorded(obs, info):
+        a = greedy(obs, info)
+        seen.append((obs, info["action_mask"], a))
+        return a
+
+    w = wrappers.DualStepSelfPlayWrapper(SplendorEnv(device=device), recorded, random_starts=False)
+    t0 = time.perf_counter()
+    outcomes = []
+    for game in range(4):
+        obs, info = w.reset(seed=game)
+        for _ in range(300):
+            obs, r, term, trunc, info = w.step(recorded(obs, info))
+            if term:
+                outcomes.append(r)
+                break
+    dt_wrap = time.perf_counter() - t0
+    check(len(outcomes) == 4, "wrapper: a game did not end")
+    w64 = [x.double().cpu() for x in ac.kernel_weights(net)]
+    obs64 = torch.as_tensor(np.stack([s[0] for s in seen]))
+    mask64 = torch.as_tensor(np.stack([s[1] for s in seen]) > 0)
+    l64, _ = fac.fused_masked_forward_plain(w64, obs64, mask64, with_value=False)
+    top2 = l64.topk(2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    got = torch.tensor([s[2] for s in seen])
+    check(bool((got == l64.argmax(-1))[clear].all()),
+          "wrapper: a greedy action differs from the float64 plain forward's argmax")
+    print(f"host: DualStepSelfPlayWrapper with frozen_policy_from (h768 flagship) played 4 games "
+          f"({len(seen)} greedy moves, {int(clear.sum())} off near-ties all equal to the float64 "
+          f"argmax; agent rewards {outcomes}) in {dt_wrap:.3f} s", flush=True)
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        game_logger.main(["--policy", "model", "--npz", net_path, "--seed", "3", "--quiet"],
+                         device=device)
+    check("GAME OVER" in out.getvalue(), "game_logger --policy model: the game did not end")
+    print(f"host: game_logger --policy model --seed 3 in {time.perf_counter() - t0:.3f} s: "
+          f"{out.getvalue().splitlines()[-1]}", flush=True)
+
+    # The flagship rollout with the full-batch autoreset, then one update.
+    cfg = PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
+                    reset_ring_mult=0, minibatch_size=32768, update_epochs=4, lr=2.5e-4,
+                    lr_anneal=True, target_kl=0.02, snapshot_every_updates=16,
+                    total_timesteps=2_000_000_000, rng_mode="fast")
+    ts = flagship_state(cfg, device)
+    ppo.rollout(cfg.replace(num_steps=2), ts)  # warm-up, not kept
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, traj = ppo.rollout(cfg, ts)
+    torch.cuda.synchronize()
+    full_rates = [cfg.num_steps / (time.perf_counter() - t0)]
+    legal = traj.mask.gather(2, traj.action[..., None])[..., 0]
+    check(bool((legal | ~traj.mask.any(-1)).all()), "full-batch rollout: an agent action was illegal")
+    check(int(traj.done.sum()) > 0 and int(traj.overflow) == 0, "full-batch rollout: no episode")
+    lp, _ = fac.fused_masked_forward_plain(ts.pool.slot(ts.pool.pool_size), traj.obs[-1], traj.mask[-1])
+    want = torch.log_softmax(lp, -1).gather(1, traj.action[-1][:, None])[:, 0]
+    check((want - traj.logp[-1]).abs().max().item() < 1e-4, "full-batch rollout: logp off the plain")
+    before = [p.detach().clone() for p in ts.params.parameters()]
+    ts, metrics = ppo.update_step(cfg, ts)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    values = {k: v.item() for k, v in metrics.items()}
+    check(all(np.isfinite(list(values.values()))), f"full-batch update: metrics {values}")
+    check(any(not torch.equal(a, b) for a, b in zip(before, ts.params.parameters())),
+          "full-batch update: no parameter moved")
+    check(launches["fused_actor_critic"] > 0 and launches["ring_take"] == 0,
+          f"host path: launches {launches}")
+    # Against the ring rollout on the same state, alternating.
+    ring_cfg = cfg.replace(reset_ring_mult=2)
+    ring_rates = []
+    for c, rates_of in ((ring_cfg, ring_rates), (cfg, full_rates), (ring_cfg, ring_rates)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = ppo.rollout(c, ts)
+        torch.cuda.synchronize()
+        rates_of.append(c.num_steps / (time.perf_counter() - t0))
+    print(f"host: flagship rollout (N={cfg.num_envs}, T={cfg.num_steps}, H={cfg.hidden}) turns/s "
+          f"with reset_ring_mult=0 "
+          f"{[round(x, 3) for x in full_rates]} against the ring's {[round(x, 3) for x in ring_rates]} "
+          f"(alternating: full, ring, full, ring); one update_step with reset_ring_mult=0, metrics "
+          f"{values}; host-path launches {launches}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def phase_profile(cfg, ts, n: int = 4, label: str = "profile") -> None:
     """Where a flagship turn's time goes: n turns timed on the host clock,
     then the same under torch.profiler for the device time by kernel."""
@@ -1103,8 +1374,9 @@ def main() -> int:
     zero_launches()
     phase_cli(device)
     by_path["cli"] = read_launches()
-    check(by_path["search"]["fused_actor_critic"] > 0 and by_path["cli"]["fused_actor_critic"] > 0,
-          f"a search path did not launch kernel A: {by_path}")
+    by_path["host"] = phase_host(device)
+    check(all(by_path[p]["fused_actor_critic"] > 0 for p in ("search", "cli", "host")),
+          f"a search or host path did not launch kernel A: {by_path}")
     kern = phase_kernels(device)
     phase_profile(cfg, ts)
     phase_profile(cfg_league, ts_league, label="profile (league slot)")

@@ -1,7 +1,9 @@
 """Batched functional Splendor environment.
 
 Counterpart of `splendax/env/core.py`: `step` maps (GameState [B],
-action [B]) to (GameState [B], StepOutput) for all B games at once.
+action [B]) to (GameState [B], StepOutput) for all B games at once, and
+`step_autoreset` replaces the games that end with a full batch of fresh
+deals.
 
 Edge cases, as in the JAX package:
   * no legal move -> a draw: reward 0, `draw=True`, game over with no
@@ -114,3 +116,35 @@ def step(state: GameState, action: torch.Tensor, rng_mode: str = "fast", mask=No
     obs = encode_observation(next_state)
     next_mask = rules.legal_mask(next_state) & ~fields["terminated"][:, None]
     return next_state, StepOutput(obs=obs, action_mask=next_mask, **fields)
+
+
+# The JAX package's vmapped names; `reset` and `step` are batched already.
+reset_batch = reset
+step_batch = step
+
+
+def select(done: torch.Tensor, fresh, cur):
+    """`fresh` where `done`, else `cur`, row by row: for a GameState field
+    by field, else for one tensor."""
+    if isinstance(cur, GameState):
+        return GameState(**{k: select(done, getattr(fresh, k), c) for k, c in cur.items()})
+    return torch.where(done.view((-1,) + (1,) * (cur.dim() - 1)), fresh, cur)
+
+
+def step_autoreset(state: GameState, action: torch.Tensor, generator=None,
+                   rng_mode: str = "fast", mask=None, fresh=None):
+    """Batched step with a fresh game wherever one ends.
+
+    The fresh games are a full-batch `reset(B, generator)`, or `fresh`
+    (state, obs, mask) when the caller deals them.  Returns (carry, out,
+    obs_next, mask_next): `out` keeps the terminal observation, reward and
+    final rewards; the carried state, obs and mask are the fresh game's
+    where the game ended.
+    """
+    next_state, out = step(state, action, rng_mode=rng_mode, mask=mask)
+    if fresh is None:
+        fresh = reset(action.shape[0], generator, state.to_play.device)
+    fresh_state, fresh_obs, fresh_mask = fresh
+    done = out.terminated
+    return (select(done, fresh_state, next_state), out, select(done, fresh_obs, out.obs),
+            select(done, fresh_mask, out.action_mask))

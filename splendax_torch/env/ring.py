@@ -123,16 +123,6 @@ def take(ring: FreshGameRing, done: torch.Tensor):
     return fresh_state, fresh_mask, new_ring
 
 
-def select(done: torch.Tensor, fresh: GameState, cur: GameState) -> GameState:
-    """The fresh game where `done`, else the current one, field by field."""
-    return GameState(
-        **{
-            name: torch.where(done.view((-1,) + (1,) * (c.dim() - 1)), getattr(fresh, name), c)
-            for name, c in cur.items()
-        }
-    )
-
-
 def step_autoreset_ring(state: GameState, action: torch.Tensor, ring: FreshGameRing,
                         rng_mode: str = "fast", mask=None):
     """`step` with done lanes reset from the ring.
@@ -144,7 +134,7 @@ def step_autoreset_ring(state: GameState, action: torch.Tensor, ring: FreshGameR
     next_state, fields = core.step_core(state, action, rng_mode=rng_mode, mask=mask)
     done = fields["terminated"]
     fresh_state, _, ring = take(ring, done)
-    carry = select(done, fresh_state, next_state)
+    carry = core.select(done, fresh_state, next_state)
     # The encode and the mask are per-game functions, so computing them on
     # the selected carry equals selecting between fresh and stepped values.
     obs_next = encode_observation(carry)

@@ -36,7 +36,7 @@ from ..engine import rules as R
 from ..engine.encode import encode_observation
 from ..engine.state import GameState
 from ..env import core
-from ..env.ring import select
+from ..env.core import select
 from ..models import actor_critic as ac
 from ..ops.fused_actor_critic import fused_masked_forward
 from ..selfplay.opponents import uniform_legal_action

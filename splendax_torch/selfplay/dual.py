@@ -90,6 +90,25 @@ def dual_step(state: GameState, agent_action, opponent_policy: Callable, rng_mod
     return next_state, out
 
 
+def dual_step_autoreset(state: GameState, agent_action, opponent_policy: Callable,
+                        generator=None, rng_mode: str = "fast", fresh=None):
+    """`dual_step` with a fresh game wherever one ends: a full-batch
+    `core.reset(B, generator)`, or `fresh` (state, obs, mask) when the
+    caller deals them.
+
+    Returns (carry, out, obs_next, mask_next, done): `out` keeps the
+    terminal data for GAE; obs_next and mask_next feed the next policy call.
+    """
+    next_state, out = dual_step(state, agent_action, opponent_policy, rng_mode)
+    if fresh is None:
+        fresh = core.reset(agent_action.shape[0], generator, state.to_play.device)
+    fresh_state, fresh_obs, fresh_mask = fresh
+    done = out.done
+    return (core.select(done, fresh_state, next_state), out,
+            core.select(done, fresh_obs, out.agent_obs),
+            core.select(done, fresh_mask, out.action_mask), done)
+
+
 def dual_step_autoreset_ring(state: GameState, agent_action, opponent_policy: Callable,
                              ring: ring_lib.FreshGameRing, rng_mode: str = "fast"):
     """`dual_step` with done games replaced from the fresh-game ring.
@@ -99,7 +118,7 @@ def dual_step_autoreset_ring(state: GameState, agent_action, opponent_policy: Ca
     """
     next_state, out = _turn(state, agent_action, opponent_policy, rng_mode)
     fresh_state, _, ring = ring_lib.take(ring, out.done)
-    carry = ring_lib.select(out.done, fresh_state, next_state)
+    carry = core.select(out.done, fresh_state, next_state)
     obs_next = encode_observation(carry)
     mask_next = rules.legal_mask(carry)
     return carry, out, obs_next, mask_next, out.done, ring

@@ -1,12 +1,17 @@
-"""Opponent policies on whole batches.
+"""Opponent policies, in two idioms: on whole batches, and on the host.
 
-Counterpart of the device policies of `splendax/selfplay/opponents.py`:
+Counterpart of `splendax/selfplay/opponents.py`.  The batch policies:
 `random`, `greedy_v1`, `basic` and `greedy_v2`, each a function
 `fn(obs int32 [B, 297], mask bool [B, 45], state GameState [B],
 generator=None) -> action int64 [B]`.  `greedy_v1` and `greedy_v2` are
 deterministic; `random` and `basic` break ties with uniform draws from
 `generator`.  `device_policy(name, generator)` closes one over a generator as
 the `policy(obs, mask, state)` that `dual.dual_step` takes.
+
+The host policies are numpy callables `(obs, info) -> action` for the gym
+wrappers, with the reference heuristics' control flow and the numpy global
+RNG for their random tie-breaks: `random_opponent`, `greedy_opponent_v1`,
+`basic_priority_opponent` and `greedy_opponent_v2_factory(env_ref)`.
 
 The action space: take-3 0..9, take-2 10..14, buy a visible card 15..26,
 reserve 27..41, buy a reserved card 42..44.
@@ -16,8 +21,10 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from ..engine import data as D
 from ..engine import rules
 
 _A = torch.arange(rules.TOTAL_ACTIONS)
@@ -141,3 +148,86 @@ def device_policy(name: str, generator=None):
         from ..eval import noble  # noqa: F401
     fn = DEVICE_POLICIES[name]
     return lambda obs, mask, state: fn(obs, mask, state, generator)
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy) versions with the reference's exact control flow.
+# ---------------------------------------------------------------------------
+
+
+def random_opponent(obs, info):
+    legal = np.flatnonzero(info["action_mask"])
+    return int(np.random.choice(legal)) if len(legal) else 0
+
+
+def greedy_opponent_v1(obs, info):
+    legal = np.flatnonzero(info["action_mask"])
+    if len(legal) == 0:
+        return 0
+    for group in (
+        [a for a in legal if (15 <= a <= 26) or (42 <= a <= 44)],
+        [a for a in legal if 10 <= a <= 14],
+        [a for a in legal if 0 <= a <= 9],
+        [a for a in legal if 27 <= a <= 41],
+    ):
+        if group:
+            return int(group[0])
+    return int(legal[0])
+
+
+def basic_priority_opponent(obs, info):
+    legal = np.flatnonzero(info["action_mask"])
+    if len(legal) == 0:
+        return 0
+    buy_vis = [a for a in legal if 15 <= a <= 26]
+    buy_res = [a for a in legal if 42 <= a <= 44]
+    if buy_vis:
+        pts = {a: int(obs[32 + (a - 15) * 13 + 2]) for a in buy_vis}
+        best = max(pts.values())
+        return int(np.random.choice([a for a in buy_vis if pts[a] == best]))
+    if buy_res:
+        return int(np.random.choice(buy_res))
+    for group in (
+        [a for a in legal if 0 <= a <= 9],
+        [a for a in legal if 10 <= a <= 14],
+        [a for a in legal if 27 <= a <= 41],
+    ):
+        if group:
+            return int(np.random.choice(group))
+    return int(legal[0])
+
+
+def greedy_opponent_v2_factory(env_ref=None):
+    """Scarcity-aware greedy; reads the bank from the wrapped env's state
+    (a `GameState` with B=1)."""
+
+    def policy(obs, info):
+        legal = np.flatnonzero(info["action_mask"])
+        if len(legal) == 0:
+            return 0
+        buys = [a for a in legal if (15 <= a <= 26)] + [a for a in legal if 42 <= a <= 44]
+        if buys:
+            return int(buys[0])
+        if env_ref is not None and getattr(env_ref, "state", None) is not None:
+            bank_vec = env_ref.state.bank[0, :5].tolist()
+        else:
+            bank_vec = [1, 1, 1, 1, 1]
+        take2 = [a for a in legal if 10 <= a <= 14]
+        if take2:
+            return int(min(take2, key=lambda a: bank_vec[a - 10]))
+        take3 = [a for a in legal if 0 <= a <= 9]
+        if take3:
+            return int(min(take3, key=lambda a: sum(bank_vec[i] for i in D.TAKE3_COMBOS[a])))
+        res = [a for a in legal if 27 <= a <= 41]
+        if res:
+            return int(sorted(res, reverse=True)[0])
+        return int(legal[0])
+
+    return policy
+
+
+HOST_POLICIES = {
+    "random": random_opponent,
+    "greedy_v1": greedy_opponent_v1,
+    "basic": basic_priority_opponent,
+}

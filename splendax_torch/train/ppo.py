@@ -8,18 +8,19 @@ with the target-KL early stop, and the snapshot push into the opponent pool.
 Each turn runs the agent forward and a masked sample, the opponents' move
 (the pool's greedy forward, a Gumbel search over the current snapshot for
 the games of the league slot, or a heuristic when `self_play` is off), the
-two engine plies, and the fresh-game ring autoreset.  Every forward that needs
-no gradient (agent, opponents, bootstrap value) runs the fused actor-critic
-kernel; the ring take runs the ring-take kernel.  The loss differentiates
+two engine plies, and the autoreset: from the fresh-game ring, or with
+`reset_ring_mult=0` from a full batch of fresh deals.  Every forward that
+needs no gradient (agent, opponents, bootstrap value) runs the fused
+actor-critic kernel; the ring take runs the ring-take kernel.  The loss differentiates
 the plain forward (`ActorCritic.forward`) under autograd, as the JAX package
 differentiates its plain forward.  Those products are float32:
 `torch.backends.cuda.matmul.allow_tf32` is left off (PyTorch's default), so
 the ratio of the first minibatch differs from 1 only by the kernel's 1e-5.
 
 `rollout_turn` is one turn with its random inputs (the action noise, the
-opponent resample and the ring) open to the caller, and `_ppo_epochs` takes
-its permutations the same way, so a test can drive both in lockstep with
-the JAX functions.
+opponent resample, and the ring or the fresh deals) open to the caller, and
+`_ppo_epochs` takes its permutations the same way, so a test can drive both
+in lockstep with the JAX functions.
 
 The target-KL early stop is a `break` on the host: the minibatch whose
 approx-KL passes `target_kl` still takes its step, the rest of that epoch is
@@ -86,7 +87,7 @@ class Turn:
     obs: torch.Tensor  # the next turn's obs
     mask: torch.Tensor  # the next turn's mask
     opp_idx: torch.Tensor
-    ring: ring_lib.FreshGameRing
+    ring: ring_lib.FreshGameRing | None  # None with reset_ring_mult=0
     pool: pool_lib.OpponentPool
     logits: torch.Tensor  # masked agent logits
     value: torch.Tensor
@@ -98,9 +99,6 @@ class Turn:
 
 
 def _check_supported(cfg: PPOConfig) -> None:
-    if cfg.reset_ring_mult <= 0:
-        raise NotImplementedError(
-            "reset_ring_mult=0 (full-batch autoreset) waits for the host-API slice of the port")
     if cfg.rng_mode not in ("fast", "parity"):
         raise ValueError(f"unknown rng_mode {cfg.rng_mode!r}")
     if cfg.dp != 0 or cfg.tp != 1:
@@ -198,20 +196,26 @@ def init_train_state(cfg: PPOConfig, params: ac.ActorCritic | None = None,
 
 
 def rollout_turn(cfg: PPOConfig, weights, pool, env_state, obs, mask, opp_idx, ring,
-                 generator=None, noise=None, new_idx=None, search_draws=None) -> Turn:
+                 generator=None, noise=None, new_idx=None, search_draws=None,
+                 fresh=None) -> Turn:
     """One complete self-play turn for every game.
 
     `weights` are the agent's fused-forward weights.  `noise` (Gumbel
     [N, 45]) and `new_idx` (the opponent slots for games that start anew)
     are drawn from `generator` unless given, and so are the league slot's
-    search inputs `search_draws`.
+    search inputs `search_draws`.  With `ring` None (`reset_ring_mult=0`)
+    the games that end restart from a full batch of fresh deals, dealt from
+    `generator` unless given as `fresh` (state, obs, mask).
     """
     logits, value = fused_masked_forward(weights, obs, mask)
     action, logp = ac.sample_action(logits, mask, generator=generator, noise=noise)
     policy = _opponent_policy(cfg, pool, opp_idx, generator, search_draws)
-    env_state, out, obs_next, mask_next, done, ring = dual.dual_step_autoreset_ring(
-        env_state, action, policy, ring, cfg.rng_mode
-    )
+    if ring is None:
+        env_state, out, obs_next, mask_next, done = dual.dual_step_autoreset(
+            env_state, action, policy, generator, cfg.rng_mode, fresh=fresh)
+    else:
+        env_state, out, obs_next, mask_next, done, ring = dual.dual_step_autoreset_ring(
+            env_state, action, policy, ring, cfg.rng_mode)
     # Per-slot outcome counts only where PFSP reads them; against a heuristic
     # the credit would go to pool slots that did not play.
     if cfg.opponent_sampling == "pfsp" and cfg.self_play:
@@ -231,14 +235,18 @@ def rollout(cfg: PPOConfig, ts: TrainState):
     """T = cfg.num_steps self-play turns -> (new TrainState, Rollout).
 
     The ring holds reset_ring_mult * N fresh games with a window of N rows,
-    so the take is exact: at most N games end in one turn.
+    so the take is exact: at most N games end in one turn.  With
+    reset_ring_mult=0 there is no ring: each turn deals a full batch of
+    fresh games, and `overflow` stays 0.
     """
     _check_supported(cfg)
     pool = pool_lib.set_current(ts.pool, ts.params)
     weights = pool.slot(pool.pool_size)  # the live params
     dev = ts.obs.device
     T, N = cfg.num_steps, ts.obs.shape[0]
-    ring = ring_lib.make_ring(cfg.reset_ring_mult * N, ts.generator, dev, window=N)
+    ring = (ring_lib.make_ring(cfg.reset_ring_mult * N, ts.generator, dev, window=N)
+            if cfg.reset_ring_mult > 0 else None)
+    no_overflow = torch.zeros((), dtype=torch.int64, device=dev)
     traj = Rollout(
         obs=torch.empty((T,) + tuple(ts.obs.shape), dtype=ts.obs.dtype, device=dev),
         mask=torch.empty((T,) + tuple(ts.mask.shape), dtype=torch.bool, device=dev),
@@ -247,7 +255,7 @@ def rollout(cfg: PPOConfig, ts: TrainState):
         value=torch.empty((T, N), dtype=torch.float32, device=dev),
         reward=torch.empty((T, N), dtype=torch.float32, device=dev),
         done=torch.empty((T, N), dtype=torch.bool, device=dev),
-        overflow=ring.overflow,
+        overflow=no_overflow if ring is None else ring.overflow,
     )
     env_state, obs, mask, opp_idx = ts.env_state, ts.obs, ts.mask, ts.opp_idx
     if cfg.self_play and cfg.search_opponent and cfg.search_static:
@@ -267,7 +275,7 @@ def rollout(cfg: PPOConfig, ts: TrainState):
             getattr(traj, name)[t] = getattr(turn, name)
         env_state, obs, mask, opp_idx = turn.env_state, turn.obs, turn.mask, turn.opp_idx
         ring, pool = turn.ring, turn.pool
-    traj.overflow = ring.overflow
+    traj.overflow = no_overflow if ring is None else ring.overflow
     ts = dataclasses.replace(ts, pool=pool, env_state=env_state, obs=obs, mask=mask,
                              opp_idx=opp_idx)
     return ts, traj

@@ -5,8 +5,8 @@ the configuration written to `config.json`, an initial evaluation, a
 checkpoint every `checkpoint_every_updates`, the eval suite with summary
 plots every `eval_every_updates`, and at the end a final checkpoint and the
 params as `ppo_splendor_params.npz`.  Checkpoints are resumable.  It runs on
-one GPU; the flags of parts not ported yet (dp/tp; the full-batch autoreset
-has no flag) parse and then raise `NotImplementedError`.
+one GPU; the flags of parts not ported yet (dp/tp) parse and then raise
+`NotImplementedError`.
 
 Run: python -m splendax_torch.train.train --total-timesteps 1000000 ...
 """

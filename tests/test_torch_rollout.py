@@ -146,9 +146,9 @@ def test_rollout_on_cpu():
 def test_unported_options_raise():
     """Each option of a part not ported yet raises, naming the slice it
     waits for; heuristic opponents (self_play=False), the league slot
-    (search_opponent) and rng_mode="parity" no longer do."""
-    for kw, slice_name in ((dict(reset_ring_mult=0), "host-API"),
-                           (dict(dp=2), "torch.distributed"),
+    (search_opponent), rng_mode="parity" and the full-batch autoreset
+    (reset_ring_mult=0) no longer do."""
+    for kw, slice_name in ((dict(dp=2), "torch.distributed"),
                            (dict(tp=2), "torch.distributed")):
         with pytest.raises(NotImplementedError, match=slice_name):
             ppo.init_train_state(PPOConfig(num_envs=4, hidden=8, **kw), device="cpu")
@@ -156,7 +156,7 @@ def test_unported_options_raise():
         ppo.init_train_state(PPOConfig(num_envs=4, hidden=8, rng_mode="exact"), device="cpu")
     for kw in (dict(self_play=False), dict(search_opponent=True),
                dict(search_opponent=True, search_static=True, search_censored=True),
-               dict(rng_mode="parity")):
+               dict(rng_mode="parity"), dict(reset_ring_mult=0)):
         ppo.init_train_state(PPOConfig(num_envs=4, hidden=8, **kw), device="cpu")
 
 
