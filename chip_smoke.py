@@ -23,7 +23,7 @@ Phases, in order; any failure exits non-zero:
      games, hidden 768, 4 updates, 3 evals), its files, its npz and a
      resumed run; the launch counters are zeroed and read around it;
   7. hold each kernel against its plain PyTorch version on the card, at
-     every batch and window size that phases 4 to 6 give it, and time the
+     every batch and window size that the driven phases give it, and time the
      kernel, the plain version and one PyTorch library call for the
      same function at the main path's shapes, on the device clock (the
      summed kernel time under torch.profiler);
@@ -53,12 +53,21 @@ Phases, in order; any failure exits non-zero:
      `game_logger --policy model`; the flagship rollout with
      `reset_ring_mult=0` and one `update_step`, then its turns/s against the
      ring rollout's.  Kernel A's launches from the wrapper to the update are
-     the "host" path.
+     the "host" path;
+ 14. search distillation: `python -m splendax_torch.train.distill` through
+     `main` on the committed recipe (runs/distill_h768/results.json: r16 h4,
+     sample 20 plies, c 20, gumbel target) cut to 256 games, 2 epochs and a
+     gate of 64 games a seat, its files and dataset checked and each phase
+     timed; one generation chunk at the recipe's 1024 games (737,280 playout
+     lanes), its seconds a ply, peak memory and 6 kernel A launches a ply
+     asserted; the loop on the card against the CPU on the same draws;
+ 15. `ppo_generic` on SplendaxTorch-v0 on the card, 2 updates.
 
-Phases 9 to 13 run after phase 6 and before phase 7, so the host-clock
-rates (phases 3 to 6 and 9 to 13) are taken before the first
+Phases 9 to 15 run after phase 6 and before phase 7, so the host-clock
+rates (phases 3 to 6 and 9 to 15) are taken before the first
 torch.profiler session of the process, so that no profiler state is left
-behind in them.
+behind in them.  A profile of one distillation ply at 737,280 lanes comes
+last.
 
 Prints the card's name and power limit first, a JSON line with each
 kernel's numbers second to last, and `{"ok": true, "device": ...}` last.
@@ -81,9 +90,9 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 H100_TF32_FLOPS = 494.7e12  # TF32 tensor cores, dense, H100 SXM data sheet
 # Kernel A against the plain float32 forward, in units of the rtol/atol 1e-5
-# tolerance: that forward is itself up to 1.29x the tolerance off the float64
-# one on the committed nets, and the kernel read up to 1.37x off it on an
-# H100 (PERF.md).
+# tolerance: that forward is itself up to 1.35x the tolerance off the float64
+# one on the committed nets' checked rows, and the kernel read up to 1.44x off
+# it on an H100 (PERF.md).
 F32_PLAIN_SLACK = 1.5
 
 
@@ -97,31 +106,59 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
-def device_ms(fn, n: int, warmup: int = 3) -> tuple[float, float]:
-    """(ms, host ms) per call of `fn`.  ms is the summed device time of
-    every kernel that n back-to-back calls launch, from torch.profiler, over
-    n; the run fails if the profiler sees no device time.  host ms is the
-    wall time of n calls ending in a synchronize, over n."""
+def profiled_kernels(run, min_launches: int = 1, tries: int = 3) -> list:
+    """The device kernels' torch.profiler averages over one call of `run`,
+    from the first of up to `tries` sessions that sees device time in at
+    least `min_launches` kernel launches; [] if none does.  On the card a
+    late session of a long run once saw no kernel, and another saw too few
+    (0.0001 ms for five kernels whose bound is 0.0024 ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if (sum(e.self_device_time_total for e in kernels) > 0
+                and sum(e.count for e in kernels) >= min_launches):
+            return kernels
+    return []
+
+
+def device_ms(fn, n: int, warmup: int = 3) -> tuple[float, float]:
+    """(ms, host ms) per call of `fn`.  ms is the summed device time of
+    every kernel that n back-to-back calls launch, from torch.profiler
+    (`profiled_kernels`, which needs a launch from each of the n calls),
+    over n; where no profiler session sees them, the time between two CUDA
+    events around n calls, over n, and a line says so.  host ms is the wall
+    time of n calls ending in a synchronize, over n."""
+    import torch
+
+    def calls():
+        for _ in range(n):
+            fn()
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
+    calls()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    check(dev_us > 0, "the profiler saw no device time: kernel times not measured")
-    return dev_us / 1e3 / n, host_ms
+    kernels = profiled_kernels(calls, min_launches=n)
+    if kernels:
+        return sum(e.self_device_time_total for e in kernels) / 1e3 / n, host_ms
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    calls()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n
+    check(ms > 0, "neither the profiler nor CUDA events timed the kernel")
+    print(f"  (no profiler session saw device time: {ms:.4f} ms from CUDA events)", flush=True)
+    return ms, host_ms
 
 
 def realistic_obs(B: int, plies: int, seed: int, device):
@@ -179,9 +216,9 @@ def phase_kernels(device) -> dict:
 
     # Kernel A: fused masked actor-critic forward, held within rtol/atol 1e-5
     # of its plain version in float64.  The plain version in float32 is no
-    # closer than that to the exact forward on these nets (up to 1.29x the
-    # tolerance), so against it the kernel is held within F32_PLAIN_SLACK
-    # times the tolerance; both shares are printed.
+    # closer than that to the exact forward on these nets (up to 1.35x the
+    # tolerance on the rows below), so against it the kernel is held within
+    # F32_PLAIN_SLACK times the tolerance; both shares are printed.
     err_a = 0.0
     # 8192, 2048 and 3072 are the league rollout's shapes, 256 its eval's;
     # 1024 and 64 are the train phase's agent and eval forwards.  The league
@@ -189,6 +226,13 @@ def phase_kernels(device) -> dict:
     # root prior on 1024 rows; the search phase and the eval CLI give 32,
     # 24576 (256 games x 96 Gumbel lanes) and 92160 (256 x 45 x 8 MC lanes).
     checked_b = (1, 17, 32, 64, 256, 257, 1024, 2048, 3072, 8192, 24576, 32768, 92160)
+    # Distillation's teacher, at the width it runs (H=768, the recipe's
+    # source net), on rows of their own: 184320 lanes (256 games x 45 x 16
+    # rollouts, the distill CLI phase) and 737280 (the recipe's 1024-game
+    # chunk).  At H=256 the float32 plain version is itself up to 1.6x the
+    # tolerance off float64 on 737280 such rows, so the float32 bound holds
+    # for no kernel there (PERF.md).
+    distill_b = (184320, 737280)
 
     def share(got, want):
         """max |got - want| as a share of the rtol/atol 1e-5 tolerance."""
@@ -201,9 +245,13 @@ def phase_kernels(device) -> dict:
         w64 = [t.double() for t in w]
         check(w[0].shape[1] == H, f"{src} has hidden {w[0].shape[1]}, expected {H}")
         obs_all, mask_all = realistic_obs(max(checked_b), 30, seed=H, device=device)
+        rows = [(B, obs_all, mask_all) for B in checked_b]
+        if H == 768:
+            obs_big, mask_big = realistic_obs(max(distill_b), 30, seed=H, device=device)
+            rows += [(B, obs_big, mask_big) for B in distill_b]
         err_h, shares = 0.0, [0.0, 0.0, 0.0]
-        for B in checked_b:
-            obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+        for B, obs_src, mask_src in rows:
+            obs, mask = obs_src[:B].contiguous(), mask_src[:B].contiguous()
             for with_value in (True, False):
                 outs = [fac.fused_masked_forward(w, obs, mask, with_value=with_value),
                         fac.fused_masked_forward_plain(w, obs, mask, with_value=with_value),
@@ -225,24 +273,40 @@ def phase_kernels(device) -> dict:
                         shares[j] = max(shares[j], share(a, b))
                 check((outs[0][0][0] > -1e8).all().item(),
                       "kernel A masked a row with no legal action")
+        # Distillation's root prior: the raw actor head, through an all-true
+        # mask, at the CLI phase's 256 games and the recipe's 1024.
+        for B in (256, 1024):
+            every = torch.ones((B, 45), dtype=torch.bool, device=device)
+            got = fac.fused_masked_forward(w, obs_all[:B].contiguous(), every, with_value=False)[0]
+            ref = fac.fused_masked_forward_plain(w64, obs_all[:B].contiguous(), every, False)[0]
+            check(torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-5)
+                  and (got > -1e8).all().item(),
+                  f"kernel A's root prior (all-true mask) at H={H} B={B}: "
+                  f"{share(got, ref):.3f} of the tolerance")
         err_a = max(err_a, err_h)
         print(f"kernel A H={H}: max abs err {err_h:.3g} vs the float64 plain version, "
               f"{shares[0]:.3f} of the rtol/atol 1e-5 tolerance; the float32 plain version: "
               f"{shares[1]:.3f} of it vs float64; kernel vs float32 plain: {shares[2]:.3f} "
-              f"(at most {F32_PLAIN_SLACK}; B in {checked_b}, with and without value)", flush=True)
+              f"(at most {F32_PLAIN_SLACK}; B in {[r[0] for r in rows]}, with and without value)",
+              flush=True)
     # Times at H = 768: the agent forward and the bootstrap value (B = 8192,
     # with value), the pool slots' forwards (B = 2048, 3072, no value) and the
     # eval suite's greedy forward (B = 256, no value), then the league slot's
     # search: its leaves (B = 32768, with value, logits dropped), its playout
     # moves (B = 32768, no value) and its root prior (B = 1024, no value),
-    # then the host policies' greedy move (B = 1, no value); each beside the
+    # then the host policies' greedy move (B = 1, no value), then
+    # distillation's teacher: its leaves (with value) and playout moves (no
+    # value) at 737280 lanes (the recipe's chunk) and 184320 (the CLI
+    # phase's; its root prior is the B = 1024 row above); each beside the
     # addmm chain for the same rows and heads.
     H = 768
     l1_products = 2 if obs_all.abs().max().item() <= 2048 else 3
     shapes = []
     for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False),
-                          (32768, True), (32768, False), (1024, False), (1, False)):
-        obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+                          (32768, True), (32768, False), (1024, False), (1, False),
+                          (737280, True), (737280, False), (184320, True), (184320, False)):
+        obs_src, mask_src = (obs_big, mask_big) if B in distill_b else (obs_all, mask_all)
+        obs, mask = obs_src[:B].contiguous(), mask_src[:B].contiguous()
         x32 = obs.to(torch.float32)
 
         def addmm_chain(x32=x32, heads=(0, 6) if with_value else (0,)):
@@ -251,9 +315,10 @@ def phase_kernels(device) -> dict:
                 h = torch.tanh(torch.addmm(w[o + 3], h, w[o + 2]))
                 torch.addmm(w[o + 5], h, w[o + 4])
 
-        ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w, obs, mask, with_value), 20)
-        plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w, obs, mask, with_value), 20)[0]
-        library_ms = device_ms(addmm_chain, 20)[0]
+        n = 20 if B <= 32768 else 5
+        ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w, obs, mask, with_value), n)
+        plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w, obs, mask, with_value), n)[0]
+        library_ms = device_ms(addmm_chain, n)[0]
         bound_ms, bound_by, bound_f32_ms = bound_a(B, H, with_value, l1_products)
         shapes.append(dict(B=B, with_value=with_value, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -476,32 +541,39 @@ def phase_rollout(device):
 
 
 @contextlib.contextmanager
-def timed_learner_phases(ppo, seconds: dict, last: dict):
-    """While open, `ppo.rollout`, `ppo._gae` and `ppo._ppo_epochs` add their
-    synchronised host seconds to `seconds` and leave their last arguments
-    and results in `last`."""
+def timed_calls(module, names, seconds: dict, last: dict, launches: dict | None = None):
+    """While open, each function `names` of `module` adds its synchronised
+    host seconds to `seconds` (and, given `launches`, its kernel A launches
+    to it) and leaves its last arguments and result in `last`."""
     import torch
 
-    originals = {name: getattr(ppo, name) for name in ("rollout", "_gae", "_ppo_epochs")}
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    originals = {name: getattr(module, name) for name in names}
 
     def timed(name, fn):
         def wrapper(*args, **kw):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0, n0 = time.perf_counter(), fac.launches
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            if launches is not None:
+                launches[name] = launches.get(name, 0) + fac.launches - n0
             last[name] = (args, out)
             return out
         return wrapper
 
     for name, fn in originals.items():
-        setattr(ppo, name, timed(name, fn))
+        setattr(module, name, timed(name, fn))
     try:
         yield
     finally:
         for name, fn in originals.items():
-            setattr(ppo, name, fn)
+            setattr(module, name, fn)
+
+
+LEARNER_PHASES = ("rollout", "_gae", "_ppo_epochs")
 
 
 def phase_update(device) -> dict:
@@ -531,7 +603,7 @@ def phase_update(device) -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
-    with timed_learner_phases(ppo, seconds, last):
+    with timed_calls(ppo, LEARNER_PHASES, seconds, last):
         for _ in range(n_updates):
             count0 = ts.opt_state.count
             ts, metrics = ppo.update_step(cfg, ts)
@@ -612,7 +684,7 @@ def phase_update(device) -> dict:
     # also held within 1e-4 (lr 0 leaves the parameters where they were).
     probe = cfg.replace(num_steps=4, minibatch_size=4 * cfg.num_envs, update_epochs=1, lr=0.0,
                         lr_anneal=False, snapshot_every_updates=10**9)
-    with timed_learner_phases(ppo, {}, last):
+    with timed_calls(ppo, LEARNER_PHASES, {}, last):
         ts, m = ppo.update_step(probe, ts)
     kl = m["approx_kl"].item()
     check(abs(kl) < 1e-4, f"kernel A's logp is {kl} off the autograd forward's in approx_kl")
@@ -866,6 +938,223 @@ def phase_search(device) -> dict:
     return times
 
 
+FLAGSHIP = "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"
+# runs/distill_h768/results.json's recipe: its source net, teacher and fit.
+DISTILL_RECIPE = ["--rollouts", "16", "--horizon", "4", "--max-plies", "120", "--sample-plies", "20",
+                  "--c-scale", "20", "--target", "gumbel", "--lr", "2e-4", "--minibatch", "4096",
+                  "--seed", "37"]
+
+
+def check_dataset(data: dict, where: str) -> None:
+    """The distill dataset contract on numpy rows [N, ...]: keys and dtypes,
+    q -inf exactly on illegal actions and finite on legal ones, its argmax
+    the recorded action, the raw logits finite, the weighted rows' outcomes
+    in the terminal alphabet."""
+    import numpy as np
+
+    dtypes = {"obs": np.int32, "mask": np.bool_, "q": np.float32, "logits": np.float32,
+              "action": np.int32, "z": np.float32, "weight": np.float32}
+    check({k: v.dtype for k, v in data.items()} == {k: np.dtype(t) for k, t in dtypes.items()},
+          f"{where}: keys or dtypes {[(k, v.dtype) for k, v in data.items()]}")
+    q, mask = data["q"], data["mask"]
+    live = mask.any(-1)
+    check(np.isneginf(q[~mask]).all() and np.isfinite(q[mask]).all(), f"{where}: q's -inf pattern")
+    check((q[live].argmax(-1) == data["action"][live]).all(), f"{where}: action is not q's argmax")
+    check(np.isfinite(data["logits"]).all() and (data["logits"] > -1e8).all(),
+          f"{where}: the root logits are not the raw head")
+    w = data["weight"] > 0
+    check(np.isin(np.round(data["z"][w], 2), [-1.0, -0.1, 0.0, 1.0]).all(),
+          f"{where}: an outcome outside the terminal alphabet")
+
+
+def phase_distill(device) -> dict:
+    """Search distillation on the card: (a) the CLI through its entry point
+    on the committed recipe, depth cut; (b) one generation chunk at the
+    recipe's width, 1024 games x 45 x 16 = 737,280 playout lanes; (c) the
+    loop on the card against the CPU on the same draws.  Returns each
+    path's launches."""
+    import numpy as np
+    import torch
+
+    from splendax_torch.engine import state as S
+    from splendax_torch.env import core
+    from splendax_torch.eval import suite
+    from splendax_torch.models.actor_critic import import_params_npz
+    from splendax_torch.train import distill
+
+    paths = {}
+    # (a) The CLI, the recipe's teacher and fit; 256 games in one chunk of
+    # 256 x 45 x 16 = 184,320 lanes, 2 epochs, a gate of 64 games a seat.
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = ["--npz", os.path.join(ROOT, FLAGSHIP), "--out", out_dir] + DISTILL_RECIPE + [
+            "--games", "256", "--gen-batch", "256", "--epochs", "2", "--gate-games", "64",
+            "--iters", "1", "--save-data", os.path.join(out_dir, "data.npz")]
+        seconds, by_call = {}, {}
+        zero_launches()
+        t0 = time.perf_counter()
+        with timed_calls(distill, ("generate_search_games", "distill_fit"), seconds, {}, by_call), \
+                timed_calls(suite, ("head_to_head",), seconds, {}, by_call):
+            distill.main(argv, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        paths["distill"] = read_launches()
+        with open(os.path.join(out_dir, "results.json")) as f:
+            res = json.load(f)
+        (it,) = res["iterations"]
+        check(set(res) == {"iterations", "source_npz", "accepted", "config"}
+              and set(it) == {"iter", "generation", "fit_history", "gate", "promoted"}
+              and len(it["fit_history"]) == 2 and it["gate"]["n"] == 128
+              and res["accepted"] == int(it["promoted"]), f"distill CLI: results.json {res}")
+        gen = it["generation"]
+        with np.load(os.path.join(out_dir, "data.npz")) as f:
+            data = {k: f[k] for k in f.files if k != "_stats"}
+        check_dataset(data, "distill CLI dataset")
+        check(len(data["obs"]) == gen["n_samples"] > 0 and (data["weight"] == 1).all(),
+              f"distill CLI: {len(data['obs'])} rows for {gen}")
+        check(all(np.isfinite(list(h.values())).all() for h in it["fit_history"]),
+              f"distill CLI: fit history {it['fit_history']}")
+        out = import_params_npz(os.path.join(out_dir, "distilled_params.npz"), device=device)
+        src = import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device)
+        same = all(torch.equal(a, b) for a, b in zip(out.parameters(), src.parameters()))
+        check(same != it["promoted"], "distill CLI: the npz does not follow the gate")
+        check(by_call["generate_search_games"] == 6 * 120 and by_call["distill_fit"] == 0,
+              f"distill CLI: kernel A launches by call {by_call}, not 6 a ply in generation")
+    print(f"distill CLI (recipe r16 h4, 256 games in one chunk of 184,320 lanes, 120 plies, "
+          f"2 epochs, gate 64 games a seat): {dt:.3f} s; generate "
+          f"{seconds['generate_search_games']:.3f} s ({seconds['generate_search_games'] / 120:.4f} s "
+          f"a ply), fit {seconds['distill_fit']:.3f} s, gate {seconds['head_to_head']:.3f} s; "
+          f"dataset {gen}; fit {it['fit_history']}; gate score {it['gate']['score']:.3f}"
+          f"±{it['gate']['score_ci95']:.3f}, promoted {it['promoted']}; kernel A by call "
+          f"{by_call}; launches {paths['distill']}", flush=True)
+
+    # (b) One chunk at the recipe's width: 1024 games, 6 sampled plies.
+    net = import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device)
+    gen = torch.Generator(device=device).manual_seed(37)
+
+    def chunk(plies):
+        return distill._generate(net, gen, 1024, 16, 4, plies, "fast", True, 20, 20.0, False)
+
+    chunk(1)  # warm-up, not kept
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    data, stats = chunk(6)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    paths["distill chunk"] = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(paths["distill chunk"]["fused_actor_critic"] == 6 * 6
+          and paths["distill chunk"]["ring_take"] == 0,
+          f"distill chunk: launches {paths['distill chunk']}, not 6 a ply")
+    check(tuple(data["obs"].shape) == (6, 1024, 297), f"distill chunk: obs {data['obs'].shape}")
+    check_dataset({k: v.reshape((-1,) + tuple(v.shape[2:])).cpu().numpy() for k, v in data.items()},
+                  "distill chunk")
+    print(f"distill chunk (1024 games x 45 x 16 rollouts = 737,280 lanes, horizon 4, H=768): "
+          f"{dt / 6:.4f} s a generation ply (6 plies in {dt:.3f} s); peak memory {peak} bytes; "
+          f"kernel A {paths['distill chunk']['fused_actor_critic'] / 6:.0f} launches a ply",
+          flush=True)
+
+    # (c) The card against the CPU on the same deals, draws and played
+    # moves.  The playouts are unguided: a guided move is the argmax of
+    # logits + noise, which a 1e-6 difference of the kernel's logits could
+    # flip; the leaves and the root prior still run kernel A on the card.
+    cg = torch.Generator().manual_seed(5)
+    B, K, hz, plies = 8, 2, 2, 30
+    state0 = core.reset(B, cg, "cpu")[0]
+    draws = [[torch.rand(B * 45 * K, generator=cg) for _ in range(hz)] for _ in range(plies)]
+    net_c = import_params_npz(os.path.join(ROOT, FLAGSHIP), device="cpu")
+    want, want_stats = distill._generate(net_c, None, B, K, hz, plies, guided=False,
+                                         state0=state0, draws=draws)
+    zero_launches()
+    got, got_stats = distill._generate(
+        net, None, B, K, hz, plies, guided=False, state0=S.from_numpy(S.to_numpy(state0), device),
+        draws=[[d.to(device) for d in ply] for ply in draws],
+        play=[a.to(device) for a in want["action"]])
+    torch.cuda.synchronize()
+    paths["distill card vs CPU"] = read_launches()
+    got = {k: v.cpu() for k, v in got.items()}
+    for k in ("obs", "mask", "z", "weight"):
+        check(torch.equal(got[k], want[k]), f"distill card vs CPU: {k} differs")
+    legal = want["mask"]
+    check(torch.equal(torch.isneginf(got["q"]), torch.isneginf(want["q"])),
+          "distill card vs CPU: q's -inf pattern differs")
+    q_err = (got["q"][legal] - want["q"][legal]).abs().max().item()
+    check(torch.allclose(got["q"][legal], want["q"][legal], rtol=1e-5, atol=1e-5),
+          f"distill card vs CPU: q differs by {q_err}")
+    l_err = (got["logits"] - want["logits"]).abs().max().item()
+    check(torch.allclose(got["logits"], want["logits"], rtol=F32_PLAIN_SLACK * 1e-5,
+                         atol=F32_PLAIN_SLACK * 1e-5), f"distill card vs CPU: logits off by {l_err}")
+    check(want_stats["n_samples"].item() == got_stats["n_samples"].item(),
+          "distill card vs CPU: stats differ")
+    check(paths["distill card vs CPU"]["fused_actor_critic"] == 2 * plies,
+          f"distill card vs CPU: launches {paths['distill card vs CPU']}, not a leaf batch and "
+          "a root prior a ply")
+    print(f"distill card vs CPU ({B} games, r{K} h{hz}, {plies} plies, unguided playouts, the "
+          f"flagship net): obs, mask, z and weight equal; q within {q_err:.3g}, root logits within "
+          f"{l_err:.3g}; launches on the card {paths['distill card vs CPU']}", flush=True)
+    return paths
+
+
+def phase_ppo_generic(device) -> float:
+    """`ppo_generic` on the port's env, on the card, 2 updates of 4 envs x
+    128 steps (the reference defaults), through gymnasium or its stand-ins."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from splendax_torch.env import _gym
+    from splendax_torch.train import ppo_generic
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        agent, returns = ppo_generic.main(["--env-id", "SplendaxTorch-v0", "--total-timesteps",
+                                           "1024"], device=device)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    check(len(lines) == 2 and lines[-1].startswith("update=2/2 SPS="), f"ppo_generic: {lines}")
+    check(next(agent.parameters()).device.type == "cuda"
+          and all(torch.isfinite(p).all().item() for p in agent.parameters()),
+          "ppo_generic: the agent is not finite on the card")
+    print(f"ppo_generic on SplendaxTorch-v0 ({'gymnasium' if _gym.HAVE_GYMNASIUM else 'stand-ins'}"
+          f", 4 envs x 128 steps, 2 updates, H=64 on the card): {1024 / dt:.1f} env steps/s "
+          f"({dt:.3f} s incl. set-up); its last line: {lines[-1]}; {len(returns)} episodes ended "
+          f"(mean return {np.mean(returns) if returns else float('nan'):.3f})", flush=True)
+    return 1024 / dt
+
+
+def profile_distill_ply(device) -> None:
+    """Where a generation ply's time goes at 737,280 lanes: one ply on the
+    host clock, then one under torch.profiler."""
+    import torch
+
+    from splendax_torch.models.actor_critic import import_params_npz
+    from splendax_torch.train import distill
+
+    net = import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device)
+    gen = torch.Generator(device=device).manual_seed(38)
+
+    def ply():
+        distill._generate(net, gen, 1024, 16, 4, 1, "fast", True, 20, 20.0, False)
+        torch.cuda.synchronize()
+
+    ply()
+    t0 = time.perf_counter()
+    ply()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = profiled_kernels(ply)
+    check(kernels, "distill profile: the profiler saw no device time")
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profile (distill ply, 737,280 lanes): {wall_ms:.3f} ms on the host clock; device busy "
+          f"{dev_ms:.3f} ms in {sum(e.count for e in kernels)} kernel launches "
+          f"({100 * dev_ms / wall_ms:.1f}% busy)", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}", flush=True)
+
+
 def league_cfg():
     """runs/ppo_splendor_2b_h768_league/config.json, its search slot
     included."""
@@ -909,7 +1198,7 @@ def phase_league(device):
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
-    with timed_learner_phases(ppo, seconds, last):
+    with timed_calls(ppo, LEARNER_PHASES, seconds, last):
         ts, metrics = ppo.update_step(cfg, ts)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1296,8 +1585,6 @@ def phase_profile(cfg, ts, n: int = 4, label: str = "profile") -> None:
     """Where a flagship turn's time goes: n turns timed on the host clock,
     then the same under torch.profiler for the device time by kernel."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from splendax_torch.env import ring as ring_lib
     from splendax_torch.selfplay import pool as pool_lib
@@ -1321,12 +1608,10 @@ def phase_profile(cfg, ts, n: int = 4, label: str = "profile") -> None:
     t0 = time.perf_counter()
     turns(n)
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        turns(n)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = profiled_kernels(lambda: turns(n))
+    check(kernels, "profile: the profiler saw no device time")
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     count = sum(e.count for e in kernels) / n
-    check(dev_ms > 0, "profile: the profiler saw no device time")
     print(f"{label}: {wall_ms:.3f} ms/turn on the host clock; device busy {dev_ms:.3f} ms/turn "
           f"in {count:.0f} kernel launches ({100 * dev_ms / wall_ms:.1f}% busy)", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
@@ -1375,11 +1660,15 @@ def main() -> int:
     phase_cli(device)
     by_path["cli"] = read_launches()
     by_path["host"] = phase_host(device)
-    check(all(by_path[p]["fused_actor_critic"] > 0 for p in ("search", "cli", "host")),
-          f"a search or host path did not launch kernel A: {by_path}")
+    by_path.update(phase_distill(device))
+    phase_ppo_generic(device)
+    check(all(by_path[p]["fused_actor_critic"] > 0
+              for p in ("search", "cli", "host", "distill", "distill chunk")),
+          f"a search, host or distill path did not launch kernel A: {by_path}")
     kern = phase_kernels(device)
     phase_profile(cfg, ts)
     phase_profile(cfg_league, ts_league, label="profile (league slot)")
+    profile_distill_ply(device)
 
     meta = {
         "fused_actor_critic": ("splendax_torch/csrc/fused_actor_critic.cu",

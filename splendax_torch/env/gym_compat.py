@@ -15,8 +15,9 @@ card by default: `device.resolve_device` raises without one, so pass
 "auto" picks native when `rng_mode="parity"` and the library builds, else
 torch.  Batched workloads use `env.core` or `env.vector` instead.
 
-Registered with gymnasium as "SplendaxTorch-v0" (the JAX package's env is
-"Splendax-v0"), so `gym.make("SplendaxTorch-v0", device="cpu")` works.
+Registered with gymnasium, or its stand-ins in `env._gym`, as
+"SplendaxTorch-v0" (the JAX package's env is "Splendax-v0"), so
+`gym.make("SplendaxTorch-v0", device="cpu")` works.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from ..engine.encode import OBSERVATION_DIM, encode_observation
 from ..engine.rules import TOTAL_ACTIONS
 from ..engine.state import GameState, initial_state_parity
 from . import core
-from ._gym import HAVE_GYMNASIUM, gym, spaces
+from ._gym import gym, spaces
 
 ENV_ID = "SplendaxTorch-v0"
 
@@ -227,8 +228,7 @@ def make(num_players: int = 2, render_mode: Optional[str] = None, seed: Optional
                        device=device)
 
 
-if HAVE_GYMNASIUM:
-    try:
-        gym.register(id=ENV_ID, entry_point="splendax_torch.env.gym_compat:SplendorEnv")
-    except gym.error.Error:  # pragma: no cover - registered twice
-        pass
+try:
+    gym.register(id=ENV_ID, entry_point="splendax_torch.env.gym_compat:SplendorEnv")
+except gym.error.Error:  # pragma: no cover - registered twice
+    pass

@@ -48,9 +48,11 @@ def clip_by_global_norm(grads, max_norm: float = MAX_GRAD_NORM):
 
 
 @torch.no_grad()
-def step(params, grads, state: AdamState, lr: float) -> AdamState:
-    """One clipped Adam step, in place on `params` and the moments."""
-    params, grads = list(params), clip_by_global_norm(list(grads))
+def step(params, grads, state: AdamState, lr: float,
+         max_norm: float = MAX_GRAD_NORM) -> AdamState:
+    """One clipped Adam step, in place on `params` and the moments; the
+    gradients are clipped to a global norm of `max_norm` first."""
+    params, grads = list(params), clip_by_global_norm(list(grads), max_norm)
     count = state.count + 1
     torch._foreach_mul_(state.mu, B1)
     torch._foreach_add_(state.mu, grads, alpha=1 - B1)
