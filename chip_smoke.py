@@ -61,10 +61,19 @@ Phases, in order; any failure exits non-zero:
      timed; one generation chunk at the recipe's 1024 games (737,280 playout
      lanes), its seconds a ply, peak memory and 6 kernel A launches a ply
      asserted; the loop on the card against the CPU on the same draws;
- 15. `ppo_generic` on SplendaxTorch-v0 on the card, 2 updates.
+ 15. `ppo_generic` on SplendaxTorch-v0 on the card, 2 updates;
+ 16. parallel: two gloo ranks sharing the card run the league recipe's
+     update (without the slot) at dp=2 (64 turns) and at tp=2 (8 turns)
+     from the flagship state, each held against one process's update from
+     the same state: the rollout rows bit for bit, the first minibatch's
+     loss and gradients within rtol 1e-4, the optimizer steps the KL stop
+     leaves; kernel A on two 4096-row halves against the B=8192 call; the
+     whole-weight gather timed; `dryrun_multichip(4)` on the card; the
+     scaling bench at 4096 games a rank over 1 and 2 ranks.  The ranks zero
+     their launch counters before the measured update and return them.
 
-Phases 9 to 15 run after phase 6 and before phase 7, so the host-clock
-rates (phases 3 to 6 and 9 to 15) are taken before the first
+Phases 9 to 16 run after phase 6 and before phase 7, so the host-clock
+rates (phases 3 to 6 and 9 to 16) are taken before the first
 torch.profiler session of the process, so that no profiler state is left
 behind in them.  A profile of one distillation ply at 737,280 lanes comes
 last.
@@ -225,7 +234,8 @@ def phase_kernels(device) -> dict:
     # slot's search runs 32768 playout lanes (with and without value) and a
     # root prior on 1024 rows; the search phase and the eval CLI give 32,
     # 24576 (256 games x 96 Gumbel lanes) and 92160 (256 x 45 x 8 MC lanes).
-    checked_b = (1, 17, 32, 64, 256, 257, 1024, 2048, 3072, 8192, 24576, 32768, 92160)
+    # 4096 is a dp=2 rank's agent forward and bootstrap value.
+    checked_b = (1, 17, 32, 64, 256, 257, 1024, 2048, 3072, 4096, 8192, 24576, 32768, 92160)
     # Distillation's teacher, at the width it runs (H=768, the recipe's
     # source net), on rows of their own: 184320 lanes (256 games x 45 x 16
     # rollouts, the distill CLI phase) and 737280 (the recipe's 1024-game
@@ -304,7 +314,8 @@ def phase_kernels(device) -> dict:
     shapes = []
     for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False),
                           (32768, True), (32768, False), (1024, False), (1, False),
-                          (737280, True), (737280, False), (184320, True), (184320, False)):
+                          (737280, True), (737280, False), (184320, True), (184320, False),
+                          (4096, True), (4096, False)):
         obs_src, mask_src = (obs_big, mask_big) if B in distill_b else (obs_all, mask_all)
         obs, mask = obs_src[:B].contiguous(), mask_src[:B].contiguous()
         x32 = obs.to(torch.float32)
@@ -341,12 +352,16 @@ def phase_kernels(device) -> dict:
     R = 16384
     packed = torch.as_tensor(rng.randint(-1, 90, size=(R + 8192, 135)).astype(np.int8),
                              device=device)
-    for B, W, p_done, ptr0 in ((8192, 8192, 0.03, 5), (8192, 8192, 0.5, 12000),
-                               (8192, 8192, 1.0, R - 1), (8191, 8192, 0.5, 77),
-                               (12000, 8192, 1.0, 3), (1024, 1024, 0.03, 5),
-                               (1024, 1024, 1.0, 2047), (1500, 1024, 1.0, 3)):
+    # The last number is the rank offset: under dp=2 a rank's ranks start
+    # after the done games of the ranks before it (B=4096 of W=8192).
+    for B, W, p_done, ptr0, off in ((8192, 8192, 0.03, 5, 0), (8192, 8192, 0.5, 12000, 0),
+                                    (8192, 8192, 1.0, R - 1, 0), (8191, 8192, 0.5, 77, 0),
+                                    (12000, 8192, 1.0, 3, 0), (1024, 1024, 0.03, 5, 0),
+                                    (1024, 1024, 1.0, 2047, 0), (1500, 1024, 1.0, 3, 0),
+                                    (4096, 8192, 0.03, 5, 0), (4096, 8192, 0.03, 9000, 131),
+                                    (4096, 8192, 1.0, 77, 4096)):
         done = torch.as_tensor(rng.rand(B) < p_done, device=device)
-        rank = torch.cumsum(done, 0) - done.long()
+        rank = torch.cumsum(done, 0) - done.long() + off
         ptr = torch.tensor(ptr0, dtype=torch.int64, device=device)
         got = rt.take_rows(packed, ptr, rank, W)
         want = rt.take_rows_plain(packed, ptr, rank, W)
@@ -355,8 +370,8 @@ def phase_kernels(device) -> dict:
         check(e == 0, f"kernel B disagrees at B={B} W={W} p={p_done}: max abs err {e}")
         if B > W and p_done == 1.0:
             check(rank.max().item() > W - 1, "the overflow case did not overflow")
-    print("kernel B: exact against plain at W=8192 and W=1024, overflow cases included",
-          flush=True)
+    print("kernel B: exact against plain at W=8192 (B=8192 and a dp=2 rank's 4096 with its "
+          "offset) and W=1024, overflow cases included", flush=True)
     B = W = 8192
     done = torch.as_tensor(rng.rand(B) < 0.03, device=device)
     rank = torch.cumsum(done, 0) - done.long()
@@ -366,10 +381,23 @@ def phase_kernels(device) -> dict:
     plain_ms = device_ms(lambda: rt.take_rows_plain(packed, ptr, rank, W), 200)[0]
     library_ms, library_host_ms = device_ms(lambda: torch.index_select(packed, 0, idx), 200)
     nbytes = 2 * B * 135 + 8 * B + 8
+    # A dp=2 rank's take: 4096 rows of the W=8192 window, after an offset.
+    rank_r = torch.cumsum(done[:4096], 0) - done[:4096].long() + 131
+    idx_r = ptr + torch.clamp(rank_r, max=W - 1)
+    ms_r = device_ms(lambda: rt.take_rows(packed, ptr, rank_r, W), 200)[0]
+    plain_r = device_ms(lambda: rt.take_rows_plain(packed, ptr, rank_r, W), 200)[0]
+    library_r = device_ms(lambda: torch.index_select(packed, 0, idx_r), 200)[0]
+    bound_r = (2 * 4096 * 135 + 8 * 4096 + 8) / H100_BYTES_PER_S * 1e3
+    print(f"kernel B B=4096 W={W} (a dp=2 rank): {ms_r:.5f} ms, plain {plain_r:.5f} ms, "
+          f"index_select {library_r:.5f} ms; bound {bound_r:.5f} ms by bytes", flush=True)
     results["ring_take"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", host_ms=host_ms,
         bound_peak="HBM3, 3.35 TB/s",
+        by_shape=[dict(B=B, W=W, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=nbytes / H100_BYTES_PER_S * 1e3),
+                  dict(B=4096, W=W, offset=131, ms=ms_r, plain_ms=plain_r, library_ms=library_r,
+                       bound_ms=bound_r)],
     )
     print(f"kernel B B={B} W={W}: {ms:.5f} ms (device clock), plain {plain_ms:.5f} ms, "
           f"index_select {library_ms:.5f} ms; bound {results['ring_take']['bound_ms']:.5f} ms "
@@ -476,7 +504,8 @@ def flagship_state(cfg, device):
                 "runs/distill_h768/distilled_params.npz"):
         pool = pool_lib.push_snapshot(pool, import_params_npz(os.path.join(ROOT, src), device=device))
     ts.pool = pool
-    ts.opp_idx = ppo._sample_opponents(cfg, pool, ts.generator, cfg.num_envs)
+    opp_idx = ppo._sample_opponents(cfg, pool, ts.generator, cfg.num_envs)
+    ts.opp_idx = opp_idx if ts.mesh is None else ts.mesh.rows(opp_idx)  # the global draw's rows
     return ts
 
 
@@ -1096,6 +1125,183 @@ def phase_distill(device) -> dict:
     return paths
 
 
+# runs/ppo_splendor_2b_h768_league/config.json without its search slot.
+LEAGUE_NO_SLOT = dict(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
+                      reset_ring_mult=2, minibatch_size=32768, update_epochs=4, lr=2.5e-4,
+                      lr_anneal=True, target_kl=0.02, snapshot_every_updates=16,
+                      total_timesteps=2_000_000_000, rng_mode="fast")
+
+
+def probed_update(cfg, ts):
+    """One `update_step` -> (ts, seconds, record): the record holds the
+    rollout, the first minibatch's loss and the gradients its optimizer
+    step took, and the optimizer steps the KL stop left."""
+    import torch
+
+    from splendax_torch.train import optim, ppo
+
+    rec = {}
+    rollout, step, loss = ppo.rollout, optim.step, ppo.ppo_loss
+
+    def rollout_kept(*args):
+        out = rollout(*args)
+        rec["traj"] = out[1]
+        return out
+
+    def loss_kept(*args, **kw):
+        out = loss(*args, **kw)
+        rec.setdefault("loss", out[0].detach().clone())
+        return out
+
+    def step_kept(params, grads, *args, **kw):
+        rec.setdefault("grads", [g.detach().clone() for g in grads])
+        return step(params, grads, *args, **kw)
+
+    ppo.rollout, optim.step, ppo.ppo_loss = rollout_kept, step_kept, loss_kept
+    try:
+        count0 = ts.opt_state.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = ppo.update_step(cfg, ts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        ppo.rollout, optim.step, ppo.ppo_loss = rollout, step, loss
+    rec["steps"] = ts.opt_state.count - count0
+    return ts, dt, rec
+
+
+def parallel_rank(runs) -> dict:
+    """On each rank of a gloo group sharing the card: for each (label, dp,
+    tp, turns) of `runs`, the league recipe's update on that mesh from the
+    flagship state, after a 2-turn warm-up; returns this rank's rows of the
+    rollout, the first minibatch's loss (this rank's part) and whole
+    gradients, the steps, the whole params, the time, the kernel launches,
+    and under tp the time of the whole-weight gather."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from splendax_torch.models import actor_critic as ac
+    from splendax_torch.parallel import collectives
+    from splendax_torch.parallel.multihost import local_device
+    from splendax_torch.train.config import PPOConfig
+
+    dev = local_device("cuda")
+    check(dev.type == "cuda", f"a rank runs on {dev}")
+    out = {}
+    for label, dp, tp, turns in runs:
+        cfg = PPOConfig(**dict(LEAGUE_NO_SLOT, num_steps=turns), dp=dp, tp=tp)
+        probed_update(cfg.replace(num_steps=2), flagship_state(cfg, dev))  # warm-up
+        ts = flagship_state(cfg, dev)
+        zero_launches()
+        dist.barrier()
+        ts, dt, rec = probed_update(cfg, ts)
+        launches = read_launches()
+        mesh, traj = ts.mesh, rec["traj"]
+        check(traj.obs.is_cuda and ts.params.actor[0].weight.is_cuda, "a rank left the card")
+        dims = ts.params.shard_dims or [None] * len(rec["grads"])
+        grads = [g if d is None else collectives.all_gather_cat(g, mesh.tp_group, d)
+                 for g, d in zip(rec["grads"], dims)]
+        gather_ms = None
+        if tp > 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                ac.gather_full_weights(ts.params)
+            torch.cuda.synchronize()
+            gather_ms = (time.perf_counter() - t0) * 1e3 / 5
+        out[label] = dict(
+            action=traj.action.to(torch.int8).cpu().numpy(), reward=traj.reward.cpu().numpy(),
+            done=traj.done.cpu().numpy(), overflow=int(traj.overflow), loss=rec["loss"].item(),
+            grads=[g.cpu().numpy() for g in grads], steps=rec["steps"],
+            params=[p.detach().cpu().numpy() for p in ac.whole_model(ts.params).parameters()],
+            seconds=dt, launches=launches, dp_rank=mesh.dp_rank, tp_rank=mesh.tp_rank,
+            gather_ms=gather_ms, device=str(dev), routes=dict(collectives.routes))
+    return out
+
+
+def phase_parallel(device) -> dict:
+    """dp and tp over gloo ranks sharing the card, against one process."""
+    import numpy as np
+    import torch
+
+    from splendax_torch.models import actor_critic as ac
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.parallel import bench_scaling, dryrun
+    from splendax_torch.parallel.multihost import spawn
+    from splendax_torch.train import ppo
+    from splendax_torch.train.config import PPOConfig
+
+    # Kernel A's rows must not depend on B for a rank's half of the batch
+    # to equal the same rows of the whole batch.
+    w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device))
+    obs, mask = realistic_obs(8192, 30, seed=768, device=device)
+    whole = fac.fused_masked_forward(w, obs, mask)
+    halves = [fac.fused_masked_forward(w, obs[i:i + 4096].contiguous(),
+                                       mask[i:i + 4096].contiguous()) for i in (0, 4096)]
+    same_b = all(torch.equal(torch.cat([h[j] for h in halves]), whole[j]) for j in (0, 1))
+    print(f"parallel: kernel A on the two 4096-row halves equals the B=8192 call bit for bit: "
+          f"{same_b}", flush=True)
+
+    runs = (("dp", 2, 1, 64), ("tp", 1, 2, 8))
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, 2, args=(runs,), device="cuda", timeout=600)
+    print(f"parallel: 2 gloo ranks on {ranks[0]['dp']['device']}, {time.perf_counter() - t0:.1f} s "
+          f"with start-up; collective routes of rank 0 {ranks[0]['tp']['routes']}", flush=True)
+    launches = {"fused_actor_critic": 0, "ring_take": 0}
+    for label, dp, tp, turns in runs:
+        cfg = PPOConfig(**dict(LEAGUE_NO_SLOT, num_steps=turns))
+        ts1, dt, rec = probed_update(cfg, flagship_state(cfg, device))
+        traj, n = rec["traj"], cfg.num_envs // dp
+        for r in ranks:
+            got = r[label]
+            rows = slice(got["dp_rank"] * n, (got["dp_rank"] + 1) * n)
+            for k in ("action", "reward", "done"):
+                want = getattr(traj, k)[:, rows].cpu().numpy()
+                check(np.array_equal(got[k], want.astype(got[k].dtype)),
+                      f"parallel {label}: a rank's rollout {k} differs from one process's rows")
+            check(got["overflow"] == int(traj.overflow), f"parallel {label}: overflow differs")
+            check(got["steps"] == rec["steps"], f"parallel {label}: {got['steps']} optimizer steps "
+                  f"before the KL stop, one process {rec['steps']}")
+            for k, v in got["launches"].items():
+                launches[k] += v
+        # Under dp each rank's loss is its part of the minibatch's sum.
+        loss = sum(r[label]["loss"] for r in ranks if r[label]["tp_rank"] == 0)
+        worst = 0.0
+        for name, got, want in ([("loss", np.float64(loss), rec["loss"])]
+                                + [(f"grad[{i}]", g, rec["grads"][i])
+                                   for i, g in enumerate(ranks[0][label]["grads"])]):
+            want = want.detach().double().cpu().numpy()
+            atol = 1e-5 * np.abs(want).max()
+            err = (np.abs(np.asarray(got, np.float64) - want) / (atol + 1e-4 * np.abs(want))).max()
+            check(err <= 1.0, f"parallel {label}: {name} is {err:.3f} of rtol 1e-4 off one process")
+            worst = max(worst, err)
+        single = [p.detach().cpu().numpy() for p in ts1.params.parameters()]
+        moved = max(np.abs(a - b).max() for a, b in zip(ranks[0][label]["params"], single))
+        lr = ppo._anneal(cfg, 0)[0]
+        gather = ranks[0][label]["gather_ms"]
+        print(f"parallel {label}={max(dp, tp)} (N={cfg.num_envs}, T={turns}, H={cfg.hidden}): "
+              f"rollout rows bit-equal to one process's; first minibatch loss and 12 gradients "
+              f"within {worst:.3f} of rtol 1e-4; {rec['steps']} optimizer steps in both; params "
+              f"max |diff| {moved:.3g} = {moved / lr:.3f} lr; update "
+              f"{ranks[0][label]['seconds']:.4f} s on the ranks, {dt:.4f} s in one process"
+              + (f"; whole-weight gather {gather:.3f} ms" if gather is not None else ""),
+              flush=True)
+
+    t0 = time.perf_counter()
+    results = dryrun.dryrun_multichip(4, device="cuda")
+    check(all(r["device"].startswith("cuda") for r in results), "a dry-run rank left the card")
+    for r in results:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    print(f"parallel: dryrun_multichip(4) on the card, {time.perf_counter() - t0:.1f} s; routes of "
+          f"rank 0 {results[0]['routes']}", flush=True)
+    bench_scaling.main(["--ranks", "2", "--batch-per-rank", "4096", "--steps", "20", "--reps", "1",
+                        "--device", "cuda"])
+    return launches
+
+
 def phase_ppo_generic(device) -> float:
     """`ppo_generic` on the port's env, on the card, 2 updates of 4 envs x
     128 steps (the reference defaults), through gymnasium or its stand-ins."""
@@ -1662,6 +1868,9 @@ def main() -> int:
     by_path["host"] = phase_host(device)
     by_path.update(phase_distill(device))
     phase_ppo_generic(device)
+    by_path["parallel"] = phase_parallel(device)
+    check(all(n > 0 for n in by_path["parallel"].values()),
+          f"the parallel path did not launch both kernels: {by_path['parallel']}")
     check(all(by_path[p]["fused_actor_critic"] > 0
               for p in ("search", "cli", "host", "distill", "distill chunk")),
           f"a search, host or distill path did not launch kernel A: {by_path}")

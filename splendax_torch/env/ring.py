@@ -16,6 +16,13 @@ take never wraps: lane i reads row `ptr + min(rank_i, window - 1)`, where
 (more than `window` games ending in one step) reuse the last row and are
 counted in `overflow`, so a caller can assert that every fresh game was
 distinct.  `ptr` and `overflow` stay on the device.
+
+Under data parallelism every rank holds the same whole ring, with a window
+of the global batch, and takes for its own rows: a done lane's rank counts
+the done lanes before it on this rank and on every rank before it in the
+dp group (one all-reduce of the per-rank counts a step), and `ptr` and
+`overflow` advance by the global count, so the ranks take disjoint rows
+and stay in step.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from ..engine import rules
 from ..engine.encode import encode_observation
 from ..engine.state import GameState, blank_batch, initial_state
 from ..ops.ring_take import take_rows
+from ..parallel import collectives
 from . import core
 
 ACT_DIM = 45
@@ -102,17 +110,25 @@ def make_ring(size: int, generator: torch.Generator, device="cuda",
     )
 
 
-def take(ring: FreshGameRing, done: torch.Tensor):
+def take(ring: FreshGameRing, done: torch.Tensor, mesh=None):
     """Hand each done lane the next unused fresh game.
 
     Returns (fresh_state [B], fresh_mask [B, 45], new ring).  Lanes that are
     not done get an arbitrary fresh row; the caller selects with `done`.
+    With a `mesh` of dp > 1, `done` is this rank's rows and the take is the
+    global one's (module docstring).
     """
     B = done.shape[0]
     W = ring.window
     incl = torch.cumsum(done, 0)
     rank = incl - done.long()  # done lanes before each lane
     n_done = incl[-1]
+    if mesh is not None and mesh.dp > 1:
+        counts = torch.zeros(mesh.dp, dtype=torch.int64, device=done.device)
+        counts[mesh.dp_rank] = n_done
+        collectives.all_reduce(counts, mesh.dp_group)
+        rank = rank + counts[:mesh.dp_rank].sum()
+        n_done = counts.sum()
     rows = take_rows(ring.packed, ring.ptr, rank, W)
     fresh_state = _unpack_state(rows)
     fresh_mask = ring.mask0.expand(B, ACT_DIM)
@@ -124,7 +140,7 @@ def take(ring: FreshGameRing, done: torch.Tensor):
 
 
 def step_autoreset_ring(state: GameState, action: torch.Tensor, ring: FreshGameRing,
-                        rng_mode: str = "fast", mask=None):
+                        rng_mode: str = "fast", mask=None, mesh=None):
     """`step` with done lanes reset from the ring.
 
     Returns (carry_state, out, obs_next, mask_next, ring): `out` keeps the
@@ -133,7 +149,7 @@ def step_autoreset_ring(state: GameState, action: torch.Tensor, ring: FreshGameR
     """
     next_state, fields = core.step_core(state, action, rng_mode=rng_mode, mask=mask)
     done = fields["terminated"]
-    fresh_state, _, ring = take(ring, done)
+    fresh_state, _, ring = take(ring, done, mesh)
     carry = core.select(done, fresh_state, next_state)
     # The encode and the mask are per-game functions, so computing them on
     # the selected carry equals selecting between fresh and stepped values.

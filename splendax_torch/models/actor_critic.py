@@ -6,6 +6,14 @@ fused kernel (`ops.fused_actor_critic`) on `kernel_weights(model)`, the same
 weights in the JAX package's [in, out] layout.  The initialisation is
 uniform +-1/sqrt(fan_in) for weights and biases, as the JAX package's
 `_linear_init` and torch's `nn.Linear` default both draw.
+
+Under tensor parallelism (`shard_model`) each rank's layers hold its shards
+of the weights, as `parallel.mesh._param_spec` assigns them: the first
+layer column-parallel, the second and the heads row-parallel.  The forward
+then runs Megatron-style, with one reduce-scatter between the hidden layers
+and one all-reduce of each head's output (`parallel.collectives`).  Kernel A
+takes whole weights, so `kernel_weights` of a sharded model gathers them
+over the tp group (`gather_full_weights`).
 """
 
 from __future__ import annotations
@@ -16,9 +24,12 @@ import os
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..ops.fused_actor_critic import ACT_DIM, OBS_DIM, masked_logits
+from ..parallel import collectives
+from ..parallel.mesh import shard, torch_shard_dim
 
 HEADS = ("actor", "critic")
 
@@ -39,6 +50,9 @@ class ActorCritic(nn.Module):
         self.hidden = hidden
         self.actor = _mlp(hidden, ACT_DIM).to(device)
         self.critic = _mlp(hidden, 1).to(device)
+        # Set by `shard_model`: the layers then hold this rank's tp shards.
+        self.mesh = None
+        self.shard_dims = None  # per parameter, the dim tp shards (None: whole)
         if generator is not None:
             with torch.no_grad():
                 for layer in self.linears():
@@ -54,12 +68,64 @@ class ActorCritic(nn.Module):
         """obs [B, 297] -> (logits [B, 45], value [B]), in the weights' dtype
         (float32, or float64 after `.double()` for a reference)."""
         x = obs.to(self.actor[0].weight.dtype)
+        if self.mesh is not None:
+            group = self.mesh.tp_group
+            return _tp_head(self.actor, x, group), _tp_head(self.critic, x, group)[:, 0]
         return self.actor(x), self.critic(x)[:, 0]
+
+
+def _tp_head(head: nn.Sequential, x: torch.Tensor, group) -> torch.Tensor:
+    """One MLP on this rank's shards: column-parallel into the hidden dim,
+    the partial sums of the second layer reduce-scattered back to this
+    rank's hidden columns, the head's partial output all-reduced."""
+    l0, l1, l2 = head[0], head[2], head[4]
+    h = torch.tanh(F.linear(x, l0.weight, l0.bias))
+    h = torch.tanh(collectives.reduce_scatter_fwd(F.linear(h, l1.weight), group) + l1.bias)
+    return collectives.all_reduce_fwd(F.linear(h, l2.weight), group) + l2.bias
+
+
+def shard_model(model: ActorCritic, mesh) -> ActorCritic:
+    """A model holding this rank's tp shards of `model`'s whole weights (the
+    model itself where tp is 1)."""
+    if mesh.tp == 1:
+        return model
+    if model.mesh is not None:
+        raise ValueError("shard_model: the model is already sharded")
+    out = ActorCritic(model.hidden, device=model.actor[0].weight.device)
+    dims = [torch_shard_dim(p.shape) for p in model.parameters()]
+    with torch.no_grad():
+        for (name, _), p, d in zip(out.named_parameters(), model.parameters(), dims):
+            mod, attr = name.rsplit(".", 1)
+            setattr(out.get_submodule(mod), attr, nn.Parameter(shard(p.detach(), d, mesh)))
+    for layer in out.linears():
+        layer.out_features, layer.in_features = layer.weight.shape
+    out.mesh, out.shard_dims = mesh, dims
+    return out
+
+
+def gather_full_weights(model: ActorCritic) -> list:
+    """The 12 whole weights and biases in `kernel_weights` layout, on every
+    rank: one all-gather of the packed shards over the tp group.  Every rank
+    of the group calls it."""
+    params = [p.detach() for p in model.parameters()]
+    sharded = [i for i, d in enumerate(model.shard_dims) if d is not None]
+    flat = torch.cat([params[i].reshape(-1) for i in sharded])
+    gathered = collectives.all_gather(flat, model.mesh.tp_group)  # [tp, n]
+    whole, off = list(params), 0
+    for i in sharded:
+        n = params[i].numel()
+        pieces = [g[off:off + n].view(params[i].shape) for g in gathered]
+        whole[i] = torch.cat(pieces, model.shard_dims[i])
+        off += n
+    return [w.t().contiguous() if w.dim() == 2 else w.contiguous() for w in whole]
 
 
 def kernel_weights(model: ActorCritic) -> list:
     """The 12 weights and biases in [in, out] layout, contiguous, as the
-    fused forward takes them (and as the JAX package stores them)."""
+    fused forward takes them (and as the JAX package stores them).  For a
+    sharded model, a collective: `gather_full_weights`."""
+    if model.mesh is not None:
+        return gather_full_weights(model)
     out = []
     for layer in model.linears():
         out += [layer.weight.detach().t().contiguous(), layer.bias.detach().contiguous()]
@@ -117,18 +183,38 @@ def export_params_npz(model: ActorCritic, path: str) -> None:
     np.savez(path, **flat)
 
 
-def params_from_jax(np_params: dict, device="cuda") -> ActorCritic:
+def from_kernel_weights(weights: list) -> ActorCritic:
+    """An ActorCritic holding the 12 weights of `kernel_weights` layout."""
+    flat = {}
+    for i, (w, b) in enumerate(zip(weights[0::2], weights[1::2])):
+        flat[f"{HEADS[i // 3]}.{i % 3}.w"], flat[f"{HEADS[i // 3]}.{i % 3}.b"] = w, b
+    return params_from_jax(flat, device=weights[0].device)
+
+
+def whole_model(model: ActorCritic) -> ActorCritic:
+    """`model` with whole weights on every rank (itself if it is whole)."""
+    return model if model.mesh is None else from_kernel_weights(gather_full_weights(model))
+
+
+def params_from_jax(np_params: dict, device="cuda", mesh=None) -> ActorCritic:
     """An ActorCritic holding flat npz-layout params
-    (`{"actor.0.w": [in, out], "actor.0.b": [out], ...}`)."""
+    (`{"actor.0.w": [in, out], "actor.0.b": [out], ...}`), numpy arrays or
+    tensors; with a `mesh`, this rank's tp shards of them."""
+    if mesh is not None:
+        return shard_model(params_from_jax(np_params, device), mesh)
     hidden = int(np.shape(np_params["actor.0.w"])[1])
     model = ActorCritic(hidden, device=device)
     with torch.no_grad():
         for i, layer in enumerate(model.linears()):
             head, j = HEADS[i // 3], i % 3
-            w = np.asarray(np_params[f"{head}.{j}.w"], np.float32)
-            layer.weight.copy_(torch.as_tensor(w.T.copy()))
-            layer.bias.copy_(torch.as_tensor(np.asarray(np_params[f"{head}.{j}.b"], np.float32)))
+            w, b = np_params[f"{head}.{j}.w"], np_params[f"{head}.{j}.b"]
+            layer.weight.copy_(_f32(w).t())
+            layer.bias.copy_(_f32(b))
     return model
+
+
+def _f32(x) -> torch.Tensor:
+    return x.float() if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x, np.float32))
 
 
 def import_params_npz(path: str, device="cuda") -> ActorCritic:

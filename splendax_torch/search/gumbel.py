@@ -169,6 +169,45 @@ def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float 
     return fn
 
 
+def draw_inputs(B: int, m: int, k0: int, horizon: int, generator, device, guided: bool = True,
+                censored: bool = False) -> dict:
+    """The `draws` that `gumbel_search_fn(m, k0, horizon)` would take from
+    `generator` for B games, taken in the same order: the root's Gumbel
+    noise, then for each round its determinizations' uniforms (`censored`)
+    and its playout plies' draws (Gumbel noise [B * m * k0, 45] when the
+    playouts follow the actor, `guided` with a network, else uniforms
+    [B * m * k0]).  Every draw is game-major, so `draw_rows` can cut it."""
+    from .ismc import EXT
+
+    rounds = int(m).bit_length() - 1
+    lanes = m * k0
+    draws = {"g": gumbel_noise((B, A), generator, device), "playout": []}
+    if censored:
+        draws["det"] = []
+    for r in range(rounds):
+        if censored:
+            k_r = lanes // (m >> r)
+            draws["det"].append(torch.rand((B * k_r, 3, EXT), generator=generator, device=device))
+        draws["playout"].append([
+            gumbel_noise((B * lanes, A), generator, device) if guided
+            else torch.rand(B * lanes, generator=generator, device=device)
+            for _ in range(horizon)])
+    return draws
+
+
+def draw_rows(draws: dict, lo: int, hi: int, m: int, k0: int) -> dict:
+    """The draws of games [lo, hi) of `draw_inputs`' batch."""
+    lanes = m * k0
+    out = {"g": draws["g"][lo:hi],
+           "playout": [[d[lo * lanes:hi * lanes] for d in plies] for plies in draws["playout"]]}
+    if "det" in draws:
+        out["det"] = []
+        for u in draws["det"]:
+            k_r = u.shape[0] // draws["g"].shape[0]
+            out["det"].append(u[lo * k_r:hi * k_r])
+    return out
+
+
 def gumbel_search_policy(m: int = 16, k0: int = 6, horizon: int = 4, params=None,
                          c_scale: float = 10.0, rng_mode: str = "fast", guided: bool = True,
                          greedy_final: bool = False) -> Tuple:

@@ -91,17 +91,21 @@ def dual_step(state: GameState, agent_action, opponent_policy: Callable, rng_mod
 
 
 def dual_step_autoreset(state: GameState, agent_action, opponent_policy: Callable,
-                        generator=None, rng_mode: str = "fast", fresh=None):
+                        generator=None, rng_mode: str = "fast", fresh=None, mesh=None):
     """`dual_step` with a fresh game wherever one ends: a full-batch
     `core.reset(B, generator)`, or `fresh` (state, obs, mask) when the
-    caller deals them.
+    caller deals them.  With a `mesh` of dp > 1 the deal is the global
+    batch's, of which this rank keeps its rows.
 
     Returns (carry, out, obs_next, mask_next, done): `out` keeps the
     terminal data for GAE; obs_next and mask_next feed the next policy call.
     """
     next_state, out = dual_step(state, agent_action, opponent_policy, rng_mode)
     if fresh is None:
-        fresh = core.reset(agent_action.shape[0], generator, state.to_play.device)
+        B, dp = agent_action.shape[0], 1 if mesh is None else mesh.dp
+        fresh = core.reset(B * dp, generator, state.to_play.device)
+        if dp > 1:
+            fresh = (fresh[0].map(mesh.rows), mesh.rows(fresh[1]), mesh.rows(fresh[2]))
     fresh_state, fresh_obs, fresh_mask = fresh
     done = out.done
     return (core.select(done, fresh_state, next_state), out,
@@ -110,14 +114,15 @@ def dual_step_autoreset(state: GameState, agent_action, opponent_policy: Callabl
 
 
 def dual_step_autoreset_ring(state: GameState, agent_action, opponent_policy: Callable,
-                             ring: ring_lib.FreshGameRing, rng_mode: str = "fast"):
-    """`dual_step` with done games replaced from the fresh-game ring.
+                             ring: ring_lib.FreshGameRing, rng_mode: str = "fast", mesh=None):
+    """`dual_step` with done games replaced from the fresh-game ring (the
+    global take of `ring_lib.take` with a `mesh`).
 
     Returns (carry, out, obs_next, mask_next, done, ring); obs_next and
     mask_next are those of the carried state, fresh where done.
     """
     next_state, out = _turn(state, agent_action, opponent_policy, rng_mode)
-    fresh_state, _, ring = ring_lib.take(ring, out.done)
+    fresh_state, _, ring = ring_lib.take(ring, out.done, mesh)
     carry = core.select(out.done, fresh_state, next_state)
     obs_next = encode_observation(carry)
     mask_next = rules.legal_mask(carry)

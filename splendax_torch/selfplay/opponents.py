@@ -79,9 +79,12 @@ def uniform_legal_action(mask: torch.Tensor, generator=None, u=None) -> torch.Te
     return torch.argmax(hit.to(torch.int32), dim=-1)
 
 
-def random_policy(obs, mask, state, generator=None):
-    """Uniform over all legal actions."""
-    return uniform_legal_action(mask, generator)
+def random_policy(obs, mask, state, generator=None, u=None):
+    """Uniform over all legal actions; `u` (f32 [B]) may give the draws."""
+    return uniform_legal_action(mask, generator, u=u)
+
+
+random_policy.draw_shape = lambda B: (B,)  # the uniforms a call draws
 
 
 def greedy_v1_policy(obs, mask, state, generator=None):
@@ -91,12 +94,13 @@ def greedy_v1_policy(obs, mask, state, generator=None):
     return choose(*((m.any(-1), first_legal(m)) for m in groups), default=first_legal(mask))
 
 
-def basic_priority_policy(obs, mask, state, generator=None):
+def basic_priority_policy(obs, mask, state, generator=None, u=None):
     """The visible buy with the most points > a reserved buy > take-3 >
-    take-2 > reserve > first legal, each tie broken at random.  Card points
-    are read from the observation (`obs[32 + 13 * slot + 2]`)."""
+    take-2 > reserve > first legal, each tie broken at random (`u`, f32
+    [2, B], may give the draws).  Card points are read from the observation
+    (`obs[32 + 13 * slot + 2]`)."""
     B = mask.shape[0]
-    u1, u2 = torch.rand((2, B), generator=generator, device=mask.device)
+    u1, u2 = torch.rand((2, B), generator=generator, device=mask.device) if u is None else u
     buy_vis = in_group(mask, "buy_vis")
     pts45 = torch.zeros((B, rules.TOTAL_ACTIONS), dtype=obs.dtype, device=obs.device)
     pts45[:, 15:27] = obs[:, 34 : 34 + 12 * 13 : 13]
@@ -107,6 +111,9 @@ def basic_priority_policy(obs, mask, state, generator=None):
         m = in_group(mask, group)
         cases.append((m.any(-1), uniform_legal_action(m, u=u)))
     return choose(*cases, default=first_legal(mask))
+
+
+basic_priority_policy.draw_shape = lambda B: (2, B)
 
 
 def greedy_v2_policy(obs, mask, state, generator=None):
@@ -141,13 +148,25 @@ DEVICE_POLICIES = {
 }
 
 
-def device_policy(name: str, generator=None):
+def device_policy(name: str, generator=None, mesh=None):
     """`DEVICE_POLICIES[name]` as `policy(obs, mask, state) -> action [B]`,
-    drawing its random tie-breaks from `generator`."""
+    drawing its random tie-breaks from `generator`.  With a `mesh` of dp >
+    1 the rows are this rank's: a policy that draws (`draw_shape`) draws for
+    the global batch and keeps this rank's columns."""
     if name not in DEVICE_POLICIES:  # registered when its module is imported
         from ..eval import noble  # noqa: F401
     fn = DEVICE_POLICIES[name]
-    return lambda obs, mask, state: fn(obs, mask, state, generator)
+    shape = getattr(fn, "draw_shape", None)
+    if mesh is None or mesh.dp == 1 or shape is None:
+        return lambda obs, mask, state: fn(obs, mask, state, generator)
+
+    def policy(obs, mask, state):
+        n = mask.shape[0] * mesh.dp
+        lo, hi = mesh.row_range(n)
+        u = torch.rand(shape(n), generator=generator, device=mask.device)[..., lo:hi]
+        return fn(obs, mask, state, generator, u=u)
+
+    return policy
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,11 @@ slot and the fused kernel runs once per slot that has games, on those rows
 only.  Both give the same greedy action.
 
 `set_current` and `push_snapshot` write the slot in place and return the
-pool with its counters updated.
+pool with its counters updated.  On a dp x tp mesh every rank holds every
+slot whole: writing a slot from a tp-sharded model gathers its weights
+(`kernel_weights`), and the PFSP counts are summed over dp as they are
+recorded, so `sample_opponent_idx` reads the global ones.  The per-slot
+launches and their host sync in `pool_greedy_policy` stay per rank.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from ..models.actor_critic import ActorCritic, kernel_weights
 from ..ops.fused_actor_critic import fused_masked_forward
+from ..parallel import collectives
 from .opponents import first_legal
 
 
@@ -94,15 +99,18 @@ def push_snapshot(pool: OpponentPool, model: ActorCritic) -> OpponentPool:
     return pool.replace(n_snapshots=pool.n_snapshots + 1)
 
 
-def record_outcomes(pool: OpponentPool, opp_idx, done, won) -> OpponentPool:
+def record_outcomes(pool: OpponentPool, opp_idx, done, won, group=None) -> OpponentPool:
     """Add finished episodes to the per-slot counts (`opp_idx` int [B],
     `done`/`won` bool [B]).  An index past CURRENT (the league slot's
-    sentinel) matches no slot, so those episodes add nothing."""
+    sentinel) matches no slot, so those episodes add nothing.  With a dp
+    `group`, the rows are this rank's and the counts added are summed over
+    the group, so every rank holds the global counts."""
     oh = (torch.arange(pool.pool_size + 1, device=opp_idx.device)[None] == opp_idx[:, None])
     oh = oh.to(torch.float32)
     d = done.to(torch.float32)[:, None]
     w = (done & won).to(torch.float32)[:, None]
-    return pool.replace(wins=pool.wins + (oh * w).sum(0), games=pool.games + (oh * d).sum(0))
+    add = collectives.all_reduce(torch.stack([(oh * w).sum(0), (oh * d).sum(0)]), group)
+    return pool.replace(wins=pool.wins + add[0], games=pool.games + add[1])
 
 
 def sample_opponent_idx(pool: OpponentPool, n: int, generator=None, mode: str = "uniform"):

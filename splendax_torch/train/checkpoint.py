@@ -9,6 +9,13 @@ a checkpoint directory of the JAX package in the same `log_dir`.
 
 `export_params_npz` writes the parameters alone in the JAX package's npz key
 layout, which both packages load.
+
+On a dp x tp mesh (the counterpart of `gather_to_host` in
+`splendax/train/checkpoint.py`) saving is a collective: every rank gathers
+the whole state (params and Adam moments over tp, the game rows over dp)
+and only the coordinator writes the file, which is the same file a single
+process writes.  Restoring loads it on every rank and takes each rank's
+shard again.
 """
 
 from __future__ import annotations
@@ -20,14 +27,19 @@ import time
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..engine.state import GameState
 from ..models.actor_critic import export_params_npz  # noqa: F401  (the JAX package exports it here)
+from ..parallel import mesh as mesh_lib
+from ..parallel.multihost import is_coordinator, world_size
 from . import optim
 
 
 def state_dict(ts) -> dict:
-    """The TrainState as nested dicts and lists of CPU tensors and numbers."""
+    """The TrainState as nested dicts and lists of CPU tensors and numbers
+    (on a mesh a collective: the whole state, gathered)."""
+    ts = mesh_lib.unshard_train_state(ts)
     cpu = lambda x: x.detach().cpu()  # noqa: E731
     return {
         "params": {k: cpu(v) for k, v in ts.params.state_dict().items()},
@@ -50,7 +62,14 @@ def state_dict(ts) -> dict:
 def load_state_dict(ts, saved: dict):
     """Overlay `saved` on the freshly initialised `ts`: every field the file
     holds replaces the fresh one (on the fresh one's device); a field the
-    file lacks (one added after it was written) keeps its fresh value."""
+    file lacks (one added after it was written) keeps its fresh value.  A
+    sharded `ts` is gathered first and the result sharded again, on its
+    mesh."""
+    mesh = ts.mesh
+    if mesh is not None:
+        whole = load_state_dict(mesh_lib.unshard_train_state(ts), saved)
+        return mesh_lib.shard_train_state(whole, mesh)
+
     def put(fresh, saved_tensor):
         return fresh if saved_tensor is None else saved_tensor.to(fresh.device)
 
@@ -90,11 +109,16 @@ def load_state_dict(ts, saved: dict):
 
 
 class CheckpointManager:
+    """Saves and restores TrainStates under `log_dir`; in a multi-process
+    run only the coordinator writes, and every rank waits for the file."""
+
     def __init__(self, log_dir: str, run_ts: Optional[str] = None, name: str = "ppo_splendor"):
         self.log_dir = os.path.abspath(log_dir)
         self.name = name
         self.run_ts = run_ts or time.strftime("%Y%m%d_%H%M%S")
-        os.makedirs(os.path.join(self.log_dir, "checkpoints"), exist_ok=True)
+        self.write = is_coordinator()
+        if self.write:
+            os.makedirs(os.path.join(self.log_dir, "checkpoints"), exist_ok=True)
 
     @property
     def latest_path(self) -> str:
@@ -106,10 +130,14 @@ class CheckpointManager:
             self.log_dir, "checkpoints",
             f"{self.name}_{self.run_ts}" + (f"_{step}" if step is not None else "") + ".pt",
         )
-        tmp = self.latest_path + ".tmp"
-        torch.save(state_dict(train_state), tmp)
-        os.replace(tmp, self.latest_path)  # never leaves a half-written latest
-        shutil.copyfile(self.latest_path, ts_path)
+        saved = state_dict(train_state)  # a collective on a mesh
+        if self.write:
+            tmp = self.latest_path + ".tmp"
+            torch.save(saved, tmp)
+            os.replace(tmp, self.latest_path)  # never leaves a half-written latest
+            shutil.copyfile(self.latest_path, ts_path)
+        if world_size() > 1:
+            dist.barrier()  # no rank reads the file before it is whole
         return self.latest_path, ts_path
 
     def restore_checkpoint(self, fresh_state, path: Optional[str] = None):

@@ -21,6 +21,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel import collectives
+
 MAX_GRAD_NORM = 0.5
 B1, B2, EPS = 0.9, 0.999, 1e-5
 
@@ -39,20 +41,33 @@ def init(params) -> AdamState:
                      nu=[torch.zeros_like(p) for p in params])
 
 
-def clip_by_global_norm(grads, max_norm: float = MAX_GRAD_NORM):
+def clip_by_global_norm(grads, max_norm: float = MAX_GRAD_NORM, tp_group=None, sharded=None):
     """The gradients, scaled down to a global norm of `max_norm` where it is
-    at or above it; the test is made on the device."""
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    at or above it; the test is made on the device.
+
+    Under tensor parallelism (`tp_group`) the gradients are this rank's
+    shards where `sharded[i]` is true: their squares are summed over the
+    group, while a gradient every rank holds whole counts once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if tp_group is None:
+        g_norm = torch.linalg.vector_norm(norms)
+    else:
+        on = torch.tensor(sharded, device=norms.device)
+        shards = torch.where(on, norms, 0.0).square().sum().reshape(1)
+        collectives.all_reduce(shards, tp_group)
+        g_norm = torch.sqrt(shards[0] + torch.where(on, 0.0, norms).square().sum())
     keep = g_norm < max_norm
     return [torch.where(keep, g, g / g_norm * max_norm) for g in grads]
 
 
 @torch.no_grad()
-def step(params, grads, state: AdamState, lr: float,
-         max_norm: float = MAX_GRAD_NORM) -> AdamState:
+def step(params, grads, state: AdamState, lr: float, max_norm: float = MAX_GRAD_NORM,
+         tp_group=None, sharded=None) -> AdamState:
     """One clipped Adam step, in place on `params` and the moments; the
-    gradients are clipped to a global norm of `max_norm` first."""
-    params, grads = list(params), clip_by_global_norm(list(grads), max_norm)
+    gradients are clipped to a global norm of `max_norm` first (taken over
+    the tp shards with a `tp_group`, `clip_by_global_norm`)."""
+    params = list(params)
+    grads = clip_by_global_norm(list(grads), max_norm, tp_group, sharded)
     count = state.count + 1
     torch._foreach_mul_(state.mu, B1)
     torch._foreach_add_(state.mu, grads, alpha=1 - B1)

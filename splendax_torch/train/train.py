@@ -4,11 +4,15 @@ Counterpart of `splendax/train/train.py`, with the same flags and cadence:
 the configuration written to `config.json`, an initial evaluation, a
 checkpoint every `checkpoint_every_updates`, the eval suite with summary
 plots every `eval_every_updates`, and at the end a final checkpoint and the
-params as `ppo_splendor_params.npz`.  Checkpoints are resumable.  It runs on
-one GPU; the flags of parts not ported yet (dp/tp) parse and then raise
-`NotImplementedError`.
+params as `ppo_splendor_params.npz`.  Checkpoints are resumable.
+
+It runs on one GPU, or on a dp x tp mesh of ranks (`--dp`, `--tp`;
+`parallel.mesh`) started by torchrun: every rank trains its shard, and only
+the coordinator (rank 0) writes logs, plots, `config.json`, checkpoints and
+the npz and runs the evals, on weights gathered whole.
 
 Run: python -m splendax_torch.train.train --total-timesteps 1000000 ...
+     torchrun --nproc-per-node 2 -m splendax_torch.train.train --dp 2 ...
 """
 
 from __future__ import annotations
@@ -20,9 +24,13 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
-from ..device import resolve_device
 from ..eval.suite import run_evaluation_suite
+from ..models.actor_critic import whole_model
+from ..parallel import mesh as mesh_lib
+from ..parallel.multihost import (init_multihost, is_coordinator, local_device, rank,
+                                  world_size)
 from .checkpoint import CheckpointManager, export_params_npz
 from .config import PPOConfig
 from .logging_utils import TrainingLogger
@@ -128,36 +136,67 @@ def parse_args(argv=None) -> PPOConfig:
     )
 
 
-def train(cfg: PPOConfig, eval_fn=None, device="cuda") -> ppo.TrainState:
-    device = resolve_device(device)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"[device] torch {torch.__version__} on {device}: {name}")
-    ppo._check_supported(cfg)
+def _make_mesh_from_cfg(cfg: PPOConfig):
+    """The dp x tp mesh `cfg` asks for, or None for one process
+    (`parallel.mesh.mesh_from_cfg`: a multi-process run always gets one, and
+    dp=-1 fills the dp axis with world size / tp)."""
+    return mesh_lib.mesh_from_cfg(cfg)
 
-    logger = TrainingLogger(cfg.log_dir, track=cfg.track, wandb_project=cfg.wandb_project,
-                            wandb_entity=cfg.wandb_entity, config=dataclasses.asdict(cfg))
+
+def train(cfg: PPOConfig, eval_fn=None, device="cuda") -> ppo.TrainState:
+    # A no-op unless started by torchrun (or the process group is up
+    # already); then every rank runs this function on its shard.
+    init_multihost(device=device)
+    coord = is_coordinator()
+    device = local_device(device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"[device] torch {torch.__version__} on {device}: {name}, "
+          f"rank {rank()} of {world_size()}")
+    ppo._check_supported(cfg)
+    ts = ppo.init_train_state(cfg, device=device)  # on the mesh cfg asks for
+    if ts.mesh is not None:
+        print(f"[mesh] dp={ts.mesh.dp} tp={ts.mesh.tp} ({ts.mesh.size} ranks); env batch "
+              f"split over dp, MLP hidden over tp")
+
+    logger = TrainingLogger(cfg.log_dir, track=cfg.track, write=coord,
+                            wandb_project=cfg.wandb_project, wandb_entity=cfg.wandb_entity,
+                            config=dataclasses.asdict(cfg))
+    # The timestamped checkpoint names must agree on every rank: the
+    # coordinator's clock decides.
+    if world_size() > 1:
+        run_ts = [logger.run_start_ts]
+        dist.broadcast_object_list(run_ts, src=0)
+        logger.run_start_ts = run_ts[0]
     ckpt = CheckpointManager(cfg.log_dir, logger.run_start_ts)
-    # The exact configuration of every run, so each run describes itself.
-    os.makedirs(cfg.log_dir, exist_ok=True)
-    with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, sort_keys=True)
+    if coord:
+        # The exact configuration of every run, so each run describes itself.
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2, sort_keys=True)
     eval_fn = eval_fn or (
         lambda params, seed: run_evaluation_suite(params, cfg.eval_games, seed, device=device)
     )
 
-    ts = ppo.init_train_state(cfg, device=device)
     if cfg.resume and ckpt.has_checkpoint():
         ts = ckpt.restore_checkpoint(ts)
         print(f"[resume] restored update {ts.update_idx}")
 
     start_update = ts.update_idx
     num_updates = cfg.num_updates
-    print(f"[train] {num_updates} updates x {cfg.batch_size} turns"
-          f" ({cfg.num_envs} envs x {cfg.num_steps} steps), self_play={cfg.self_play}")
+    if coord:
+        print(f"[train] {num_updates} updates x {cfg.batch_size} turns"
+              f" ({cfg.num_envs} envs x {cfg.num_steps} steps), self_play={cfg.self_play}")
 
-    if start_update == 0:
+    def evaluate(update):
+        """The eval suite's results on the coordinator (None elsewhere), on
+        weights every rank helps gather."""
+        params = whole_model(ts.params)
+        return eval_fn(params, update) if coord else None
+
+    if start_update == 0 and coord:
         print("Running initial evaluation...")
-        results = eval_fn(ts.params, 0)
+    results = evaluate(0) if start_update == 0 else None
+    if results is not None:
         logger.log_evaluation_results(results, 0)
         logger.update_history(0, results, cfg.lr, 0.0, 0.0, 0.0)
         logger.create_summary_plot(0)
@@ -170,15 +209,17 @@ def train(cfg: PPOConfig, eval_fn=None, device="cuda") -> ppo.TrainState:
 
         ts, _ = ppo.update_step(cfg, ts)
         trace_dir = os.path.join(cfg.log_dir, "profile")
-        os.makedirs(trace_dir, exist_ok=True)
+        if coord:
+            os.makedirs(trace_dir, exist_ok=True)
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
         with profile(activities=activities) as prof:
             for _ in range(cfg.profile_updates):
                 ts, _ = ppo.update_step(cfg, ts)
             _sync(device)
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-        print(f"[profile] wrote {cfg.profile_updates}-update trace to {trace_dir}")
+        if coord:
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            print(f"[profile] wrote {cfg.profile_updates}-update trace to {trace_dir}")
 
     t0 = time.time()
     steps_done = 0
@@ -219,24 +260,27 @@ def train(cfg: PPOConfig, eval_fn=None, device="cuda") -> ppo.TrainState:
             flush()
             _sync(device)
             sps = steps_done / max(1e-9, time.time() - t0)
-            print(f"update={update+1}/{num_updates} SPS(turns)={sps:,.0f}"
-                  f" kl={m['approx_kl']:.4f} pg={m['pg_loss']:.4f}"
-                  f" v={m['v_loss']:.4f} ent={m['entropy']:.3f}")
-            results = eval_fn(ts.params, update + 1)
-            logger.log_evaluation_results(results, global_step)
-            logger.update_history(global_step, results, m["lr"],
-                                  m["pg_loss"], m["v_loss"], m["entropy"])
-            logger.create_summary_plot(global_step)
-            for name, res in results.items():
-                print(f"  vs {name}: "
-                      f"wr={res['win_rate']:.3f}±{res['win_rate_ci95']:.3f}"
-                      f" turns={res['avg_turns']:.1f}")
+            results = evaluate(update + 1)
+            if coord:
+                print(f"update={update+1}/{num_updates} SPS(turns)={sps:,.0f}"
+                      f" kl={m['approx_kl']:.4f} pg={m['pg_loss']:.4f}"
+                      f" v={m['v_loss']:.4f} ent={m['entropy']:.3f}")
+                logger.log_evaluation_results(results, global_step)
+                logger.update_history(global_step, results, m["lr"],
+                                      m["pg_loss"], m["v_loss"], m["entropy"])
+                logger.create_summary_plot(global_step)
+                for name, res in results.items():
+                    print(f"  vs {name}: "
+                          f"wr={res['win_rate']:.3f}±{res['win_rate_ci95']:.3f}"
+                          f" turns={res['avg_turns']:.1f}")
             ckpt.save_checkpoint(ts, step=global_step)
     flush()
 
     latest, ts_path = ckpt.save_checkpoint(ts)
-    export_params_npz(ts.params, os.path.join(cfg.log_dir, "ppo_splendor_params.npz"))
-    print(f"Saved final {latest} and {ts_path}")
+    params = whole_model(ts.params)
+    if coord:
+        export_params_npz(params, os.path.join(cfg.log_dir, "ppo_splendor_params.npz"))
+        print(f"Saved final {latest} and {ts_path}")
     logger.close()
     return ts
 

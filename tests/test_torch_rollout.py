@@ -144,13 +144,13 @@ def test_rollout_on_cpu():
 
 
 def test_unported_options_raise():
-    """Each option of a part not ported yet raises, naming the slice it
-    waits for; heuristic opponents (self_play=False), the league slot
-    (search_opponent), rng_mode="parity" and the full-batch autoreset
-    (reset_ring_mult=0) no longer do."""
-    for kw, slice_name in ((dict(dp=2), "torch.distributed"),
-                           (dict(tp=2), "torch.distributed")):
-        with pytest.raises(NotImplementedError, match=slice_name):
+    """Every option is ported: dp and tp build the state on a mesh of their
+    size, which one process cannot hold (the mesh's ValueError); heuristic
+    opponents (self_play=False), the league slot (search_opponent),
+    rng_mode="parity" and the full-batch autoreset (reset_ring_mult=0)
+    build a state; an unknown rng_mode raises."""
+    for kw in (dict(dp=2), dict(tp=2)):
+        with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
             ppo.init_train_state(PPOConfig(num_envs=4, hidden=8, **kw), device="cpu")
     with pytest.raises(ValueError, match="rng_mode"):
         ppo.init_train_state(PPOConfig(num_envs=4, hidden=8, rng_mode="exact"), device="cpu")

@@ -183,8 +183,14 @@ def test_parse_args_defaults_equal_the_jax_cli():
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--dp", "2", "--tp", "2"]])
 def test_flags_of_unported_parts_parse_then_raise(tmp_path, flags):
+    """--dp and --tp parse into the config, and in one process `train`
+    raises the mesh's ValueError: the mesh needs dp * tp ranks (the
+    multi-rank runs are in test_torch_parallel.py)."""
     cfg = train.parse_args(flags + ["--log-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="slice of the port"):
+    assert (cfg.dp, cfg.tp) == (int(flags[flags.index("--dp") + 1]) if "--dp" in flags else 0,
+                                int(flags[flags.index("--tp") + 1]) if "--tp" in flags else 1)
+    n = max(cfg.dp, 1) * cfg.tp
+    with pytest.raises(ValueError, match=f"needs {n} ranks, have 1"):
         train.train(cfg, device="cpu")
 
 
