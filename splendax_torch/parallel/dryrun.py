@@ -1,8 +1,8 @@
 """Multi-rank dry run: the whole PPO update on a dp x tp mesh of ranks.
 
 Counterpart of `__graft_entry__.dryrun_multichip`.  `dryrun_multichip(n)`
-starts n gloo ranks on this host (the CPU unless `device="cuda"`, where the
-ranks share the card) and runs, on a mesh with tp=2 (tp=1 below 4 ranks):
+starts n gloo ranks on this host (on the card, which they share, unless
+`device="cpu"`) and runs, on a mesh with tp=2 (tp=1 below 4 ranks):
   * one plain `update_step` at tiny shapes;
   * one update of the search-hardened league slot (`--search-opponent
     --search-static`), whose strided sentinel rows split evenly over dp;
@@ -10,7 +10,7 @@ ranks share the card) and runs, on a mesh with tp=2 (tp=1 below 4 ranks):
     batch with the weights gathered whole over tp (kernel A takes whole
     weights), from the global search's draws; every action must be legal.
 
-    python -m splendax_torch.parallel.dryrun 4 [--device cuda]
+    python -m splendax_torch.parallel.dryrun 4 [--device cpu]
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def _rank(n: int, device: str) -> dict:
             "routes": dict(collectives.routes)}
 
 
-def dryrun_multichip(n_ranks: int, device: str = "cpu", timeout: float = 600.0) -> list:
+def dryrun_multichip(n_ranks: int, device: str = "cuda", timeout: float = 600.0) -> list:
     """Run the dry run on `n_ranks` ranks; prints rank 0's lines and
     returns every rank's result (its lines, device, kernel launches and
     collective routes)."""
@@ -88,7 +88,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("ranks", type=int, nargs="?", default=4)
-    ap.add_argument("--device", default="cpu", help="cpu (default) or cuda")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = ap.parse_args(argv)
     dryrun_multichip(a.ranks, a.device)
 

@@ -62,15 +62,29 @@ def choose_backend(device, local_world: int) -> str:
     return "gloo"
 
 
+def local_world(world: int, local_world_size: int | None = None) -> int:
+    """The number of ranks on this host: `local_world_size`, else torchrun's
+    `LOCAL_WORLD_SIZE`, else (ranks started from explicit arguments, one per
+    card as across hosts) at most one rank per card of this host."""
+    if local_world_size is not None:
+        return int(local_world_size)
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_WORLD_SIZE"])
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return min(world, cards) if cards else world
+
+
 def init_multihost(coordinator_address: str | None = None, num_processes: int | None = None,
-                   process_id: int | None = None, device="cuda") -> bool:
+                   process_id: int | None = None, device="cuda",
+                   local_world_size: int | None = None) -> bool:
     """Start the process group iff this process is one rank of several.
 
     Detection: explicit arguments (`coordinator_address` "host:port",
     `num_processes`, `process_id`), or torchrun's environment.  Returns True
     if a process group is up (also when it already was: the call is
     idempotent, so `train` may run after a launcher started the group).
-    `device` is where the ranks compute: "cpu" always gives gloo."""
+    `device` is where the ranks compute: "cpu" always gives gloo.
+    `local_world_size` is the number of ranks on this host (`local_world`)."""
     if dist.is_initialized():
         return True
     if coordinator_address is not None:
@@ -84,7 +98,7 @@ def init_multihost(coordinator_address: str | None = None, num_processes: int | 
         world, me = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
     else:
         return False
-    backend = choose_backend(device, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    backend = choose_backend(device, local_world(world, local_world_size))
     if backend == "nccl":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", me)) % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=me)
@@ -123,7 +137,7 @@ def _bootstrap(fn, rank_: int, world: int, port: int, device: str, args, results
     try:
         if torch.device(device).type == "cpu":
             torch.set_num_threads(1)  # `world` ranks share the host's cores
-        init_multihost(f"localhost:{port}", world, rank_, device=device)
+        init_multihost(f"localhost:{port}", world, rank_, device=device, local_world_size=world)
         try:
             results.put((rank_, "ok", fn(*args)))
         finally:
@@ -132,10 +146,11 @@ def _bootstrap(fn, rank_: int, world: int, port: int, device: str, args, results
         results.put((rank_, "error", traceback.format_exc()))
 
 
-def spawn(fn, world: int, args=(), device="cpu", timeout: float = 600.0) -> list:
+def spawn(fn, world: int, args=(), device="cuda", timeout: float = 600.0) -> list:
     """Run `fn(*args)` on `world` fresh ranks of one process group on this
     host (gloo unless each rank has a card of its own) and return their
-    results in rank order.  `fn` must be importable by name: the ranks are
+    results in rank order; the ranks compute on the card unless `device` is
+    "cpu".  `fn` must be importable by name: the ranks are
     started with the `spawn` method.  Raises with each failed rank's
     traceback, or when a rank gives no result within `timeout` seconds;
     every rank is stopped before returning."""

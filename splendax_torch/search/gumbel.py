@@ -169,14 +169,13 @@ def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float 
     return fn
 
 
-def draw_inputs(B: int, m: int, k0: int, horizon: int, generator, device, guided: bool = True,
+def draw_inputs(B: int, m: int, k0: int, horizon: int, generator, device,
                 censored: bool = False) -> dict:
     """The `draws` that `gumbel_search_fn(m, k0, horizon)` would take from
     `generator` for B games, taken in the same order: the root's Gumbel
     noise, then for each round its determinizations' uniforms (`censored`)
-    and its playout plies' draws (Gumbel noise [B * m * k0, 45] when the
-    playouts follow the actor, `guided` with a network, else uniforms
-    [B * m * k0]).  Every draw is game-major, so `draw_rows` can cut it."""
+    and its playout plies' Gumbel noise [B * m * k0, 45] (the playouts
+    follow the actor).  Every draw is game-major, so `draw_rows` can cut it."""
     from .ismc import EXT
 
     rounds = int(m).bit_length() - 1
@@ -188,10 +187,8 @@ def draw_inputs(B: int, m: int, k0: int, horizon: int, generator, device, guided
         if censored:
             k_r = lanes // (m >> r)
             draws["det"].append(torch.rand((B * k_r, 3, EXT), generator=generator, device=device))
-        draws["playout"].append([
-            gumbel_noise((B * lanes, A), generator, device) if guided
-            else torch.rand(B * lanes, generator=generator, device=device)
-            for _ in range(horizon)])
+        draws["playout"].append([gumbel_noise((B * lanes, A), generator, device)
+                                 for _ in range(horizon)])
     return draws
 
 

@@ -150,19 +150,19 @@ DEVICE_POLICIES = {
 
 def device_policy(name: str, generator=None, mesh=None):
     """`DEVICE_POLICIES[name]` as `policy(obs, mask, state) -> action [B]`,
-    drawing its random tie-breaks from `generator`.  With a `mesh` of dp >
-    1 the rows are this rank's: a policy that draws (`draw_shape`) draws for
-    the global batch and keeps this rank's columns."""
+    drawing its random tie-breaks from `generator`.  With a `mesh` the rows
+    are this rank's: a policy that draws (`draw_shape`) draws for the global
+    batch and keeps this rank's columns."""
     if name not in DEVICE_POLICIES:  # registered when its module is imported
         from ..eval import noble  # noqa: F401
     fn = DEVICE_POLICIES[name]
     shape = getattr(fn, "draw_shape", None)
-    if mesh is None or mesh.dp == 1 or shape is None:
+    if shape is None:
         return lambda obs, mask, state: fn(obs, mask, state, generator)
 
     def policy(obs, mask, state):
-        n = mask.shape[0] * mesh.dp
-        lo, hi = mesh.row_range(n)
+        n = mask.shape[0] * (1 if mesh is None else mesh.dp)
+        lo, hi = (0, n) if mesh is None else mesh.row_range(n)
         u = torch.rand(shape(n), generator=generator, device=mask.device)[..., lo:hi]
         return fn(obs, mask, state, generator, u=u)
 

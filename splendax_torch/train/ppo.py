@@ -279,7 +279,7 @@ def rollout_turn(cfg: PPOConfig, weights, pool, env_state, obs, mask, opp_idx, r
     rows = _rows_of(mesh)
     n = obs.shape[0] * (1 if mesh is None else mesh.dp)  # the global batch
     logits, value = fused_masked_forward(weights, obs, mask)
-    if noise is None and mesh is not None:
+    if noise is None:
         noise = rows(ac.gumbel_noise((n, ACT_DIM), generator, obs.device))
     action, logp = ac.sample_action(logits, mask, generator=generator, noise=noise)
     policy = _opponent_policy(cfg, pool, opp_idx, generator, search_draws, mesh)

@@ -198,7 +198,8 @@ class Fleet:
         self.outbox = ctx.Queue()
         self.thread = threading.Thread(target=spawn, args=(serve, world),
                                        kwargs=dict(args=(self.inboxes, self.outbox),
-                                                   timeout=24 * 3600), daemon=True)
+                                                   device="cpu", timeout=24 * 3600),
+                                       daemon=True)
         self.thread.start()
 
     def call(self, fn, *args):

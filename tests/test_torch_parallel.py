@@ -28,7 +28,7 @@ from splendax.train.config import PPOConfig as JPPOConfig
 from splendax_torch.engine import state as S
 from splendax_torch.env import core
 from splendax_torch.env import ring as ring_lib
-from splendax_torch.parallel import bench_scaling, dryrun
+from splendax_torch.parallel import bench_scaling, dryrun, multihost
 from splendax_torch.parallel import mesh as mesh_lib
 from splendax_torch.search import gumbel
 from splendax_torch.search.ismc import determinize
@@ -304,10 +304,30 @@ def test_two_process_default_config_gets_a_global_mesh(tmp_path, fleets):
     assert_params_close(outs[1]["params"], [p.detach().numpy() for p in ts.params.parameters()])
 
 
+@pytest.mark.parametrize("device,cards,world,local_arg,env,want", [
+    ("cuda", 4, 8, None, None, "nccl"),  # 2 hosts x 4 cards from explicit arguments
+    ("cuda", 1, 2, 2, None, "gloo"),     # `spawn`: 2 ranks share one card
+    ("cuda", 1, 2, None, "2", "gloo"),   # torchrun's LOCAL_WORLD_SIZE on one card
+    ("cpu", 4, 2, None, None, "gloo"),
+])
+def test_choose_backend_local_world(device, cards, world, local_arg, env, want, monkeypatch):
+    """NCCL exactly when each rank of this host has a card of its own; ranks
+    started from explicit arguments count at most one per card of the host,
+    not the global world."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: True)
+    if env is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", env)
+    assert multihost.choose_backend(device, multihost.local_world(world, local_arg)) == want
+
+
 def test_dryrun_multichip():
     """`dryrun_multichip(4)`: the plain update, the static league slot and
     the Gumbel-search eval on dp=2 x tp=2."""
-    results = dryrun.dryrun_multichip(4)
+    results = dryrun.dryrun_multichip(4, device="cpu")
     lines = results[0]["lines"]
     assert lines[0].startswith("dryrun_multichip OK: mesh dp=2 tp=2")
     assert "league OK" in lines[1] and "all actions legal" in lines[2]
