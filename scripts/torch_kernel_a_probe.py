@@ -1,31 +1,43 @@
 #!/usr/bin/env python3
-"""Where kernel A's time goes on one GPU: variants of its source, its row
-tiles, and the tensor cores' mma.sync TF32 rate.
+"""Where kernel A's time goes on one GPU: variants of both its routes' sources,
+their times beside the `addmm` chain, and the tensor cores' mma.sync TF32 rate.
 
-    python3 scripts/torch_kernel_a_probe.py
+    python3 scripts/torch_kernel_a_probe.py            # everything below, ~2 min
+    python3 scripts/torch_kernel_a_probe.py --check    # build, check, one timing; ~1 min
 
-Builds variants of `splendax_torch/csrc/fused_actor_critic.cu` with nvcc
-(sm_90a, the flags of `splendax_torch/ops/_build.py`) under `build/probe/`,
-each with the probe switches the source documents, and times each as
-chip_smoke.py's kernel phase does, on the device clock, with the committed
-h768 net on engine obs:
+Builds variants of `splendax_torch/csrc/fused_actor_critic_wgmma.cu` (the
+`wgmma` route, H <= 768) and `fused_actor_critic.cu` (the `mma_sync` route,
+PR 2's kernel) with nvcc (sm_90a, the flags of `splendax_torch/ops/_build.py`)
+under `build/probe/`, each with the probe switches its source documents, and
+times each on the device clock as chip_smoke.py's kernel phase does, with the
+committed h768 net on engine obs.  Prints the card's name and power limit
+first, and each new variant's ptxas report (registers, spills, and any
+wgmma serialisation warning).
 
-  at the agent forward (B = 8192, H = 768, with value):
-  kernel           the kernel as committed;
-  l1_three         the same kernel on obs with one value of 4097 in every
-                   16 rows, so every block takes layer 1's third product;
-  one_product      one TF32 product per f32 one and no split (wrong numbers:
-                   the same loads and tile with a third of the tensor work);
-  no_loads         no weight tile is ever copied into shared memory (wrong
-                   numbers: the compute alone);
+--check: the `wgmma` route against the float64 plain forward (rtol/atol
+1e-5) on seeded random weights at H = 37, 100, 256, 768 and B = 1, 63, 64,
+65, 4097, and on the committed h256 and h768 nets at B = 8192; the prep
+kernel against `prepare_weights_plain` bit for bit; rows independent of B
+(1,000 + 7,192 and 4,096 + 4,096 against 8,192); then one timing at B = 8192
+with value.  Each knob variant (one consumer group, chunks of 2) is held to
+the same float64 contract.
+
+Without --check, after the checks:
+
+  wgmma route, B = 8192, 32768, 737280, with and without value: the kernel
+  (weights prepared once), the prep kernel alone, the route as the wrapper
+  runs it (prep + kernel), PR 2's kernel, the addmm chain;
+  variants at B = 8192 and 32768 with value:
+  one_product      one TF32 product per f32 one (wrong numbers: the same
+                   loads with a third of the tensor work);
+  no_loads         no weight stage is ever copied (wrong numbers: the
+                   compute alone);
   no_loads_one     both;
-
-  at the agent and pool-slot shapes (B = 8192 with value; 2048 and 3072
-  without): the kernel's own row tile beside 16- and 32-row tiles.
-
-Then it times a loop of independent `mma.sync.m16n8k8` TF32 products (one
-block of 8 warps per SM, 8 accumulators per warp) and prints their rate per
-SM clock.  Prints the card's name and power limit first.
+  consumers1       one consumer warpgroup (64 columns a pass);
+  chunk2           two k-steps summed on the tensor cores per f32 add;
+  B = 1, 256, 1024 without value: both routes and the addmm chain;
+  PR 2's variants at B = 8192 with value (one_product, no_loads,
+  no_loads_one) and its mma.sync TF32 rate per SM clock.
 """
 
 from __future__ import annotations
@@ -37,14 +49,22 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "probe")
-VARIANTS = {
+MMA_SYNC_VARIANTS = {
     "kernel": (),
     "one_product": ("-DPROBE_ONE_PRODUCT",),
     "no_loads": ("-DPROBE_NO_LOADS",),
     "no_loads_one": ("-DPROBE_NO_LOADS", "-DPROBE_ONE_PRODUCT"),
-    "rows16": ("-DPROBE_ROWS=16",),
-    "rows32": ("-DPROBE_ROWS=32",),
 }
+WGMMA_VARIANTS = {
+    "wgmma": (),
+    "wgmma_one_product": ("-DPROBE_ONE_PRODUCT",),
+    "wgmma_no_loads": ("-DPROBE_NO_LOADS",),
+    "wgmma_no_loads_one": ("-DPROBE_NO_LOADS", "-DPROBE_ONE_PRODUCT"),
+    "wgmma_consumers1": ("-DKA_CONSUMERS=1",),
+    "wgmma_chunk2": ("-DKA_CHUNK=2",),
+}
+# Variants that compute the forward: held to the float64 contract.
+WGMMA_CORRECT = ("wgmma", "wgmma_consumers1", "wgmma_chunk2")
 
 MMA_LOOP = r"""
 #include <cstdint>
@@ -70,25 +90,171 @@ extern "C" int run(int blocks, int iters, float* out) {
 """
 
 
-def build() -> dict:
-    """{name: loaded library} for every variant and the mma loop."""
+def build(check: bool) -> dict:
+    """{name: loaded library} for every variant (with --check only the
+    correct wgmma variants and PR 2's kernel) and the mma loop; prints the
+    wgmma variants' ptxas reports."""
     from splendax_torch.ops import _build
 
     os.makedirs(OUT, exist_ok=True)
-    loop_cu = os.path.join(OUT, "mma_loop.cu")
-    with open(loop_cu, "w") as f:
-        f.write(MMA_LOOP)
-    src = _build.CSRC / "fused_actor_critic.cu"
-    jobs = {name: (src, os.path.join(OUT, f"lib{name}.so"), flags)
-            for name, flags in VARIANTS.items()}
-    jobs["mma_loop"] = (loop_cu, os.path.join(OUT, "libmma_loop.so"), ())
-    _build.compile_many(jobs)
+    jobs = {}
+    for name, flags in WGMMA_VARIANTS.items():
+        if not check or name in WGMMA_CORRECT:
+            jobs[name] = (_build.CSRC / "fused_actor_critic_wgmma.cu",
+                          os.path.join(OUT, f"lib{name}.so"), flags)
+    for name, flags in MMA_SYNC_VARIANTS.items():
+        if not check or name == "kernel":
+            jobs[name] = (_build.CSRC / "fused_actor_critic.cu", os.path.join(OUT, f"lib{name}.so"),
+                          flags)
+    if not check:
+        loop_cu = os.path.join(OUT, "mma_loop.cu")
+        with open(loop_cu, "w") as f:
+            f.write(MMA_LOOP)
+        jobs["mma_loop"] = (loop_cu, os.path.join(OUT, "libmma_loop.so"), ())
+    reports = _build.compile_many(jobs)
+    for name, rep in reports.items():
+        if name.startswith("wgmma"):
+            lines = [ln.strip() for ln in rep.splitlines()
+                     if "registers" in ln or "spill" in ln or "wgmma" in ln or "arning" in ln]
+            print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     return {name: ctypes.CDLL(out) for name, (_, out, _) in jobs.items()}
+
+
+class Route:
+    """One built library of either route, called as the wrapper calls it."""
+
+    def __init__(self, lib, wgmma: bool):
+        p = ctypes.c_void_p
+        self.wgmma = wgmma
+        if wgmma:
+            self.prep = lib.fused_actor_critic_wgmma_prepare
+            self.prep.argtypes = [ctypes.POINTER(p), ctypes.c_int, ctypes.c_int, p, p]
+            self.fwd = lib.fused_actor_critic_wgmma_forward
+            self.fwd.argtypes = [p, p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(p), p, p, p, p]
+        else:
+            self.fwd = lib.fused_actor_critic_forward
+            self.fwd.argtypes = [p, p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(p), p, p, p]
+        self.fwd.restype = ctypes.c_int
+        if wgmma:
+            self.prep.restype = ctypes.c_int
+
+    def prepare(self, w, with_value=True):
+        import torch
+
+        from splendax_torch.ops import fused_actor_critic as fac
+
+        H = w[0].shape[1]
+        buf = torch.empty(fac.prepared_floats(H), device=w[0].device)
+        ptrs = (ctypes.c_void_p * 12)(*[t.data_ptr() for t in w])
+        err = self.prep(ptrs, H, int(with_value), buf.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"prep: CUDA error {err}"
+        return buf
+
+    def forward(self, w, obs, mask, with_value=True, prepared=None):
+        """(logits, value); the wgmma route prepares the weights first unless
+        given `prepared`."""
+        import torch
+
+        B, H = obs.shape[0], w[0].shape[1]
+        logits = torch.empty((B, 45), device=obs.device)
+        value = torch.empty((B,), device=obs.device) if with_value else None
+        ptrs = (ctypes.c_void_p * 12)(*[t.data_ptr() for t in w])
+        stream = torch.cuda.current_stream().cuda_stream
+        vp = value.data_ptr() if with_value else None
+        if self.wgmma:
+            if prepared is None:
+                prepared = self.prepare(w, with_value)
+            err = self.fwd(obs.data_ptr(), mask.data_ptr(), B, H, ptrs, prepared.data_ptr(),
+                           logits.data_ptr(), vp, stream)
+        else:
+            err = self.fwd(obs.data_ptr(), mask.data_ptr(), B, H, ptrs, logits.data_ptr(), vp,
+                           stream)
+        assert err == 0, f"forward: CUDA error {err}"
+        return logits, value
+
+
+def share(got, want) -> float:
+    """max |got - want| as a share of the rtol/atol 1e-5 tolerance."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / (1e-5 + 1e-5 * want.abs())).max().item()
+
+
+def random_weights(H, seed, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for n_out in (45, 1):
+        for fi, fo in ((297, H), (H, H), (H, n_out)):
+            bound = 1.0 / np.sqrt(fi)
+            out.append(torch.as_tensor(rng.uniform(-bound, bound, (fi, fo)).astype(np.float32),
+                                       device=device))
+            out.append(torch.as_tensor(rng.uniform(-bound, bound, (fo,)).astype(np.float32),
+                                       device=device))
+    return out
+
+
+def checks(routes: dict, nets: dict, obs_all, mask_all) -> None:
+    """The correctness checks of --check (and of the full run)."""
+    import numpy as np
+    import torch
+
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    dev = obs_all.device
+    worst = {name: 0.0 for name in WGMMA_CORRECT}
+    for H in (37, 100, 256, 768):
+        w = random_weights(H, H, dev)
+        w64 = [t.double() for t in w]
+        rng = np.random.RandomState(H)
+        for B in (1, 63, 64, 65, 4097):
+            obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=dev)
+            mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=dev)
+            mask[0] = False
+            for with_value in (True, False):
+                ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
+                for name in WGMMA_CORRECT:
+                    got = routes[name].forward(w, obs, mask, with_value)
+                    torch.cuda.synchronize()
+                    for g, r in zip(got, ref):
+                        if g is None:
+                            continue
+                        assert torch.isfinite(g).all(), f"{name} non-finite at H={H} B={B}"
+                        worst[name] = max(worst[name], share(g, r))
+        prepared = routes["wgmma"].prepare(w)
+        assert torch.equal(prepared, fac.prepare_weights_plain(w)), f"prep differs at H={H}"
+    print("random weights, H in (37, 100, 256, 768), B in (1, 63, 64, 65, 4097), with and "
+          "without value, share of rtol/atol 1e-5 vs float64: "
+          + ", ".join(f"{n} {v:.3f}" for n, v in worst.items()) + "; prep equals "
+          "prepare_weights_plain bit for bit", flush=True)
+    for H, w in nets.items():
+        w64 = [t.double() for t in w]
+        obs, mask = obs_all[:8192].contiguous(), mask_all[:8192].contiguous()
+        ref = fac.fused_masked_forward_plain(w64, obs, mask)
+        f32 = fac.fused_masked_forward_plain(w, obs, mask)
+        line = []
+        for name in WGMMA_CORRECT:
+            got = routes[name].forward(w, obs, mask)
+            s64 = max(share(g, r) for g, r in zip(got, ref))
+            s32 = max(share(g, r) for g, r in zip(got, f32))
+            line.append(f"{name} {s64:.3f} ({s32:.3f} vs float32)")
+        whole = routes["wgmma"].forward(w, obs, mask)
+        for cut in (1000, 4096):
+            parts = [routes["wgmma"].forward(w, obs[a:b].contiguous(), mask[a:b].contiguous())
+                     for a, b in ((0, cut), (cut, 8192))]
+            same = all(torch.equal(torch.cat([p[j] for p in parts]), whole[j]) for j in (0, 1))
+            line.append(f"split {cut}+{8192 - cut} bit-equal {same}")
+            assert same, f"rows depend on B at H={H}"
+        print(f"committed net H={H}, B=8192, share of the tolerance vs float64: "
+              + "; ".join(line), flush=True)
 
 
 def main() -> int:
     import torch
 
+    check = "--check" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 1
@@ -96,45 +262,69 @@ def main() -> int:
     import chip_smoke as cs
     from splendax_torch.models import actor_critic as ac
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    libs = build()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    libs = build(check)
+    routes = {n: Route(lib, n.startswith("wgmma")) for n, lib in libs.items() if n != "mma_loop"}
 
     dev = torch.device("cuda")
-    H = 768
-    w = ac.kernel_weights(ac.import_params_npz(
-        os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"), device=dev))
-    obs_all, mask_all = cs.realistic_obs(8192, 30, seed=H, device=dev)
-    big = obs_all.clone()
-    big[::16, 0] = 4097  # not exact in TF32: every block takes all three layer-1 products
-    ptrs = (ctypes.c_void_p * 12)(*[t.data_ptr() for t in w])
+    nets = {H: ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, src), device=dev))
+            for H, src in ((256, "runs/ppo_splendor_2b/ppo_splendor_params.npz"),
+                           (768, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"))}
+    obs_all, mask_all = cs.realistic_obs(32768, 30, seed=768, device=dev)
+    checks(routes, nets, obs_all, mask_all)
 
-    def time_variant(name, B, with_value, obs=obs_all):
-        fn = libs[name].fused_actor_critic_forward
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        x, m = obs[:B].contiguous(), mask_all[:B].contiguous()
-        logits = torch.empty((B, 45), device=dev)
-        value = torch.empty((B,), device=dev) if with_value else None
+    w, H = nets[768], 768
 
-        def call():
-            err = fn(x.data_ptr(), m.data_ptr(), B, H, ptrs, logits.data_ptr(),
-                     value.data_ptr() if with_value else None,
-                     torch.cuda.current_stream().cuda_stream)
-            assert err == 0, f"{name}: CUDA error {err}"
+    def addmm_chain(x32, with_value):
+        for o in ((0, 6) if with_value else (0,)):
+            h = torch.tanh(torch.addmm(w[o + 1], x32, w[o]))
+            h = torch.tanh(torch.addmm(w[o + 3], h, w[o + 2]))
+            torch.addmm(w[o + 5], h, w[o + 4])
 
-        return cs.device_ms(call, 20)[0]
+    def timings(B, with_value, obs_src, mask_src, names=("wgmma",), n=20):
+        obs, mask = obs_src[:B].contiguous(), mask_src[:B].contiguous()
+        x32 = obs.float()
+        out = {}
+        for name in names:
+            r = routes[name]
+            if r.wgmma:
+                prepared = r.prepare(w, with_value)
+                out[name] = cs.device_ms(lambda: r.forward(w, obs, mask, with_value, prepared), n)[0]
+            else:
+                out[name] = cs.device_ms(lambda: r.forward(w, obs, mask, with_value), n)[0]
+        out["wgmma route (prep + kernel)"] = cs.device_ms(
+            lambda: routes["wgmma"].forward(w, obs, mask, with_value), n)[0]
+        out["prep"] = cs.device_ms(lambda: routes["wgmma"].prepare(w, with_value), n)[0]
+        out["mma_sync (PR 2)"] = cs.device_ms(lambda: routes["kernel"].forward(w, obs, mask,
+                                                                               with_value), n)[0]
+        out["addmm chain"] = cs.device_ms(lambda: addmm_chain(x32, with_value), n)[0]
+        bound = cs.bound_a(B, H, with_value, 2)[0]
+        print(f"B={B} H={H} value={with_value} (bound {bound:.4f} ms): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + " ms", flush=True)
 
-    for name, obs in (("kernel", obs_all), ("l1_three", big), ("one_product", obs_all),
-                      ("no_loads", obs_all), ("no_loads_one", obs_all)):
-        ms = time_variant("kernel" if name == "l1_three" else name, 8192, True, obs)
-        print(f"kernel A variant {name}: {ms:.4f} ms (B=8192, H={H}, with value)", flush=True)
-    for B, with_value in ((8192, True), (2048, False), (3072, False)):
-        own, r16, r32 = (time_variant(n, B, with_value) for n in ("kernel", "rows16", "rows32"))
-        print(f"kernel A row tiles B={B} value={with_value}: own choice {own:.4f} ms, "
-              f"16 rows {r16:.4f} ms, 32 rows {r32:.4f} ms", flush=True)
+    if check:
+        timings(8192, True, obs_all, mask_all, names=WGMMA_CORRECT)
+        return 0
 
+    for B in (8192, 32768):
+        timings(B, True, obs_all, mask_all, names=tuple(WGMMA_VARIANTS))
+    timings(8192, False, obs_all, mask_all)
+    timings(32768, False, obs_all, mask_all)
+    for B in (1, 256, 1024):
+        timings(B, False, obs_all, mask_all)
+    obs_big, mask_big = cs.realistic_obs(737280, 30, seed=768, device=dev)
+    for with_value in (True, False):
+        timings(737280, with_value, obs_big, mask_big, n=5)
+    del obs_big, mask_big
+
+    obs, mask = obs_all[:8192].contiguous(), mask_all[:8192].contiguous()
+    for name in ("one_product", "no_loads", "no_loads_one"):
+        ms = cs.device_ms(lambda: routes[name].forward(w, obs, mask), 20)[0]
+        print(f"mma_sync route variant {name}: {ms:.4f} ms (B=8192, H={H}, with value)",
+              flush=True)
     run = libs["mma_loop"].run
     run.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -3,13 +3,20 @@
 Counterpart of the TPU kernel `splendax/ops/fused_actor_critic.py`: both MLPs
 (297 -> H -> H -> 45 actor, 297 -> H -> H -> 1 critic, tanh after the first
 two layers) and the masked-logits select in one pass.  On a CUDA tensor
-`fused_masked_forward` launches the hand-written kernel in
-`csrc/fused_actor_critic.cu` (3xTF32 on the tensor cores); on a CPU tensor it
-runs `fused_masked_forward_plain`, the same function in plain PyTorch.  The
-kernel is held within rtol/atol 1e-5 of the plain version, which computes in
-the weights' dtype: on the committed nets the plain float32 version is
-itself that far from the exact forward, so float64 weights give the
-reference.  `launches` counts kernel launches.
+`fused_masked_forward` launches a hand-written kernel, chosen by the hidden
+width alone (`route`): up to 768 the `wgmma` route
+(`csrc/fused_actor_critic_wgmma.cu`: wgmma fed by TMA, after one launch of
+its weight preparation), above it the `mma_sync` route
+(`csrc/fused_actor_critic.cu`).  Both take 3xTF32 products on the tensor
+cores.  On a CPU tensor it runs `fused_masked_forward_plain`, the same
+function in plain PyTorch.  The kernels are held within rtol/atol 1e-5 of
+the plain version, which computes in the weights' dtype: on the committed
+nets the plain float32 version is itself that far from the exact forward,
+so float64 weights give the reference.
+
+Counters: `launches` counts forwards that launched a kernel (one each),
+`launches_by_route` splits them by route, and `prep_launches` counts the
+weight preparations of the `wgmma` route.
 
 `weights` is the list of the 12 weight and bias tensors in the JAX package's
 layout, [in, out]: aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2
@@ -29,8 +36,66 @@ OBS_DIM = 297
 ACT_DIM = 45
 BIG_NEG = -1e9
 MAX_HIDDEN = 1024
+WGMMA_MAX_HIDDEN = 768  # the widest first hidden layer the wgmma kernel's 64-row tile holds
+K1_PAD = 304  # OBS_DIM padded to a multiple of 8
 
 launches = 0
+launches_by_route = {"wgmma": 0, "mma_sync": 0}
+prep_launches = 0
+
+
+def route(H: int) -> str:
+    """The kernel a forward at hidden width H takes on the card: never a
+    function of the batch, so a row's outputs do not depend on how the rows
+    are split into calls."""
+    return "wgmma" if H <= WGMMA_MAX_HIDDEN else "mma_sync"
+
+
+def pad8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def tf32(a: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 as `cvt.rna.tf32.f32` does: to nearest, ties away
+    from zero, 10 explicit mantissa bits."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def prepared_layout(H: int) -> list[tuple[int, int, int]]:
+    """(offset, HP, KP) in floats of aw0, aw1, cw0 and cw1 in the prepared
+    buffer, each [2, HP, KP] (hi then lo, output-major, K contiguous, both
+    padded to multiples of 8)."""
+    HP = pad8(H)
+    a, b = 2 * HP * K1_PAD, 2 * HP * HP
+    return [(0, HP, K1_PAD), (a, HP, HP), (a + b, HP, K1_PAD), (2 * a + b, HP, HP)]
+
+
+def prepared_floats(H: int) -> int:
+    return 2 * (2 * pad8(H) * K1_PAD + 2 * pad8(H) * pad8(H))
+
+
+def prepared_matrices(prepared: torch.Tensor, H: int) -> list[torch.Tensor]:
+    """Views [2, HP, KP] of aw0, aw1, cw0 and cw1 in a prepared buffer."""
+    return [prepared[o:o + 2 * hp * kp].view(2, hp, kp) for o, hp, kp in prepared_layout(H)]
+
+
+def prepare_weights_plain(weights, with_value: bool = True) -> torch.Tensor:
+    """The `wgmma` route's weight preparation in plain PyTorch: aw0, aw1 (and
+    cw0, cw1 with `with_value`; zeros without) transposed to [out, in], split
+    into hi = tf32(w) and lo = tf32(w - hi), zero-padded, as one flat
+    float32 buffer in the layout of `prepared_layout`."""
+    H = weights[0].shape[1]
+    out = torch.zeros(prepared_floats(H), dtype=torch.float32, device=weights[0].device)
+    for (o, hp, kp), i in zip(prepared_layout(H), (0, 2, 6, 8)):
+        if i >= 6 and not with_value:
+            continue
+        w = weights[i].to(torch.float32).t()
+        hi = tf32(w)
+        m = out[o:o + 2 * hp * kp].view(2, hp, kp)
+        m[0, :w.shape[0], :w.shape[1]] = hi
+        m[1, :w.shape[0], :w.shape[1]] = tf32(w - hi)
+    return out
 
 
 def masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -63,6 +128,50 @@ def _lib():
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_lib():
+    lib = _build.load("fused_actor_critic_wgmma")
+    p = ctypes.c_void_p
+    lib.fused_actor_critic_wgmma_prepare.argtypes = [
+        ctypes.POINTER(p), ctypes.c_int, ctypes.c_int, p, p]
+    lib.fused_actor_critic_wgmma_forward.argtypes = [
+        p, p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(p), p, p, p, p]
+    for fn in (lib.fused_actor_critic_wgmma_prepare, lib.fused_actor_critic_wgmma_forward):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _ptrs(weights):
+    return (ctypes.c_void_p * 12)(*[w.data_ptr() for w in weights])
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def prepare_weights(weights, with_value: bool = True) -> torch.Tensor:
+    """The `wgmma` route's prepared weights: on a CUDA tensor one launch of
+    the preparation kernel (counted in `prep_launches`), on a CPU tensor
+    `prepare_weights_plain`."""
+    if weights[0].device.type == "cpu":
+        return prepare_weights_plain(weights, with_value)
+    global prep_launches
+    H = weights[0].shape[1]
+    if route(H) != "wgmma":
+        raise ValueError(f"prepare_weights: hidden width {H} takes the mma_sync route")
+    for i, w in enumerate(weights):
+        if w.device != weights[0].device or w.dtype != torch.float32 or not w.is_contiguous():
+            raise ValueError(f"prepare_weights: weights[{i}] must be contiguous float32 on "
+                             f"{weights[0].device}")
+    prepared = torch.empty(prepared_floats(H), dtype=torch.float32, device=weights[0].device)
+    err = _wgmma_lib().fused_actor_critic_wgmma_prepare(
+        _ptrs(weights), H, int(with_value), prepared.data_ptr(), _stream(prepared))
+    if err != 0:
+        raise RuntimeError(f"fused_actor_critic weight preparation failed: CUDA error {err}")
+    prep_launches += 1
+    return prepared
 
 
 def _check(weights, obs, mask):
@@ -103,13 +212,18 @@ def fused_masked_forward(weights, obs: torch.Tensor, mask: torch.Tensor, with_va
     value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
     if B == 0:
         return logits, value
-    ptrs = (ctypes.c_void_p * 12)(*[w.data_ptr() for w in weights])
-    err = _lib()(
-        obs.data_ptr(), mask.data_ptr(), B, H, ptrs, logits.data_ptr(),
-        value.data_ptr() if with_value else None,
-        torch.cuda.current_stream(obs.device).cuda_stream,
-    )
+    r = route(H)
+    value_ptr = value.data_ptr() if with_value else None
+    if r == "wgmma":
+        prepared = prepare_weights(weights, with_value)
+        err = _wgmma_lib().fused_actor_critic_wgmma_forward(
+            obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), prepared.data_ptr(),
+            logits.data_ptr(), value_ptr, _stream(obs))
+    else:
+        err = _lib()(obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), logits.data_ptr(),
+                     value_ptr, _stream(obs))
     if err != 0:
-        raise RuntimeError(f"fused_actor_critic kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_actor_critic {r} kernel launch failed: CUDA error {err}")
     launches += 1
+    launches_by_route[r] += 1
     return logits, value
