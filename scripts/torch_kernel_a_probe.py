@@ -19,8 +19,8 @@ wgmma serialisation warning).
 65, 4097, and on the committed h256 and h768 nets at B = 8192; the prep
 kernel against `prepare_weights_plain` bit for bit; rows independent of B
 (1,000 + 7,192 and 4,096 + 4,096 against 8,192); then one timing at B = 8192
-with value.  Each knob variant (one consumer group, chunks of 2) is held to
-the same float64 contract.
+with value, with the no_loads variants beside it.  Each knob variant that computes the forward (chunk lengths,
+k-steps in flight) is held to the same float64 contract.
 
 Without --check, after the checks:
 
@@ -34,7 +34,8 @@ Without --check, after the checks:
                    compute alone);
   no_loads_one     both;
   consumers1       one consumer warpgroup (64 columns a pass);
-  chunk2           two k-steps summed on the tensor cores per f32 add;
+  chunkC           C k-steps summed on the tensor cores per f32 add;
+  chunkC_inflight2 and two k-steps left pending at each wait, not one;
   B = 1, 256, 1024 without value: both routes and the addmm chain;
   PR 2's variants at B = 8192 with value (one_product, no_loads,
   no_loads_one) and its mma.sync TF32 rate per SM clock.
@@ -61,10 +62,18 @@ WGMMA_VARIANTS = {
     "wgmma_no_loads": ("-DPROBE_NO_LOADS",),
     "wgmma_no_loads_one": ("-DPROBE_NO_LOADS", "-DPROBE_ONE_PRODUCT"),
     "wgmma_consumers1": ("-DKA_CONSUMERS=1",),
-    "wgmma_chunk2": ("-DKA_CHUNK=2",),
+    "wgmma_chunk1": ("-DKA_CHUNK=1",),
+    "wgmma_chunk4": ("-DKA_CHUNK=4",),
+    "wgmma_chunk8": ("-DKA_CHUNK=8",),
+    "wgmma_inflight0": ("-DKA_INFLIGHT=0",),
+    "wgmma_inflight0_chunk1": ("-DKA_INFLIGHT=0", "-DKA_CHUNK=1"),
+    "wgmma_inflight0_no_loads": ("-DKA_INFLIGHT=0", "-DPROBE_NO_LOADS"),
 }
+# The compute alone: timed in --check too.
+WGMMA_SPLIT = ("wgmma_no_loads", "wgmma_no_loads_one", "wgmma_inflight0_no_loads")
 # Variants that compute the forward: held to the float64 contract.
-WGMMA_CORRECT = ("wgmma", "wgmma_consumers1", "wgmma_chunk2")
+WGMMA_CORRECT = ("wgmma", "wgmma_chunk1", "wgmma_chunk4", "wgmma_chunk8", "wgmma_inflight0",
+                 "wgmma_inflight0_chunk1")
 
 MMA_LOOP = r"""
 #include <cstdint>
@@ -99,7 +108,7 @@ def build(check: bool) -> dict:
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
     for name, flags in WGMMA_VARIANTS.items():
-        if not check or name in WGMMA_CORRECT:
+        if not check or name in WGMMA_CORRECT + WGMMA_SPLIT:
             jobs[name] = (_build.CSRC / "fused_actor_critic_wgmma.cu",
                           os.path.join(OUT, f"lib{name}.so"), flags)
     for name, flags in MMA_SYNC_VARIANTS.items():
@@ -306,7 +315,7 @@ def main() -> int:
               + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + " ms", flush=True)
 
     if check:
-        timings(8192, True, obs_all, mask_all, names=WGMMA_CORRECT)
+        timings(8192, True, obs_all, mask_all, names=WGMMA_CORRECT + WGMMA_SPLIT)
         return 0
 
     for B in (8192, 32768):

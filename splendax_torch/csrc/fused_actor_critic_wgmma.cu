@@ -40,7 +40,7 @@
 // warpgroup, which gives its registers to the consumers (setmaxnreg: 40 a
 // thread against 232).  The producer's one thread walks the k-steps in the order
 // the consumers take them and keeps a ring of stages full by TMA, each
-// stage's `full` mbarrier counting its bytes; every consumer thread arrives
+// stage's `full` mbarrier counting its bytes; every consumer warp arrives
 // on the stage's `empty` mbarrier once its products have read it.  A pass
 // computes NC = 64 x CONSUMERS output columns, 64 for each consumer group:
 // `wgmma.m64n64k8` with A (the activations, split) from registers and B
@@ -75,11 +75,15 @@
 #define KA_CONSUMERS 2
 #endif
 #ifndef KA_CHUNK
-#define KA_CHUNK 1
+#define KA_CHUNK 2
 #endif
 #ifndef KA_MAX_STAGES
 #define KA_MAX_STAGES 16
 #endif
+#ifndef KA_INFLIGHT
+#define KA_INFLIGHT 1
+#endif
+
 
 namespace {
 
@@ -91,6 +95,7 @@ constexpr int K1P = 304;       // OBS padded to a multiple of 8
 constexpr int M = 64;          // rows per block: one warpgroup's M
 constexpr int CONSUMERS = KA_CONSUMERS;
 constexpr int CHUNK = KA_CHUNK;
+constexpr int INFLIGHT = KA_INFLIGHT;  // k-steps left pending on the tensor cores at each wait
 constexpr int WG_N = 64;                  // output columns per consumer group and pass
 constexpr int NC = WG_N * CONSUMERS;      // output columns per pass
 constexpr int CONSUMER_THREADS = 128 * CONSUMERS;
@@ -106,6 +111,7 @@ constexpr float BIG_NEG = -1e9f;
 constexpr float TF32_EXACT = 2048.f;      // integers up to this magnitude are exact in TF32
 
 static_assert(CONSUMERS == 1 || CONSUMERS == 2, "one or two consumer warpgroups");
+static_assert(INFLIGHT == 0 || INFLIGHT == 1, "at most one k-step left on the tensor cores");
 
 __host__ __device__ constexpr int pad8(int x) { return (x + 7) / 8 * 8; }
 // Row stride of the first hidden layer in floats: = 4 mod 8.
@@ -127,7 +133,7 @@ constexpr int stage_shift(int H) {
   while ((2 << shift) <= s && (2 << shift) <= KA_MAX_STAGES) ++shift;
   return shift;
 }
-static_assert((1 << stage_shift(MAX_HIDDEN)) >= 2 * CHUNK, "the ring must hold two chunks at H = 768");
+static_assert((1 << stage_shift(MAX_HIDDEN)) >= 4, "the ring holds four stages at H = 768");
 
 struct Params {
   const float* w[12];  // aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2, [in, out]
@@ -246,9 +252,9 @@ __device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "         \
   "{%32, %33, %34, %35}, %36, p, 1, 1;\n}"
 
-// d (+)= a b: a 64x8 TF32 from registers, b 8x64 TF32 K-major in shared
-// memory, d 64x64 f32.  ACC = 0 writes d without reading it (its operands
-// are outputs only, so d's old value is dead to the compiler).
+// d = a b + (ACC ? d : 0): a 64x8 TF32 from registers, b 8x64 TF32
+// K-major in shared memory, d 64x64 f32.  ACC = 0 takes d as outputs only,
+// so that its old value is dead to the compiler.
 template <int ACC>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   if constexpr (ACC) {
@@ -331,129 +337,181 @@ __device__ __forceinline__ void obs_frag(const int32_t* __restrict__ x, int rows
   }
 }
 
-// Issue chunk `ch` of a pass (k-steps CHUNK ch ...) into the scratch
-// accumulator s: for each k-step, its A fragment split in registers, a wait
-// for its ring stage, then lo·hi (unless A is exact), hi·lo and hi·hi,
-// summed from zero at the chunk's first k-step; then one commit.  For layer
-// 1 (L1) the A fragments come from `pf`, which this refills with chunk ch + 2.
+// This thread's A fragment of k-step j, split: for layer 1 (L1) from the
+// obs prefetched in pa (pa <- pb <- the obs of k-step j + 2), else from h1.
 template <bool L1, bool EXACT>
-__device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint32_t it0, int nk,
-                                            int ch, const float* h1, int SH,
-                                            const int32_t* __restrict__ x, int rows,
-                                            int (&pf)[CHUNK][4], float (&s)[32]) {
+__device__ __forceinline__ void load_a(const Lane& l, int j, const float* h1, int SH,
+                                       const int32_t* __restrict__ x, int rows, int (&pa)[4],
+                                       int (&pb)[4], uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  if constexpr (L1) {
 #pragma unroll
-  for (int q = 0; q < CHUNK; ++q) {
-    const int j = CHUNK * ch + q;
-    if (j >= nk) break;
-    uint32_t ah[4], al[4];
-    if constexpr (L1) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = (float)pf[q][i];
-        if constexpr (EXACT) {
-          ah[i] = __float_as_uint(a);
-          al[i] = 0u;
-        } else {
-          split(a, ah[i], al[i]);
-        }
+    for (int i = 0; i < 4; ++i) {
+      const float a = (float)pa[i];
+      if constexpr (EXACT) {
+        ah[i] = __float_as_uint(a);
+        al[i] = 0u;
+      } else {
+        split(a, ah[i], al[i]);
       }
-      if (j + 2 * CHUNK < nk) obs_frag(x, rows, l, j + 2 * CHUNK, pf[q]);
-    } else {
-      const float* a = h1 + (16 * l.wl + l.g) * SH + KSTEP * j + l.t;
-      const float av[4] = {a[0], a[8 * SH], a[4], a[8 * SH + 4]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split(av[i], ah[i], al[i]);
+      pa[i] = pb[i];
     }
-    fence_regs(ah);
-    fence_regs(al);
-    const uint32_t it = it0 + j;
-    const int st = it & ((1 << sm.shift) - 1);
+    obs_frag(x, rows, l, j + 2, pb);
+  } else {
+    const float* a = h1 + (16 * l.wl + l.g) * SH + KSTEP * j + l.t;
+    const float av[4] = {a[0], a[8 * SH], a[4], a[8 * SH + 4]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(av[i], ah[i], al[i]);
+  }
+}
+
+// Issue k-step j of a pass into the scratch accumulator s: a wait for its
+// ring stage, then lo·hi (unless A is exact), hi·lo and hi·hi, the first of
+// them from zero unless ACC (ACC = 0 at a chunk's first k-step); then, with
+// one commit, so that the k-step is a group of its own.
+template <bool L1, bool EXACT, int ACC>
+__device__ __forceinline__ void issue_kstep(const Smem& sm, const Lane& l, uint32_t it0, int j,
+                                            uint32_t (&ah)[4], uint32_t (&al)[4],
+                                            float (&s)[32]) {
+  fence_regs(ah);
+  fence_regs(al);
+  const uint32_t it = it0 + j;
+  const int st = it & ((1 << sm.shift) - 1);
 #ifndef PROBE_NO_LOADS
-    mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
+  mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
 #endif
-    const uint32_t bh = sm.ring + st * STAGE_BYTES + l.c * WG_N * KSTEP * 4;
-    const uint64_t dh = desc_sw32(bh), dl = desc_sw32(bh + NC * KSTEP * 4);
-    wgmma_fence();
+  const uint32_t bh = sm.ring + st * STAGE_BYTES + l.c * WG_N * KSTEP * 4;
+  const uint64_t dh = desc_sw32(bh), dl = desc_sw32(bh + NC * KSTEP * 4);
+  fence_regs(s);
+  wgmma_fence();
 #ifdef PROBE_ONE_PRODUCT
-    if (q == 0) wgmma_n64<0>(s, ah, dh); else wgmma_n64<1>(s, ah, dh);
+  (void)dl;
+  wgmma_n64<ACC>(s, ah, dh);
 #else
-    if constexpr (L1 && EXACT) {
-      if (q == 0) wgmma_n64<0>(s, ah, dl); else wgmma_n64<1>(s, ah, dl);
-    } else {
-      if (q == 0) wgmma_n64<0>(s, al, dh); else wgmma_n64<1>(s, al, dh);
-      wgmma_n64<1>(s, ah, dl);
-    }
-    wgmma_n64<1>(s, ah, dh);
-#endif
+  if constexpr (L1 && EXACT) {
+    wgmma_n64<ACC>(s, ah, dl);
+  } else {
+    wgmma_n64<ACC>(s, al, dh);
+    wgmma_n64<1>(s, ah, dl);
   }
+  wgmma_n64<1>(s, ah, dh);
+#endif
   wgmma_commit();
+  fence_regs(s);
 }
 
-// This thread is done with chunk ch's stages.  Every consumer thread
-// arrives: a branch on the lane here would put the wgmma on a divergent path.
-__device__ __forceinline__ void release_chunk(const Smem& sm, uint32_t it0, int nk, int ch) {
+// This warp is done with the stage of k-step j: its lane 0 arrives, by a
+// predicate inside the asm (a branch on the lane would put the wgmma on a
+// divergent path).
+__device__ __forceinline__ void release_kstep(const Smem& sm, uint32_t it0, int j) {
 #ifndef PROBE_NO_LOADS
-#pragma unroll
-  for (int q = 0; q < CHUNK; ++q) {
-    const int j = CHUNK * ch + q;
-    if (j >= nk) break;
-    mbar_arrive(empty_bar(sm, (it0 + j) & ((1 << sm.shift) - 1)));
-  }
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, %1, 0;\n"
+      " @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}" ::"r"(
+          empty_bar(sm, (it0 + j) & ((1 << sm.shift) - 1))),
+      "r"(threadIdx.x & 31)
+      : "memory");
 #endif
 }
 
-__device__ __forceinline__ void add32(float (&acc)[32], const float (&s)[32]) {
+__device__ __forceinline__ void add32(float (&acc)[32], float (&s)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] += s[i];
 }
 
+// The k-steps of one chunk, j ... min(j + CHUNK, nk) - 1, into the
+// scratch accumulator s (BUF: 0 for s0, 1 for s1); `o` is the other one,
+// whose chunk ends at k-step end_o (-1: none pending).  A chunk's k-steps
+// are unrolled: the scratch accumulator is carried through no runtime loop
+// while its products are in flight.  After each k-step's commit a wait
+// leaves INFLIGHT k-steps pending; k-step k - INFLIGHT is then complete, its
+// stage is released, and where it ends a chunk, that chunk's sum is added to
+// acc.  The hardware reads a wgmma's A registers while it runs, so
+// consecutive k-steps take their A fragments from the two sets of ah / al
+// in turn: a set is rewritten only after the k-step that read it is done.
+template <bool L1, bool EXACT, int BUF>
+__device__ __forceinline__ void run_chunk(const Smem& sm, const Lane& l, uint32_t it0, int nk,
+                                          int& j, const float* h1, int SH,
+                                          const int32_t* __restrict__ x, int rows, int (&pa)[4],
+                                          int (&pb)[4], uint32_t (&ah)[2][4], uint32_t (&al)[2][4],
+                                          float (&acc)[32], float (&s)[32], float (&o)[32],
+                                          int& end_s, int& end_o) {
+#pragma unroll
+  for (int q = 0; q < CHUNK; ++q) {
+    const int k = j + q;
+    if (k < nk) {
+      const int set = (BUF * CHUNK + q) & 1;
+      load_a<L1, EXACT>(l, k, h1, SH, x, rows, pa, pb, ah[set], al[set]);
+      if (q == 0)
+        issue_kstep<L1, EXACT, 0>(sm, l, it0, k, ah[set], al[set], s);
+      else
+        issue_kstep<L1, EXACT, 1>(sm, l, it0, k, ah[set], al[set], s);
+      if (k >= INFLIGHT) {
+        wgmma_wait<INFLIGHT>();
+        fence_regs(s);
+        fence_regs(o);
+        release_kstep(sm, it0, k - INFLIGHT);
+        if (k - INFLIGHT == end_o) {
+          add32(acc, o);
+          end_o = -1;
+        }
+      }
+    }
+  }
+  j = min(j + CHUNK, nk);
+  if constexpr (INFLIGHT == 0) {
+    add32(acc, s);  // the chunk's last k-step is done
+    end_s = -1;
+  } else {
+    end_s = j - 1;
+  }
+}
+
 // acc = A W[:, this group's 64 columns of the pass], over nk k-steps, the
-// ring's k-steps it0 ... it0 + nk - 1.  Chunks alternate between the two
-// scratch accumulators: chunk ch's f32 add waits only for chunk ch itself
-// while chunk ch + 1 is already on the tensor cores.
+// ring's k-steps it0 ... it0 + nk - 1.  Chunks of CHUNK k-steps are summed
+// on the tensor cores, alternately into s0 and s1, and each chunk's sum is
+// added to acc in f32 once it is complete (with INFLIGHT = 1 while the next
+// chunk is on the tensor cores).  The ring's consumers hold INFLIGHT + 1
+// stages at most.
 template <bool L1, bool EXACT>
 __device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_t it0, int nk,
                                           const float* h1, int SH, const int32_t* __restrict__ x,
                                           int rows, float (&acc)[32]) {
   float s0[32], s1[32];
-  int pf0[CHUNK][4], pf1[CHUNK][4];
+  int pa[4], pb[4];
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = s0[i] = s1[i] = 0.f;
   if constexpr (L1) {
-#pragma unroll
-    for (int q = 0; q < CHUNK; ++q) {
-      obs_frag(x, rows, l, q, pf0[q]);
-      obs_frag(x, rows, l, CHUNK + q, pf1[q]);
-    }
+    obs_frag(x, rows, l, 0, pa);
+    obs_frag(x, rows, l, 1, pb);
   }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  const int nch = (nk + CHUNK - 1) / CHUNK;
-  for (int ch = 0;;) {
-    issue_chunk<L1, EXACT>(sm, l, it0, nk, ch, h1, SH, x, rows, pf0, s0);
-    if (ch > 0) {
-      wgmma_wait<1>();
-      fence_regs(s1);
-      add32(acc, s1);
-      release_chunk(sm, it0, nk, ch - 1);
-    }
-    if (++ch == nch) {
-      wgmma_wait<0>();
-      fence_regs(s0);
+  // end0 / end1: the last k-step of the chunk whose sum waits in s0 / s1, or -1.
+  int end0 = -1, end1 = -1, j = 0;
+  while (true) {
+    run_chunk<L1, EXACT, 0>(sm, l, it0, nk, j, h1, SH, x, rows, pa, pb, ah, al, acc, s0, s1,
+                            end0, end1);
+    if (j == nk) break;
+    run_chunk<L1, EXACT, 1>(sm, l, it0, nk, j, h1, SH, x, rows, pa, pb, ah, al, acc, s1, s0,
+                            end1, end0);
+    if (j == nk) break;
+  }
+  wgmma_wait<0>();
+  fence_regs(s0);
+  fence_regs(s1);
+  if (INFLIGHT && nk > 0) release_kstep(sm, it0, nk - 1);
+  // The earlier chunk first, as every row's sums run in k order.
+  if (end0 >= 0 && end1 >= 0) {
+    if (end0 < end1) {
       add32(acc, s0);
-      release_chunk(sm, it0, nk, ch - 1);
-      break;
-    }
-    issue_chunk<L1, EXACT>(sm, l, it0, nk, ch, h1, SH, x, rows, pf1, s1);
-    wgmma_wait<1>();
-    fence_regs(s0);
-    add32(acc, s0);
-    release_chunk(sm, it0, nk, ch - 1);
-    if (++ch == nch) {
-      wgmma_wait<0>();
-      fence_regs(s1);
       add32(acc, s1);
-      release_chunk(sm, it0, nk, ch - 1);
-      break;
+    } else {
+      add32(acc, s1);
+      add32(acc, s0);
     }
+  } else if (end0 >= 0) {
+    add32(acc, s0);
+  } else if (end1 >= 0) {
+    add32(acc, s1);
   }
 }
 
@@ -615,7 +673,7 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full_bar(sm, s), 1);
-      mbar_init(empty_bar(sm, s), CONSUMER_THREADS);
+      mbar_init(empty_bar(sm, s), CONSUMER_THREADS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
