@@ -26,7 +26,12 @@ Phases, in order; any failure exits non-zero:
      every batch and window size that the driven phases give it, and time the
      kernel, the plain version and one PyTorch library call for the
      same function at the main path's shapes, on the device clock (the
-     summed kernel time under torch.profiler);
+     summed kernel time under torch.profiler).  Kernel A takes its wgmma
+     route at H <= 768 (held at H = 256 and 768, its prep kernel bit for bit
+     against the plain preparation) and its mma_sync route above (held at
+     H = 1024 on random weights); at each main-path shape the wgmma kernel,
+     the route with its prep, PR 2's mma_sync kernel on the same rows, the
+     plain forward and the addmm chain are timed;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
   9. the searches: without a network, `determinize`, the Gumbel search
@@ -71,6 +76,14 @@ Phases, in order; any failure exits non-zero:
      whole-weight gather timed; `dryrun_multichip(4)` on the card; the
      scaling bench at 4096 games a rank over 1 and 2 ranks.  The ranks zero
      their launch counters before the measured update and return them.
+     Kernel A on 4096 + 4096 and 1000 + 7192 rows equals the B=8192 call
+     bit for bit;
+ 17. `train.train` at hidden 1024 (one update of 1024 x 8 with an eval at
+     step 0): kernel A's mma_sync route on a driven path.
+
+Every driven path at H <= 768 (4 to 16) must launch kernel A on its wgmma
+route only, each forward with one weight preparation; path 17 on its
+mma_sync route only.
 
 Phases 9 to 16 run after phase 6 and before phase 7, so the host-clock
 rates (phases 3 to 6 and 9 to 16) are taken before the first
@@ -260,6 +273,7 @@ def phase_kernels(device) -> dict:
             obs_big, mask_big = realistic_obs(max(distill_b), 30, seed=H, device=device)
             rows += [(B, obs_big, mask_big) for B in distill_b]
         err_h, shares = 0.0, [0.0, 0.0, 0.0]
+        before = dict(fac.launches_by_route)
         for B, obs_src, mask_src in rows:
             obs, mask = obs_src[:B].contiguous(), mask_src[:B].contiguous()
             for with_value in (True, False):
@@ -293,12 +307,59 @@ def phase_kernels(device) -> dict:
                   and (got > -1e8).all().item(),
                   f"kernel A's root prior (all-true mask) at H={H} B={B}: "
                   f"{share(got, ref):.3f} of the tolerance")
+        check(fac.launches_by_route["mma_sync"] == before["mma_sync"]
+              and fac.launches_by_route["wgmma"] > before["wgmma"],
+              f"kernel A at H={H} left the wgmma route: {fac.launches_by_route}")
+        # The prep kernel against its plain version, bit for bit (the actor's
+        # half alone without the critic: the kernel leaves the rest unwritten).
+        for with_value in (True, False):
+            n = len(fac.prepare_weights_plain(w)) if with_value else fac.prepared_layout(H)[2][0]
+            check(torch.equal(fac.prepare_weights(w, with_value)[:n],
+                              fac.prepare_weights_plain(w, with_value)[:n]),
+                  f"the prep kernel differs from its plain version at H={H} value={with_value}")
         err_a = max(err_a, err_h)
         print(f"kernel A H={H}: max abs err {err_h:.3g} vs the float64 plain version, "
               f"{shares[0]:.3f} of the rtol/atol 1e-5 tolerance; the float32 plain version: "
               f"{shares[1]:.3f} of it vs float64; kernel vs float32 plain: {shares[2]:.3f} "
-              f"(at most {F32_PLAIN_SLACK}; B in {[r[0] for r in rows]}, with and without value)",
-              flush=True)
+              f"(at most {F32_PLAIN_SLACK}; B in {[r[0] for r in rows]}, with and without value; "
+              f"wgmma route; the prep kernel equals its plain version bit for bit)", flush=True)
+    # The mma_sync route, at H = 1024 (768 < H <= 1024), on seeded random
+    # weights and engine obs, held the same way.
+    H = 1024
+    rng = np.random.RandomState(H)
+    w_wide = []
+    for n_out in (45, 1):
+        for fi, fo in ((297, H), (H, H), (H, n_out)):
+            for shape in ((fi, fo), (fo,)):
+                w_wide.append(torch.as_tensor(
+                    (rng.uniform(-1, 1, shape) / np.sqrt(fi)).astype(np.float32), device=device))
+    w64_wide = [t.double() for t in w_wide]
+    err_wide, share_wide = 0.0, 0.0
+    before = dict(fac.launches_by_route)
+    for B in (1, 257, 1024, 4097, 8192):
+        obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+        for with_value in (True, False):
+            outs = [fac.fused_masked_forward(w_wide, obs, mask, with_value),
+                    fac.fused_masked_forward_plain(w_wide, obs, mask, with_value),
+                    fac.fused_masked_forward_plain(w64_wide, obs, mask, with_value)]
+            torch.cuda.synchronize()
+            for got, f32, ref in zip(*outs):
+                if got is None:
+                    continue
+                where = f"H={H} B={B} value={with_value}"
+                check(torch.isfinite(got).all().item()
+                      and torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-5)
+                      and share(got, f32) <= F32_PLAIN_SLACK,
+                      f"kernel A's mma_sync route at {where}: {share(got, ref):.3f} of the "
+                      f"tolerance vs float64, {share(got, f32):.3f} vs float32")
+                err_wide = max(err_wide, (got.double() - ref).abs().max().item())
+                share_wide = max(share_wide, share(got, ref))
+    check(fac.launches_by_route["wgmma"] == before["wgmma"]
+          and fac.launches_by_route["mma_sync"] == before["mma_sync"] + 10,
+          f"kernel A at H=1024 left the mma_sync route: {fac.launches_by_route}")
+    print(f"kernel A H=1024 (mma_sync route, random weights): max abs err {err_wide:.3g} vs the "
+          f"float64 plain version, {share_wide:.3f} of the tolerance; B in (1, 257, 1024, 4097, "
+          f"8192), with and without value", flush=True)
     # Times at H = 768: the agent forward and the bootstrap value (B = 8192,
     # with value), the pool slots' forwards (B = 2048, 3072, no value) and the
     # eval suite's greedy forward (B = 256, no value), then the league slot's
@@ -310,6 +371,7 @@ def phase_kernels(device) -> dict:
     # phase's; its root prior is the B = 1024 row above); each beside the
     # addmm chain for the same rows and heads.
     H = 768
+    w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device))
     l1_products = 2 if obs_all.abs().max().item() <= 2048 else 3
     shapes = []
     for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False),
@@ -327,24 +389,84 @@ def phase_kernels(device) -> dict:
                 torch.addmm(w[o + 5], h, w[o + 4])
 
         n = 20 if B <= 32768 else 5
-        ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w, obs, mask, with_value), n)
+        prepared = fac.prepare_weights(w, with_value)
+        # The wgmma route as the path runs it (prep + kernel), its kernel
+        # alone, PR 2's mma_sync kernel on the same rows, the plain forward
+        # and the addmm chain.
+        route_ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w, obs, mask, with_value), n)
+        ms = device_ms(lambda: fac._launch("wgmma", w, obs, mask, with_value, prepared), n)[0]
+        mma_sync_ms = device_ms(lambda: fac._launch("mma_sync", w, obs, mask, with_value), n)[0]
         plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w, obs, mask, with_value), n)[0]
         library_ms = device_ms(addmm_chain, n)[0]
         bound_ms, bound_by, bound_f32_ms = bound_a(B, H, with_value, l1_products)
-        shapes.append(dict(B=B, with_value=with_value, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           bound_f32_ms=bound_f32_ms, host_ms=host_ms))
-        print(f"kernel A B={B} H={H} value={with_value}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"addmm chain {library_ms:.4f} ms (device clock); bound {bound_ms:.4f} ms by "
-              f"{bound_by} (3xTF32, layer 1 in {l1_products} products), {bound_f32_ms:.4f} ms "
-              f"on f32 CUDA cores; host {host_ms:.4f} ms per call", flush=True)
+        shapes.append(dict(B=B, with_value=with_value, ms=ms, route_ms=route_ms,
+                           mma_sync_ms=mma_sync_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
+                           host_ms=host_ms))
+        print(f"kernel A B={B} H={H} value={with_value}: wgmma kernel {ms:.4f} ms, route with its "
+              f"prep {route_ms:.4f} ms, mma_sync (PR 2) {mma_sync_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); bound "
+              f"{bound_ms:.4f} ms by {bound_by} (3xTF32, layer 1 in {l1_products} products), "
+              f"{bound_f32_ms:.4f} ms on f32 CUDA cores; host {host_ms:.4f} ms per call",
+              flush=True)
     agent = shapes[0]
-    results["fused_actor_critic"] = dict(
+    results["fused_actor_critic_wgmma"] = dict(
         max_abs_err=err_a, **{k: agent[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                    "bound_by", "bound_f32_ms", "host_ms")},
+                                                    "bound_by", "bound_f32_ms", "host_ms",
+                                                    "route_ms", "mma_sync_ms")},
         bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
         checked_against="plain version in float64, rtol/atol 1e-5", by_shape=shapes,
     )
+
+    # The prep kernel at H = 768, with and without the critic: its bytes
+    # bound reads the weights once and writes hi and lo once.
+    preps = []
+    for with_value in (True, False):
+        heads = 2 if with_value else 1
+        nbytes = heads * 4 * ((297 + H) * H + 2 * 2 * fac.pad8(H) * (fac.K1_PAD + fac.pad8(H)))
+        ms, host_ms = device_ms(lambda: fac.prepare_weights(w, with_value), 20)
+        plain_ms = device_ms(lambda: fac.prepare_weights_plain(w, with_value), 20)[0]
+        preps.append(dict(H=H, with_value=with_value, ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                          host_ms=host_ms))
+        print(f"kernel A prep H={H} value={with_value}: {ms:.5f} ms, plain {plain_ms:.5f} ms; "
+              f"bound {preps[-1]['bound_ms']:.5f} ms by bytes ({nbytes} bytes); host "
+              f"{host_ms:.4f} ms per call", flush=True)
+    results["fused_actor_critic_prep"] = dict(
+        max_abs_err=0.0, **{k: preps[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "host_ms")},
+        bound_peak="HBM3, 3.35 TB/s", checked_against="plain version, bit for bit",
+        by_shape=preps)
+
+    # The mma_sync route at the wide path's shapes: H = 1024, B = 1024 with
+    # value (its agent forward and bootstrap) and without (its pool slot).
+    wides = []
+    for B, with_value in ((1024, True), (1024, False), (8192, True)):
+        obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+        x32 = obs.to(torch.float32)
+
+        def addmm_wide(x32=x32, heads=(0, 6) if with_value else (0,)):
+            for o in heads:
+                h = torch.tanh(torch.addmm(w_wide[o + 1], x32, w_wide[o]))
+                h = torch.tanh(torch.addmm(w_wide[o + 3], h, w_wide[o + 2]))
+                torch.addmm(w_wide[o + 5], h, w_wide[o + 4])
+
+        ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w_wide, obs, mask, with_value), 20)
+        plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w_wide, obs, mask,
+                                                                    with_value), 20)[0]
+        library_ms = device_ms(addmm_wide, 20)[0]
+        bound_ms, bound_by, _ = bound_a(B, 1024, with_value, l1_products)
+        wides.append(dict(B=B, H=1024, with_value=with_value, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          host_ms=host_ms))
+        print(f"kernel A mma_sync route B={B} H=1024 value={with_value}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+              f"{bound_by}; host {host_ms:.4f} ms per call", flush=True)
+    results["fused_actor_critic_mma_sync"] = dict(
+        max_abs_err=err_wide, **{k: wides[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "bound_by", "host_ms")},
+        bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
+        checked_against="plain version in float64, rtol/atol 1e-5", by_shape=wides)
 
     # Kernel B: ring row take, at W = 8192 (the league rollout's window) and
     # at B = W = 1024 (the train phase's).
@@ -510,10 +632,16 @@ def flagship_state(cfg, device):
 
 
 def read_launches() -> dict:
+    """The launch counters: kernel A's forwards in all ("fused_actor_critic")
+    and by route, its weight preparations, and kernel B."""
     from splendax_torch.ops import fused_actor_critic as fac
     from splendax_torch.ops import ring_take as rt
 
-    return {"fused_actor_critic": fac.launches, "ring_take": rt.launches}
+    return {"fused_actor_critic": fac.launches,
+            "fused_actor_critic_wgmma": fac.launches_by_route["wgmma"],
+            "fused_actor_critic_mma_sync": fac.launches_by_route["mma_sync"],
+            "fused_actor_critic_prep": fac.prep_launches,
+            "ring_take": rt.launches}
 
 
 def zero_launches() -> None:
@@ -521,7 +649,20 @@ def zero_launches() -> None:
     from splendax_torch.ops import ring_take as rt
 
     fac.launches = 0
+    for r in fac.launches_by_route:
+        fac.launches_by_route[r] = 0
+    fac.prep_launches = 0
     rt.launches = 0
+
+
+def check_route(path: str, n: dict, route: str = "wgmma") -> None:
+    """Every kernel A launch of the path took `route` (the hidden width's),
+    and each wgmma forward prepared its weights once."""
+    other = "mma_sync" if route == "wgmma" else "wgmma"
+    prep = n["fused_actor_critic"] if route == "wgmma" else 0
+    check(n["fused_actor_critic"] > 0 and n["fused_actor_critic_" + route] == n["fused_actor_critic"]
+          and n["fused_actor_critic_" + other] == 0 and n["fused_actor_critic_prep"] == prep,
+          f"{path}: kernel A's launches did not all take the {route} route: {n}")
 
 
 def phase_rollout(device):
@@ -549,7 +690,8 @@ def phase_rollout(device):
     check(bool((legal | ~traj.mask.any(-1)).all()), "an agent action was illegal")
     check(torch.isfinite(traj.logp).all().item() and torch.isfinite(traj.value).all().item(),
           "non-finite logp or value")
-    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    check(launches["fused_actor_critic"] > 0 and launches["ring_take"] > 0,
+          f"a kernel was not launched: {launches}")
     episodes = int(traj.done.sum())
     check(episodes > 0, "no episode finished")
     check(int(traj.overflow) == 0, f"ring overflow {int(traj.overflow)}")
@@ -1238,18 +1380,20 @@ def phase_parallel(device) -> dict:
     w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device))
     obs, mask = realistic_obs(8192, 30, seed=768, device=device)
     whole = fac.fused_masked_forward(w, obs, mask)
-    halves = [fac.fused_masked_forward(w, obs[i:i + 4096].contiguous(),
-                                       mask[i:i + 4096].contiguous()) for i in (0, 4096)]
-    same_b = all(torch.equal(torch.cat([h[j] for h in halves]), whole[j]) for j in (0, 1))
-    print(f"parallel: kernel A on the two 4096-row halves equals the B=8192 call bit for bit: "
-          f"{same_b}", flush=True)
+    for cut in (4096, 1000):
+        parts = [fac.fused_masked_forward(w, obs[a:b].contiguous(), mask[a:b].contiguous())
+                 for a, b in ((0, cut), (cut, 8192))]
+        same_b = all(torch.equal(torch.cat([h[j] for h in parts]), whole[j]) for j in (0, 1))
+        print(f"parallel: kernel A on {cut} + {8192 - cut} rows equals the B=8192 call bit for "
+              f"bit: {same_b}", flush=True)
+        check(same_b, f"kernel A's rows depend on B: {cut} + {8192 - cut} against 8192")
 
     runs = (("dp", 2, 1, 64), ("tp", 1, 2, 8))
     t0 = time.perf_counter()
     ranks = spawn(parallel_rank, 2, args=(runs,), device="cuda", timeout=600)
     print(f"parallel: 2 gloo ranks on {ranks[0]['dp']['device']}, {time.perf_counter() - t0:.1f} s "
           f"with start-up; collective routes of rank 0 {ranks[0]['tp']['routes']}", flush=True)
-    launches = {"fused_actor_critic": 0, "ring_take": 0}
+    launches = dict.fromkeys(read_launches(), 0)
     for label, dp, tp, turns in runs:
         cfg = PPOConfig(**dict(LEAGUE_NO_SLOT, num_steps=turns))
         ts1, dt, rec = probed_update(cfg, flagship_state(cfg, device))
@@ -1299,6 +1443,34 @@ def phase_parallel(device) -> dict:
           f"rank 0 {results[0]['routes']}", flush=True)
     bench_scaling.main(["--ranks", "2", "--batch-per-rank", "4096", "--steps", "20", "--reps", "1",
                         "--device", "cuda"])
+    return launches
+
+
+def phase_wide(device) -> dict:
+    """`train.train` at hidden 1024, wider than the wgmma route's 768: one
+    update of 1024 games x 8 turns from random weights, with the eval suite
+    at step 0, so that kernel A's mma_sync route runs on a driven path."""
+    import torch
+
+    from splendax_torch.train import train
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        cfg = train.parse_args([
+            "--num-envs", "1024", "--num-steps", "8", "--hidden", "1024",
+            "--total-timesteps", "8192", "--eval-games", "16", "--eval-every-updates", "99",
+            "--checkpoint-every-updates", "99", "--snapshot-every-updates", "99",
+            "--log-dir", log_dir])
+        zero_launches()
+        t0 = time.perf_counter()
+        ts = train.train(cfg, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+    check(ts.update_idx == 1, f"train H=1024: ended at update {ts.update_idx}")
+    check(launches["fused_actor_critic"] >= 2 * cfg.num_steps + 1 and launches["ring_take"] > 0,
+          f"train H=1024: launches {launches}")
+    print(f"train H=1024: 1 update of {cfg.num_envs} x {cfg.num_steps} with an eval of "
+          f"4 x {cfg.eval_games} games in {dt:.3f} s; launches {launches}", flush=True)
     return launches
 
 
@@ -1869,19 +2041,24 @@ def main() -> int:
     by_path.update(phase_distill(device))
     phase_ppo_generic(device)
     by_path["parallel"] = phase_parallel(device)
-    check(all(n > 0 for n in by_path["parallel"].values()),
+    check(by_path["parallel"]["fused_actor_critic"] > 0 and by_path["parallel"]["ring_take"] > 0,
           f"the parallel path did not launch both kernels: {by_path['parallel']}")
-    check(all(by_path[p]["fused_actor_critic"] > 0
-              for p in ("search", "cli", "host", "distill", "distill chunk")),
-          f"a search, host or distill path did not launch kernel A: {by_path}")
+    # Every path above runs a net of H <= 768: all its kernel A launches take
+    # the wgmma route.  The wide path (H = 1024) takes the mma_sync route.
+    for path, n in by_path.items():
+        check_route(path, n)
+    by_path["train H=1024"] = phase_wide(device)
+    check_route("train H=1024", by_path["train H=1024"], route="mma_sync")
     kern = phase_kernels(device)
     phase_profile(cfg, ts)
     phase_profile(cfg_league, ts_league, label="profile (league slot)")
     profile_distill_ply(device)
 
+    tpu_a = "splendax/ops/fused_actor_critic.py:37"
     meta = {
-        "fused_actor_critic": ("splendax_torch/csrc/fused_actor_critic.cu",
-                               "splendax/ops/fused_actor_critic.py:37"),
+        "fused_actor_critic_wgmma": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
+        "fused_actor_critic_prep": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
+        "fused_actor_critic_mma_sync": ("splendax_torch/csrc/fused_actor_critic.cu", tpu_a),
         "ring_take": ("splendax_torch/csrc/ring_take.cu", "splendax/ops/ring_take.py:38"),
     }
     rows = []
@@ -1891,6 +2068,7 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(p[name] for p in by_path.values()),
                          launches_by_path={path: p[name] for path, p in by_path.items()}, **k))
+        check(rows[-1]["launches"] > 0, f"{name} was launched on no driven path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

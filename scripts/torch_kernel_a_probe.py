@@ -68,9 +68,12 @@ WGMMA_VARIANTS = {
     "wgmma_inflight0": ("-DKA_INFLIGHT=0",),
     "wgmma_inflight0_chunk1": ("-DKA_INFLIGHT=0", "-DKA_CHUNK=1"),
     "wgmma_inflight0_no_loads": ("-DKA_INFLIGHT=0", "-DPROBE_NO_LOADS"),
+    "wgmma_no_fence": ("-DPROBE_NO_FENCE",),
+    "wgmma_no_fence_no_loads": ("-DPROBE_NO_FENCE", "-DPROBE_NO_LOADS"),
 }
 # The compute alone: timed in --check too.
-WGMMA_SPLIT = ("wgmma_no_loads", "wgmma_no_loads_one", "wgmma_inflight0_no_loads")
+WGMMA_SPLIT = ("wgmma_no_loads", "wgmma_no_loads_one", "wgmma_inflight0_no_loads",
+               "wgmma_no_fence", "wgmma_no_fence_no_loads")
 # Variants that compute the forward: held to the float64 contract.
 WGMMA_CORRECT = ("wgmma", "wgmma_chunk1", "wgmma_chunk4", "wgmma_chunk8", "wgmma_inflight0",
                  "wgmma_inflight0_chunk1")

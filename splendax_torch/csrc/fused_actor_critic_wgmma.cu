@@ -63,7 +63,8 @@
 // file with -D to see where the time goes; the library is built with none.
 // PROBE_NO_LOADS never copies a weight stage (wrong numbers: the compute
 // alone); PROBE_ONE_PRODUCT takes one TF32 product for each f32 one (wrong
-// numbers: a third of the tensor work); KA_CONSUMERS (1 or 2), KA_CHUNK
+// numbers: a third of the tensor work); PROBE_NO_FENCE leaves the wgmma
+// fences to ptxas (for timing only); KA_CONSUMERS (1 or 2), KA_CHUNK
 // (k-steps summed on the tensor cores before each f32 add) and
 // KA_MAX_STAGES set the design's three knobs.
 
@@ -382,7 +383,9 @@ __device__ __forceinline__ void issue_kstep(const Smem& sm, const Lane& l, uint3
   const uint32_t bh = sm.ring + st * STAGE_BYTES + l.c * WG_N * KSTEP * 4;
   const uint64_t dh = desc_sw32(bh), dl = desc_sw32(bh + NC * KSTEP * 4);
   fence_regs(s);
+#ifndef PROBE_NO_FENCE
   wgmma_fence();
+#endif
 #ifdef PROBE_ONE_PRODUCT
   (void)dl;
   wgmma_n64<ACC>(s, ah, dh);

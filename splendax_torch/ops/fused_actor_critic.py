@@ -203,25 +203,34 @@ def fused_masked_forward(weights, obs: torch.Tensor, mask: torch.Tensor, with_va
     skips the critic)."""
     if obs.device.type == "cpu":
         return fused_masked_forward_plain(weights, obs, mask, with_value)
-    global launches
     if obs.device.type != "cuda":
         raise ValueError(f"fused_masked_forward: unsupported device {obs.device}")
     H = _check(weights, obs, mask)
-    B = obs.shape[0]
+    return _launch(route(H), weights, obs, mask, with_value)
+
+
+def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None):
+    """One forward on route `r` of checked CUDA inputs; the `wgmma` route
+    prepares the weights first unless given `prepared`.  `route(H)` names
+    the route of the path; a measurement may time the other one."""
+    global launches
+    B, H = obs.shape[0], weights[0].shape[1]
     logits = torch.empty((B, ACT_DIM), dtype=torch.float32, device=obs.device)
     value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
     if B == 0:
         return logits, value
-    r = route(H)
     value_ptr = value.data_ptr() if with_value else None
     if r == "wgmma":
-        prepared = prepare_weights(weights, with_value)
+        if prepared is None:
+            prepared = prepare_weights(weights, with_value)
         err = _wgmma_lib().fused_actor_critic_wgmma_forward(
             obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), prepared.data_ptr(),
             logits.data_ptr(), value_ptr, _stream(obs))
-    else:
+    elif r == "mma_sync":
         err = _lib()(obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), logits.data_ptr(),
                      value_ptr, _stream(obs))
+    else:
+        raise ValueError(f"unknown route {r!r}")
     if err != 0:
         raise RuntimeError(f"fused_actor_critic {r} kernel launch failed: CUDA error {err}")
     launches += 1

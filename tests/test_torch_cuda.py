@@ -56,10 +56,12 @@ def check_fused(w, obs, mask):
 @pytest.mark.parametrize("B", [1, 17, 31, 33, 257, 2048, 4096, 4097, 4127])
 def test_fused_kernel_matches_plain(cuda, H, B):
     """Kernel A against its plain version across the row-tile edges and
-    ragged hidden widths (37: 4-byte weight copies; 100: a part tile), with a
-    row that has no legal action.  On a 132-SM H100 the kernel takes 16-row
-    tiles up to B = 2112 (ragged at 1, 17, 31, 33, 257) and 32-row tiles
-    from 4096 on (ragged at 4097, 4127)."""
+    ragged hidden widths (37: padding in K and N; 100: a part pass), with a
+    row that has no legal action.  H <= 768 takes the wgmma route (64-row
+    tiles: ragged at every B here but 2048 and 4096); H = 1024 the mma_sync
+    route, which on a 132-SM H100 takes 16-row tiles up to B = 2112 (ragged
+    at 1, 17, 31, 33, 257) and 32-row tiles from 4096 on (ragged at 4097,
+    4127)."""
     rng = np.random.RandomState(H + B)
     w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
     obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
@@ -332,3 +334,120 @@ def test_parity_mode_on_the_card_equals_the_cpu(cuda):
         for name, x in st_c.items():
             assert torch.equal(x, getattr(st_g, name).cpu()), f"{name} at ply {ply}"
     assert returns > 0
+
+
+def check_wgmma(w, obs, mask, route="wgmma"):
+    """Kernel A with and without value within rtol/atol 1e-5 of the plain
+    forward in float64; one launch a call, on `route`, and one weight
+    preparation a call on the wgmma route."""
+    w64 = [t.double() for t in w]
+    before = (dict(fac.launches_by_route), fac.prep_launches)
+    outs = [fac.fused_masked_forward(w, obs, mask, with_value=v) for v in (True, False)]
+    torch.cuda.synchronize()
+    n_prep = 2 if route == "wgmma" else 0
+    assert fac.launches_by_route[route] == before[0][route] + 2
+    assert fac.prep_launches == before[1] + n_prep
+    for (lk, vk), v in zip(outs, (True, False)):
+        lr, vr = fac.fused_masked_forward_plain(w64, obs, mask, with_value=v)
+        torch.testing.assert_close(lk.double(), lr, rtol=1e-5, atol=1e-5)
+        if v:
+            torch.testing.assert_close(vk.double(), vr, rtol=1e-5, atol=1e-5)
+    assert torch.equal(outs[0][0], outs[1][0])  # the critic does not touch the logits
+    return outs[0][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [37, 100, 256, 768])
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 4097, 32768])
+def test_wgmma_route_matches_float64(cuda, H, B):
+    """The wgmma route against the float64 plain forward at rtol/atol 1e-5
+    around its 64-row tile (63, 64, 65) and at the search's 32768 rows, at
+    ragged widths (37, 100) and the committed nets' (256, 768)."""
+    rng = np.random.RandomState(H + B)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+    mask[0] = False
+    lk = check_wgmma(w, obs, mask)
+    assert (lk[0] > -1e8).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [100, 768])
+def test_wgmma_route_obs_beyond_tf32(cuda, H):
+    """Obs of 4097 are not exact in TF32: their tiles take layer 1's third
+    product (lo hi), which would miss by 1 x 1e-3 in the first layer."""
+    rng = np.random.RandomState(H)
+    flat = numpy_params(rng, H)
+    for head in ("actor", "critic"):
+        flat[f"{head}.0.w"][0] = rng.uniform(-1e-3, 1e-3, H).astype(np.float32)
+    w = ac.kernel_weights(ac.params_from_jax(flat, device=cuda))
+    B = 4127
+    obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+    obs[B - 100::9, 0] = 4097  # the last two tiles only
+    obs[5, 3] = -3000
+    mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+    check_wgmma(w, obs, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [37, 768])
+def test_wgmma_route_zero_weights(cuda, H):
+    """All-zero weights: logits 0 where legal, -1e9 where not, 0 throughout
+    the row with no legal action; value 0."""
+    w = [torch.zeros_like(t) for t in ac.kernel_weights(
+        ac.params_from_jax(numpy_params(np.random.RandomState(1), H), device=cuda))]
+    rng = np.random.RandomState(2)
+    obs = torch.as_tensor(rng.randint(0, 8, size=(65, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(65, 45) < 0.4, device=cuda)
+    mask[0] = False
+    logits, value = fac.fused_masked_forward(w, obs, mask)
+    assert torch.equal(logits, torch.where(mask | ~mask.any(1, keepdim=True), 0.0, -1e9))
+    assert torch.equal(value, torch.zeros_like(value))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_value", [True, False])
+@pytest.mark.parametrize("H", [37, 100, 256, 768])
+def test_prep_kernel_equals_plain_bit_for_bit(cuda, H, with_value):
+    """The prep kernel's split and transpose equals `prepare_weights_plain`
+    bit for bit (without the critic, on the actor's half, which is all the
+    kernel writes then); one launch a call."""
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(np.random.RandomState(H), H),
+                                             device=cuda))
+    before = fac.prep_launches
+    got = fac.prepare_weights(w, with_value)
+    assert fac.prep_launches == before + 1
+    want = fac.prepare_weights_plain(w, with_value)
+    n = want.numel() if with_value else fac.prepared_layout(H)[2][0]
+    assert torch.equal(got[:n], want[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 768])
+def test_wgmma_rows_do_not_depend_on_b(cuda, H):
+    """Rows split into calls as a dp rank or a pool slot splits them (1000 +
+    7192, 4096 + 4096) equal the B=8192 call bit for bit."""
+    rng = np.random.RandomState(H)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(8192, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(8192, 45) < 0.4, device=cuda)
+    whole = fac.fused_masked_forward(w, obs, mask)
+    for cut in (1000, 4096):
+        parts = [fac.fused_masked_forward(w, obs[a:b].contiguous(), mask[a:b].contiguous())
+                 for a, b in ((0, cut), (cut, 8192))]
+        for j in (0, 1):
+            assert torch.equal(torch.cat([p[j] for p in parts]), whole[j])
+
+
+@pytest.mark.cuda
+def test_wide_net_takes_the_mma_sync_route(cuda):
+    """H = 1024 is past the wgmma route's 768: PR 2's mma_sync kernel, held
+    to the same float64 contract, with no weight preparation."""
+    rng = np.random.RandomState(1024)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, 1024), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(257, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(257, 45) < 0.4, device=cuda)
+    check_wgmma(w, obs, mask, route="mma_sync")
+    with pytest.raises(ValueError):
+        fac.prepare_weights(w)

@@ -72,6 +72,25 @@ def test_fused_forward_plain_matches_pallas_kernel(batch, B):
     assert vo is None and torch.equal(lo, lp)
 
 
+@pytest.mark.parametrize("hidden", [100, 1024])
+def test_cpu_forward_matches_pallas_kernel_and_launches_nothing(batch, hidden):
+    """At a width of each route (100: wgmma, 1024: mma_sync), a CPU tensor
+    takes the plain version: rtol/atol 1e-5 of the Pallas kernel in
+    interpret mode at B=33, and no launch counter, route count or weight
+    preparation moves (`prepare_weights` on the CPU is the plain version)."""
+    assert fac.route(hidden) == ("wgmma" if hidden <= 768 else "mma_sync")
+    flat = numpy_params(np.random.RandomState(hidden), hidden)
+    obs, mask = batch[0][:33], batch[1][:33]
+    lj, vj = jax_fused(jax_params(flat), jnp.asarray(obs), jnp.asarray(mask), interpret=True)
+    w = ac.kernel_weights(ac.params_from_jax(flat, device="cpu"))
+    before = (fac.launches, dict(fac.launches_by_route), fac.prep_launches)
+    lp, vp = fac.fused_masked_forward(w, torch.from_numpy(obs), torch.from_numpy(mask))
+    assert torch.equal(fac.prepare_weights(w), fac.prepare_weights_plain(w))
+    assert (fac.launches, dict(fac.launches_by_route), fac.prep_launches) == before
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=1e-5, atol=1e-5)
+
+
 def test_flagship_weights_match_jax_forward():
     """The committed h768 flagship through `import_params_npz`: logits and
     values within 1e-4 of JAX `ac.forward` + `masked_logits` at B=64.  1e-4,

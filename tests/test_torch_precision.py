@@ -1,5 +1,5 @@
-"""The numeric design of kernel A (`splendax_torch/csrc/fused_actor_critic.cu`),
-emulated on the CPU.
+"""The numeric design of kernel A (`splendax_torch/csrc/fused_actor_critic.cu`
+and the wgmma route's `fused_actor_critic_wgmma.cu`), emulated on the CPU.
 
 The kernel takes each f32 product on the tensor cores as three TF32
 products: with hi = tf32(a) and lo = tf32(a - hi), a b ~ hi hi + hi lo + lo hi,
@@ -12,6 +12,7 @@ exact in TF32 (|x| <= 2048), which the last test shows of the engine's obs.
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -150,3 +151,137 @@ def test_engine_obs_are_exact_in_tf32():
     # tf32 rounding as the card does it: exact below 2^11, rounded above.
     assert float(tf32(torch.tensor([2048.0]))) == 2048.0
     assert float(tf32(torch.tensor([2049.0]))) == 2050.0  # tie, away from zero
+
+
+# The wgmma route (`splendax_torch/csrc/fused_actor_critic_wgmma.cu`).
+
+
+def random_weights(hidden, seed):
+    """The 12 weights at hidden width `hidden`, uniform in +-1/sqrt(fan-in),
+    from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for n_out in (45, 1):
+        for fi, fo in ((297, hidden), (hidden, hidden), (hidden, n_out)):
+            bound = 1.0 / np.sqrt(fi)
+            out.append(torch.from_numpy(rng.uniform(-bound, bound, (fi, fo)).astype(np.float32)))
+            out.append(torch.from_numpy(rng.uniform(-bound, bound, (fo,)).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("hidden", [37, 100, 256, 768])
+def test_prepare_weights_plain_splits_exactly(hidden):
+    """The preparation of aw0, aw1, cw0, cw1: [out, in] (K contiguous), hi and
+    lo exact TF32 values, hi + lo within 2^-22 |w| of w, zeros padding both
+    dimensions to multiples of 8; without the critic its half is zero."""
+    w = random_weights(hidden, seed=hidden)
+    buf = fac.prepare_weights_plain(w)
+    assert buf.dtype == torch.float32 and buf.numel() == fac.prepared_floats(hidden)
+    hp = (hidden + 7) // 8 * 8
+    mats = fac.prepared_matrices(buf, hidden)
+    for m, i in zip(mats, (0, 2, 6, 8)):
+        k = w[i].shape[0]
+        assert m.shape == (2, hp, (k + 7) // 8 * 8) and m.shape[2] % 8 == 0
+        hi, lo = m[0], m[1]
+        assert torch.equal(tf32(hi), hi) and torch.equal(tf32(lo), lo)
+        wt = w[i].t()
+        err = (hi[:hidden, :k].double() + lo[:hidden, :k].double() - wt.double()).abs()
+        assert (err <= 2.0 ** -22 * wt.double().abs()).all()
+        assert (hi[:hidden, :k] - wt).abs().max() <= 2.0 ** -11 * wt.abs().max()
+        pad = torch.ones_like(hi, dtype=torch.bool)
+        pad[:hidden, :k] = False
+        assert not hi[pad].any() and not lo[pad].any()
+    actor_only = fac.prepare_weights_plain(w, with_value=False)
+    cut = fac.prepared_layout(hidden)[2][0]
+    assert torch.equal(actor_only[:cut], buf[:cut]) and not actor_only[cut:].any()
+    assert torch.equal(fac.prepare_weights(w), buf)  # a CPU tensor takes the plain version
+
+
+def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero: the tensor cores' adds are
+    modelled so, the harsher case for a long chain of them."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mm_wgmma(a, b, chunk, a_exact=False):
+    """a @ b as the wgmma route takes it: K padded to a multiple of 8; in
+    each k-step of 8, lo hi (unless a is exact in TF32), hi lo and hi hi,
+    each an exact product of TF32 values added to the chunk's scratch sum
+    with one rounding toward zero; the chunk's sum of `chunk` k-steps added
+    to the f32 accumulator, rounded to nearest."""
+    K = a.shape[1]
+    kp = (K + 7) // 8 * 8
+    a = torch.nn.functional.pad(a, (0, kp - K))
+    b = torch.nn.functional.pad(b, (0, 0, 0, kp - K))
+    ah, al = split(a)
+    bh, bl = split(b)
+    prods = [(ah, bl), (ah, bh)] if a_exact else [(al, bh), (ah, bl), (ah, bh)]
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for c0 in range(0, kp, 8 * chunk):
+        s = torch.zeros(acc.shape, dtype=torch.float64)
+        for k0 in range(c0, min(c0 + 8 * chunk, kp), 8):
+            for x, y in prods:
+                s = round_toward_zero(s + x[:, k0:k0 + 8].double() @ y[k0:k0 + 8].double()).double()
+        acc = acc + s.float()
+    return acc
+
+
+def head_wgmma(h2, w2, hidden):
+    """The logits' product on the accumulator: each consumer group's 64
+    columns of a 128-column pass in groups of 8, each group's three TF32
+    products summed from zero (rounded toward zero) and added in f32; the two
+    groups' partial logits summed in order."""
+    parts = []
+    for c in range(2):
+        part = torch.zeros(h2.shape[0], w2.shape[1], dtype=torch.float32)
+        for n0 in range(0, hidden, 128):
+            for k0 in range(n0 + 64 * c, min(n0 + 64 * c + 64, hidden), 8):
+                part = part + mm_wgmma(h2[:, k0:k0 + 8], w2[k0:k0 + 8], chunk=1)
+        parts.append(part)
+    return parts[0] + parts[1]
+
+
+def emulated_wgmma_forward(weights, obs, mask, chunk):
+    aw0, ab0, aw1, ab1, aw2, ab2, cw0, cb0, cw1, cb1, cw2, cb2 = weights
+    hidden = aw0.shape[1]
+    x = obs.to(torch.float32)
+    exact = bool((x.abs() <= TF32_EXACT).all())
+    h = torch.tanh(mm_wgmma(x, aw0, chunk, exact) + ab0)
+    h = torch.tanh(mm_wgmma(h, aw1, chunk) + ab1)
+    logits = fac.masked_logits(head_wgmma(h, aw2, hidden) + ab2, mask)
+    v = torch.tanh(mm_wgmma(x, cw0, chunk, exact) + cb0)
+    v = torch.tanh(mm_wgmma(v, cw1, chunk) + cb1)
+    return logits, (v @ cw2 + cb2)[:, 0]
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+@pytest.mark.parametrize("hidden", [256, 768])
+def test_wgmma_arithmetic_matches_float64(batch, hidden, chunk):
+    """rtol/atol 1e-5 of the float64 plain forward: the committed nets on
+    engine obs (128 rows), with the wgmma route's arithmetic at the chunk
+    lengths tried on the card (2 is the route's; 8 missed the contract
+    there, at 1.13 of the tolerance on 8192 rows)."""
+    w = ac.kernel_weights(ac.import_params_npz(NETS[hidden], device="cpu"))
+    obs, mask = batch[0][:128], batch[1][:128]
+    lr, vr = fac.fused_masked_forward_plain([t.double() for t in w], obs, mask)
+    le, ve = emulated_wgmma_forward(w, obs, mask, chunk)
+    torch.testing.assert_close(le.double(), lr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ve.double(), vr, rtol=1e-5, atol=1e-5)
+    assert (le[0] > -1e8).all()
+
+
+@pytest.mark.parametrize("hidden, want", [(1, "wgmma"), (256, "wgmma"), (768, "wgmma"),
+                                          (769, "mma_sync"), (1024, "mma_sync")])
+def test_route_follows_the_hidden_width(hidden, want):
+    """H <= 768 takes the wgmma route (its 64-row tile holds the first hidden
+    layer in shared memory), wider nets PR 2's mma_sync kernel."""
+    assert fac.route(hidden) == want
+
+
+def test_route_takes_no_batch_size():
+    """The route is a function of H alone: rows split across calls (a dp
+    rank's share, a pool slot's) take the same kernel as in one call."""
+    import inspect
+
+    assert list(inspect.signature(fac.route).parameters) == ["H"]
