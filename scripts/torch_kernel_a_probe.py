@@ -19,8 +19,8 @@ wgmma serialisation warning).
 65, 4097, and on the committed h256 and h768 nets at B = 8192; the prep
 kernel against `prepare_weights_plain` bit for bit; rows independent of B
 (1,000 + 7,192 and 4,096 + 4,096 against 8,192); then one timing at B = 8192
-with value, with the no_loads variants beside it.  Each knob variant that computes the forward (chunk lengths,
-k-steps in flight) is held to the same float64 contract.
+with value, with the no_loads variants beside it.  Each knob variant that
+computes the forward is held to the same float64 contract.
 
 Without --check, after the checks:
 
@@ -34,9 +34,10 @@ Without --check, after the checks:
                    compute alone);
   no_loads_one     both;
   consumers1       one consumer warpgroup (64 columns a pass);
-  chunkC           C k-steps summed on the tensor cores per f32 add;
-  chunkC_inflight2 and two k-steps left pending at each wait, not one;
-  B = 1, 256, 1024 without value: both routes and the addmm chain;
+  stages2          a ring of two stages (what the ring's depth buys);
+  B = 1, 256, 1024, 2048, 3072 without value and 4096 with it (the host
+  policies, the eval, the root prior, the pool slots, a dp=2 rank): both
+  routes and the addmm chain;
   PR 2's variants at B = 8192 with value (one_product, no_loads,
   no_loads_one) and its mma.sync TF32 rate per SM clock.
 """
@@ -62,21 +63,12 @@ WGMMA_VARIANTS = {
     "wgmma_no_loads": ("-DPROBE_NO_LOADS",),
     "wgmma_no_loads_one": ("-DPROBE_NO_LOADS", "-DPROBE_ONE_PRODUCT"),
     "wgmma_consumers1": ("-DKA_CONSUMERS=1",),
-    "wgmma_chunk1": ("-DKA_CHUNK=1",),
-    "wgmma_chunk4": ("-DKA_CHUNK=4",),
-    "wgmma_chunk8": ("-DKA_CHUNK=8",),
-    "wgmma_inflight0": ("-DKA_INFLIGHT=0",),
-    "wgmma_inflight0_chunk1": ("-DKA_INFLIGHT=0", "-DKA_CHUNK=1"),
-    "wgmma_inflight0_no_loads": ("-DKA_INFLIGHT=0", "-DPROBE_NO_LOADS"),
-    "wgmma_no_fence": ("-DPROBE_NO_FENCE",),
-    "wgmma_no_fence_no_loads": ("-DPROBE_NO_FENCE", "-DPROBE_NO_LOADS"),
+    "wgmma_stages2": ("-DKA_MAX_STAGES=2",),
 }
 # The compute alone: timed in --check too.
-WGMMA_SPLIT = ("wgmma_no_loads", "wgmma_no_loads_one", "wgmma_inflight0_no_loads",
-               "wgmma_no_fence", "wgmma_no_fence_no_loads")
+WGMMA_SPLIT = ("wgmma_no_loads", "wgmma_no_loads_one")
 # Variants that compute the forward: held to the float64 contract.
-WGMMA_CORRECT = ("wgmma", "wgmma_chunk1", "wgmma_chunk4", "wgmma_chunk8", "wgmma_inflight0",
-                 "wgmma_inflight0_chunk1")
+WGMMA_CORRECT = ("wgmma", "wgmma_consumers1")
 
 MMA_LOOP = r"""
 #include <cstdint>
@@ -325,8 +317,9 @@ def main() -> int:
         timings(B, True, obs_all, mask_all, names=tuple(WGMMA_VARIANTS))
     timings(8192, False, obs_all, mask_all)
     timings(32768, False, obs_all, mask_all)
-    for B in (1, 256, 1024):
-        timings(B, False, obs_all, mask_all)
+    for B, with_value in ((1, False), (256, False), (1024, False), (2048, False), (3072, False),
+                          (4096, True)):
+        timings(B, with_value, obs_all, mask_all)
     obs_big, mask_big = cs.realistic_obs(737280, 30, seed=768, device=dev)
     for with_value in (True, False):
         timings(737280, with_value, obs_big, mask_big, n=5)

@@ -32,41 +32,46 @@
 // Weights.  `prepare_kernel` writes, for aw0, aw1, cw0 and cw1 ([in, out]),
 // hi and lo as [2][HP][KP]: output-major, K contiguous (wgmma takes TF32
 // from shared memory K-major only), K and N zero-padded to multiples of 8
-// (TMA needs 16-byte row strides; 297 x 4 bytes is not one).  One 3-D tensor
+// (TMA needs 16-byte row strides; 297 x 4 bytes is not one), the second
+// layer's K to a multiple of 16.  One 3-D tensor
 // map a matrix loads a stage, {8 k} x {NC outputs} x {hi, lo}, with 32-byte
 // swizzle, the layout the wgmma descriptors name.
 //
 // Block.  64 rows (one warpgroup's M), CONSUMERS warpgroups and a producer
 // warpgroup, which gives its registers to the consumers (setmaxnreg: 40 a
-// thread against 232).  The producer's one thread walks the k-steps in the order
-// the consumers take them and keeps a ring of stages full by TMA, each
-// stage's `full` mbarrier counting its bytes; every consumer warp arrives
-// on the stage's `empty` mbarrier once its products have read it.  A pass
+// thread against 232).  The producer's one thread walks the k-steps in the
+// order the consumers take them and keeps a ring of stages full by TMA, each
+// stage's `full` mbarrier counting its bytes; every consumer warp arrives on
+// the stage's `empty` mbarrier once its products have read it.  A pass
 // computes NC = 64 x CONSUMERS output columns, 64 for each consumer group:
 // `wgmma.m64n64k8` with A (the activations, split) from registers and B
-// (hi, lo) from the ring.  Two scratch accumulators alternate, so one
-// chunk's f32 adds overlap the next chunk's products.  The first hidden
-// layer lives in shared memory in f32 (row stride HP + 4 = 4 mod 8 floats:
-// a warp's A-fragment loads hit 32 banks): 197,632 bytes at H = 768, which
-// leaves four 8 KB stages; this budget is the reason for the H <= 768 route.
-// Layer 1's A comes from the obs in global memory, int32 -> f32 in
-// registers, prefetched two chunks ahead.  The second hidden layer is never
-// stored: bias and tanh in registers, then the heads.  A wgmma m64nN
-// accumulator holds, in each group of 8 columns, the pairs of an mma.sync
-// m16n8 accumulator over the warp's 16 rows, so it is the A operand of an
-// m16n8k8 head product as it stands (with k index j < 4 at column 2j and
-// j + 4 at 2j + 1): the logits take 3xTF32 mma.sync, the value f32 FMAs, and
-// a row's head sums stay in the warp that owns the row.  The consumer
-// groups' partial heads are summed in a fixed order through shared memory.
+// (hi, lo) from the ring.  A chunk of two k-steps is one fence, six products
+// and one commit group, waited for at once: the probe found a fixed cost of
+// some 400 clocks a fence (with A in registers the fence waits for the
+// products before it), so fewer, larger groups win; a chunk of more k-steps
+// would hold more of the ring than H = 768 leaves.  Two sets of A registers
+// alternate, the next chunk's fragments split while this chunk runs (the
+// hardware reads a wgmma's A registers while it runs, so a set is rewritten
+// only after the chunk that read it is done).  The first hidden layer lives
+// in shared memory in f32 (row stride = 4 mod 8 floats: a warp's A-fragment
+// loads hit 32 banks): 197,632 bytes at H = 768, which leaves four 8 KB
+// stages; this budget is the reason for the H <= 768 route.  Layer 1's A
+// comes from the obs in global memory, int32 -> f32 in registers,
+// prefetched two k-steps ahead.  The second hidden layer is never stored:
+// bias and tanh in registers, then the heads.  A wgmma m64nN accumulator
+// holds, in each group of 8 columns, the pairs of an mma.sync m16n8
+// accumulator over the warp's 16 rows, so it is the A operand of an m16n8k8
+// head product as it stands (with k index j < 4 at column 2j and j + 4 at
+// 2j + 1): the logits take 3xTF32 mma.sync, the value f32 FMAs, and a row's
+// head sums stay in the warp that owns the row.  The consumer groups'
+// partial heads are summed in a fixed order through shared memory.
 //
 // Probe switches.  scripts/torch_kernel_a_probe.py builds variants of this
 // file with -D to see where the time goes; the library is built with none.
 // PROBE_NO_LOADS never copies a weight stage (wrong numbers: the compute
 // alone); PROBE_ONE_PRODUCT takes one TF32 product for each f32 one (wrong
-// numbers: a third of the tensor work); PROBE_NO_FENCE leaves the wgmma
-// fences to ptxas (for timing only); KA_CONSUMERS (1 or 2), KA_CHUNK
-// (k-steps summed on the tensor cores before each f32 add) and
-// KA_MAX_STAGES set the design's three knobs.
+// numbers: a third of the tensor work); KA_CONSUMERS (1 or 2) and
+// KA_MAX_STAGES set the design's knobs.
 
 #include <cstdint>
 #include <cuda.h>
@@ -75,15 +80,10 @@
 #ifndef KA_CONSUMERS
 #define KA_CONSUMERS 2
 #endif
-#ifndef KA_CHUNK
-#define KA_CHUNK 2
-#endif
 #ifndef KA_MAX_STAGES
 #define KA_MAX_STAGES 16
 #endif
-#ifndef KA_INFLIGHT
-#define KA_INFLIGHT 1
-#endif
+
 
 
 namespace {
@@ -95,8 +95,7 @@ constexpr int HEAD_PAD = 8 * HEAD_TILES;
 constexpr int K1P = 304;       // OBS padded to a multiple of 8
 constexpr int M = 64;          // rows per block: one warpgroup's M
 constexpr int CONSUMERS = KA_CONSUMERS;
-constexpr int CHUNK = KA_CHUNK;
-constexpr int INFLIGHT = KA_INFLIGHT;  // k-steps left pending on the tensor cores at each wait
+constexpr int CHUNK = 2;  // k-steps of 8 summed on the tensor cores before each f32 add
 constexpr int WG_N = 64;                  // output columns per consumer group and pass
 constexpr int NC = WG_N * CONSUMERS;      // output columns per pass
 constexpr int CONSUMER_THREADS = 128 * CONSUMERS;
@@ -112,11 +111,14 @@ constexpr float BIG_NEG = -1e9f;
 constexpr float TF32_EXACT = 2048.f;      // integers up to this magnitude are exact in TF32
 
 static_assert(CONSUMERS == 1 || CONSUMERS == 2, "one or two consumer warpgroups");
-static_assert(INFLIGHT == 0 || INFLIGHT == 1, "at most one k-step left on the tensor cores");
+static_assert(K1P % (KSTEP * CHUNK) == 0, "layer 1's K comes in whole chunks");
 
 __host__ __device__ constexpr int pad8(int x) { return (x + 7) / 8 * 8; }
+// The second layer's K: H padded to a multiple of 16, so that its k-steps
+// (and layer 1's 38) come in whole chunks of two.
+__host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 // Row stride of the first hidden layer in floats: = 4 mod 8.
-__host__ __device__ constexpr int hidden_stride(int H) { return pad8(H) + 4; }
+__host__ __device__ constexpr int hidden_stride(int H) { return pad16(H) + 4; }
 // Floats of the hidden tile, which at the end of the actor holds the
 // consumer groups' partial logits.
 __host__ __device__ constexpr int hidden_floats(int H) {
@@ -134,7 +136,7 @@ constexpr int stage_shift(int H) {
   while ((2 << shift) <= s && (2 << shift) <= KA_MAX_STAGES) ++shift;
   return shift;
 }
-static_assert((1 << stage_shift(MAX_HIDDEN)) >= 4, "the ring holds four stages at H = 768");
+static_assert((1 << stage_shift(MAX_HIDDEN)) >= CHUNK, "the ring holds a chunk at H = 768");
 
 struct Params {
   const float* w[12];  // aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2, [in, out]
@@ -365,43 +367,6 @@ __device__ __forceinline__ void load_a(const Lane& l, int j, const float* h1, in
   }
 }
 
-// Issue k-step j of a pass into the scratch accumulator s: a wait for its
-// ring stage, then lo·hi (unless A is exact), hi·lo and hi·hi, the first of
-// them from zero unless ACC (ACC = 0 at a chunk's first k-step); then, with
-// one commit, so that the k-step is a group of its own.
-template <bool L1, bool EXACT, int ACC>
-__device__ __forceinline__ void issue_kstep(const Smem& sm, const Lane& l, uint32_t it0, int j,
-                                            uint32_t (&ah)[4], uint32_t (&al)[4],
-                                            float (&s)[32]) {
-  fence_regs(ah);
-  fence_regs(al);
-  const uint32_t it = it0 + j;
-  const int st = it & ((1 << sm.shift) - 1);
-#ifndef PROBE_NO_LOADS
-  mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
-#endif
-  const uint32_t bh = sm.ring + st * STAGE_BYTES + l.c * WG_N * KSTEP * 4;
-  const uint64_t dh = desc_sw32(bh), dl = desc_sw32(bh + NC * KSTEP * 4);
-  fence_regs(s);
-#ifndef PROBE_NO_FENCE
-  wgmma_fence();
-#endif
-#ifdef PROBE_ONE_PRODUCT
-  (void)dl;
-  wgmma_n64<ACC>(s, ah, dh);
-#else
-  if constexpr (L1 && EXACT) {
-    wgmma_n64<ACC>(s, ah, dl);
-  } else {
-    wgmma_n64<ACC>(s, al, dh);
-    wgmma_n64<1>(s, ah, dl);
-  }
-  wgmma_n64<1>(s, ah, dh);
-#endif
-  wgmma_commit();
-  fence_regs(s);
-}
-
 // This warp is done with the stage of k-step j: its lane 0 arrives, by a
 // predicate inside the asm (a branch on the lane would put the wgmma on a
 // divergent path).
@@ -421,100 +386,104 @@ __device__ __forceinline__ void add32(float (&acc)[32], float (&s)[32]) {
   for (int i = 0; i < 32; ++i) acc[i] += s[i];
 }
 
-// The k-steps of one chunk, j ... min(j + CHUNK, nk) - 1, into the
-// scratch accumulator s (BUF: 0 for s0, 1 for s1); `o` is the other one,
-// whose chunk ends at k-step end_o (-1: none pending).  A chunk's k-steps
-// are unrolled: the scratch accumulator is carried through no runtime loop
-// while its products are in flight.  After each k-step's commit a wait
-// leaves INFLIGHT k-steps pending; k-step k - INFLIGHT is then complete, its
-// stage is released, and where it ends a chunk, that chunk's sum is added to
-// acc.  The hardware reads a wgmma's A registers while it runs, so
-// consecutive k-steps take their A fragments from the two sets of ah / al
-// in turn: a set is rewritten only after the k-step that read it is done.
-template <bool L1, bool EXACT, int BUF>
-__device__ __forceinline__ void run_chunk(const Smem& sm, const Lane& l, uint32_t it0, int nk,
-                                          int& j, const float* h1, int SH,
-                                          const int32_t* __restrict__ x, int rows, int (&pa)[4],
-                                          int (&pb)[4], uint32_t (&ah)[2][4], uint32_t (&al)[2][4],
-                                          float (&acc)[32], float (&s)[32], float (&o)[32],
-                                          int& end_s, int& end_o) {
+// Issue chunk j / CHUNK of a pass into the scratch accumulator s, from
+// zero: a wait for its stages, one fence, then for each k-step lo·hi
+// (unless A is exact), hi·lo and hi·hi, and one commit.  ah / al hold the
+// chunk's A fragments, loaded before.
+template <bool L1, bool EXACT>
+__device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint32_t it0, int j,
+                                            uint32_t (&ah)[CHUNK][4], uint32_t (&al)[CHUNK][4],
+                                            float (&s)[32]) {
+  uint64_t dh[CHUNK], dl[CHUNK];
 #pragma unroll
   for (int q = 0; q < CHUNK; ++q) {
-    const int k = j + q;
-    if (k < nk) {
-      const int set = (BUF * CHUNK + q) & 1;
-      load_a<L1, EXACT>(l, k, h1, SH, x, rows, pa, pb, ah[set], al[set]);
-      if (q == 0)
-        issue_kstep<L1, EXACT, 0>(sm, l, it0, k, ah[set], al[set], s);
-      else
-        issue_kstep<L1, EXACT, 1>(sm, l, it0, k, ah[set], al[set], s);
-      if (k >= INFLIGHT) {
-        wgmma_wait<INFLIGHT>();
-        fence_regs(s);
-        fence_regs(o);
-        release_kstep(sm, it0, k - INFLIGHT);
-        if (k - INFLIGHT == end_o) {
-          add32(acc, o);
-          end_o = -1;
-        }
-      }
-    }
+    const uint32_t it = it0 + j + q;
+    const int st = it & ((1 << sm.shift) - 1);
+#ifndef PROBE_NO_LOADS
+    mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
+#endif
+    const uint32_t bh = sm.ring + st * STAGE_BYTES + l.c * WG_N * KSTEP * 4;
+    dh[q] = desc_sw32(bh);
+    dl[q] = desc_sw32(bh + NC * KSTEP * 4);
   }
-  j = min(j + CHUNK, nk);
-  if constexpr (INFLIGHT == 0) {
-    add32(acc, s);  // the chunk's last k-step is done
-    end_s = -1;
-  } else {
-    end_s = j - 1;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < CHUNK; ++q) {
+#ifdef PROBE_ONE_PRODUCT
+    (void)dl;
+    if (q == 0) wgmma_n64<0>(s, ah[q], dh[q]); else wgmma_n64<1>(s, ah[q], dh[q]);
+#else
+    if constexpr (L1 && EXACT) {
+      if (q == 0) wgmma_n64<0>(s, ah[q], dl[q]); else wgmma_n64<1>(s, ah[q], dl[q]);
+    } else {
+      if (q == 0) wgmma_n64<0>(s, al[q], dh[q]); else wgmma_n64<1>(s, al[q], dh[q]);
+      wgmma_n64<1>(s, ah[q], dl[q]);
+    }
+    wgmma_n64<1>(s, ah[q], dh[q]);
+#endif
+  }
+  wgmma_commit();
+  fence_regs(s);
+}
+
+// The A fragments of the chunk at k-step j, pinned in their registers.
+template <bool L1, bool EXACT>
+__device__ __forceinline__ void load_chunk(const Lane& l, int j, const float* h1, int SH,
+                                           const int32_t* __restrict__ x, int rows, int (&pa)[4],
+                                           int (&pb)[4], uint32_t (&ah)[CHUNK][4],
+                                           uint32_t (&al)[CHUNK][4]) {
+#pragma unroll
+  for (int q = 0; q < CHUNK; ++q) {
+    load_a<L1, EXACT>(l, j + q, h1, SH, x, rows, pa, pb, ah[q], al[q]);
+    fence_regs(ah[q]);
+    fence_regs(al[q]);
   }
 }
 
-// acc = A W[:, this group's 64 columns of the pass], over nk k-steps, the
-// ring's k-steps it0 ... it0 + nk - 1.  Chunks of CHUNK k-steps are summed
-// on the tensor cores, alternately into s0 and s1, and each chunk's sum is
-// added to acc in f32 once it is complete (with INFLIGHT = 1 while the next
-// chunk is on the tensor cores).  The ring's consumers hold INFLIGHT + 1
-// stages at most.
+// The end of a chunk: wait for its products, release its stages, add its
+// sum to acc in f32.
+__device__ __forceinline__ void finish_chunk(const Smem& sm, uint32_t it0, int j,
+                                             float (&acc)[32], float (&s)[32]) {
+  wgmma_wait<0>();
+  fence_regs(s);
+#pragma unroll
+  for (int q = 0; q < CHUNK; ++q) release_kstep(sm, it0, j + q);
+  add32(acc, s);
+}
+
+// acc = A W[:, this group's 64 columns of the pass], over nk k-steps (a
+// multiple of CHUNK), the ring's k-steps it0 ... it0 + nk - 1, a chunk of
+// CHUNK k-steps at a time.  Each chunk is one fence and one commit group,
+// summed on the tensor cores from zero and added to acc once it is done;
+// the wait for it is the only one, so the chunk's products run back to
+// back.  The hardware reads a wgmma's A registers while it runs, so the two
+// sets of A registers alternate: the next chunk's fragments are loaded
+// while this chunk runs, into the set the chunk before read.
 template <bool L1, bool EXACT>
 __device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_t it0, int nk,
                                           const float* h1, int SH, const int32_t* __restrict__ x,
                                           int rows, float (&acc)[32]) {
-  float s0[32], s1[32];
+  float s[32];
   int pa[4], pb[4];
-  uint32_t ah[2][4], al[2][4];
+  uint32_t ah0[CHUNK][4], al0[CHUNK][4], ah1[CHUNK][4], al1[CHUNK][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = s0[i] = s1[i] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = s[i] = 0.f;
   if constexpr (L1) {
     obs_frag(x, rows, l, 0, pa);
     obs_frag(x, rows, l, 1, pb);
   }
-  // end0 / end1: the last k-step of the chunk whose sum waits in s0 / s1, or -1.
-  int end0 = -1, end1 = -1, j = 0;
-  while (true) {
-    run_chunk<L1, EXACT, 0>(sm, l, it0, nk, j, h1, SH, x, rows, pa, pb, ah, al, acc, s0, s1,
-                            end0, end1);
-    if (j == nk) break;
-    run_chunk<L1, EXACT, 1>(sm, l, it0, nk, j, h1, SH, x, rows, pa, pb, ah, al, acc, s1, s0,
-                            end1, end0);
-    if (j == nk) break;
-  }
-  wgmma_wait<0>();
-  fence_regs(s0);
-  fence_regs(s1);
-  if (INFLIGHT && nk > 0) release_kstep(sm, it0, nk - 1);
-  // The earlier chunk first, as every row's sums run in k order.
-  if (end0 >= 0 && end1 >= 0) {
-    if (end0 < end1) {
-      add32(acc, s0);
-      add32(acc, s1);
-    } else {
-      add32(acc, s1);
-      add32(acc, s0);
-    }
-  } else if (end0 >= 0) {
-    add32(acc, s0);
-  } else if (end1 >= 0) {
-    add32(acc, s1);
+  load_chunk<L1, EXACT>(l, 0, h1, SH, x, rows, pa, pb, ah0, al0);
+  for (int j = 0;; j += 2 * CHUNK) {
+    issue_chunk<L1, EXACT>(sm, l, it0, j, ah0, al0, s);
+    if (j + CHUNK < nk) load_chunk<L1, EXACT>(l, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
+    finish_chunk(sm, it0, j, acc, s);
+    if (j + CHUNK == nk) return;
+    issue_chunk<L1, EXACT>(sm, l, it0, j + CHUNK, ah1, al1, s);
+    if (j + 2 * CHUNK < nk)
+      load_chunk<L1, EXACT>(l, j + 2 * CHUNK, h1, SH, x, rows, pa, pb, ah0, al0);
+    finish_chunk(sm, it0, j + CHUNK, acc, s);
+    if (j + 2 * CHUNK == nk) return;
   }
 }
 
@@ -580,7 +549,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
                                         bool exact, bool with_value) {
   const int tid = threadIdx.x, H = p.H, SH = hidden_stride(H);
   const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
-  const int passes = (H + NC - 1) / NC, nk1 = K1P / KSTEP, nk2 = pad8(H) / KSTEP;
+  const int passes = (H + NC - 1) / NC, nk1 = K1P / KSTEP, nk2 = pad16(H) / KSTEP;
   float acc[32];
   uint32_t it = 0;
   const int r0 = 16 * l.wl + l.g;  // this thread's rows r0 and r0 + 8 of the tile
@@ -597,7 +566,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int col = acc_col(l, NC * q, i, 0);
-        if (col >= pad8(H)) continue;
+        if (col >= pad16(H)) continue;
         *reinterpret_cast<float2*>(sm.h1 + r0 * SH + col) = make_float2(acc[4 * i], acc[4 * i + 1]);
         *reinterpret_cast<float2*>(sm.h1 + (r0 + 8) * SH + col) =
             make_float2(acc[4 * i + 2], acc[4 * i + 3]);
@@ -699,7 +668,7 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
 #ifndef PROBE_NO_LOADS
     if (tid == CONSUMER_THREADS) {
       // The producer's thread: every stage of every pass, in the consumers' order.
-      const int passes = (H + NC - 1) / NC, nk2 = pad8(H) / KSTEP, mask = stages - 1;
+      const int passes = (H + NC - 1) / NC, nk2 = pad16(H) / KSTEP, mask = stages - 1;
       uint32_t it = 0;
       for (int head = 0; head < (with_value ? 2 : 1); ++head)
         for (int layer = 0; layer < 2; ++layer) {
@@ -791,7 +760,7 @@ int encode(CUtensorMap* map, const float* base, int HP, int KP) {
 
 // Floats of the prepared buffer before matrix m (aw0 aw1 cw0 cw1).
 size_t prepared_offset(int H, int m) {
-  const size_t HP = pad8(H), a = 2 * HP * K1P, b = 2 * HP * HP;
+  const size_t HP = pad8(H), a = 2 * HP * K1P, b = 2 * HP * pad16(H);
   return (m >> 1) * (a + b) + (m & 1) * a;
 }
 
@@ -813,9 +782,9 @@ extern "C" int fused_actor_critic_wgmma_prepare(const void* const* weights, int 
     p.src[m] = (const float*)weights[src[m]];
     p.dst[m] = (float*)prepared + prepared_offset(H, m);
     p.K[m] = m & 1 ? H : OBS;
-    p.KP[m] = m & 1 ? pad8(H) : K1P;
+    p.KP[m] = m & 1 ? pad16(H) : K1P;
   }
-  const int kmax = K1P > pad8(H) ? K1P : pad8(H);
+  const int kmax = K1P > pad16(H) ? K1P : pad16(H);
   const dim3 grid((kmax + 31) / 32, (pad8(H) + 31) / 32, critic ? 4 : 2);
   prepare_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(p, H);
   return (int)cudaGetLastError();
@@ -833,7 +802,7 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
   CUtensorMap maps[4];
   for (int m = 0; m < 4; ++m) {
     const int err = encode(&maps[m], (const float*)prepared + prepared_offset(H, m), HP,
-                           m & 1 ? HP : K1P);
+                           m & 1 ? pad16(H) : K1P);
     if (err) return err;
   }
   Params p;

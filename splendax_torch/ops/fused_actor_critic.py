@@ -55,6 +55,10 @@ def pad8(n: int) -> int:
     return (n + 7) // 8 * 8
 
 
+def pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
 def tf32(a: torch.Tensor) -> torch.Tensor:
     """Round float32 to TF32 as `cvt.rna.tf32.f32` does: to nearest, ties away
     from zero, 10 explicit mantissa bits."""
@@ -64,15 +68,17 @@ def tf32(a: torch.Tensor) -> torch.Tensor:
 
 def prepared_layout(H: int) -> list[tuple[int, int, int]]:
     """(offset, HP, KP) in floats of aw0, aw1, cw0 and cw1 in the prepared
-    buffer, each [2, HP, KP] (hi then lo, output-major, K contiguous, both
-    padded to multiples of 8)."""
-    HP = pad8(H)
-    a, b = 2 * HP * K1_PAD, 2 * HP * HP
-    return [(0, HP, K1_PAD), (a, HP, HP), (a + b, HP, K1_PAD), (2 * a + b, HP, HP)]
+    buffer, each [2, HP, KP] (hi then lo, output-major, K contiguous; HP is H
+    padded to a multiple of 8, KP 297 padded to 304 for the first layers and
+    H padded to a multiple of 16 for the second, whole chunks of two k-steps
+    of 8)."""
+    HP, KH = pad8(H), pad16(H)
+    a, b = 2 * HP * K1_PAD, 2 * HP * KH
+    return [(0, HP, K1_PAD), (a, HP, KH), (a + b, HP, K1_PAD), (2 * a + b, HP, KH)]
 
 
 def prepared_floats(H: int) -> int:
-    return 2 * (2 * pad8(H) * K1_PAD + 2 * pad8(H) * pad8(H))
+    return 2 * (2 * pad8(H) * K1_PAD + 2 * pad8(H) * pad16(H))
 
 
 def prepared_matrices(prepared: torch.Tensor, H: int) -> list[torch.Tensor]:

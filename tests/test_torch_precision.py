@@ -173,7 +173,8 @@ def random_weights(hidden, seed):
 def test_prepare_weights_plain_splits_exactly(hidden):
     """The preparation of aw0, aw1, cw0, cw1: [out, in] (K contiguous), hi and
     lo exact TF32 values, hi + lo within 2^-22 |w| of w, zeros padding both
-    dimensions to multiples of 8; without the critic its half is zero."""
+    dimensions to multiples of 8 (the second layers' K to 16); without the
+    critic its half is zero."""
     w = random_weights(hidden, seed=hidden)
     buf = fac.prepare_weights_plain(w)
     assert buf.dtype == torch.float32 and buf.numel() == fac.prepared_floats(hidden)
@@ -181,7 +182,7 @@ def test_prepare_weights_plain_splits_exactly(hidden):
     mats = fac.prepared_matrices(buf, hidden)
     for m, i in zip(mats, (0, 2, 6, 8)):
         k = w[i].shape[0]
-        assert m.shape == (2, hp, (k + 7) // 8 * 8) and m.shape[2] % 8 == 0
+        assert m.shape == (2, hp, 304 if k == 297 else (k + 15) // 16 * 16)
         hi, lo = m[0], m[1]
         assert torch.equal(tf32(hi), hi) and torch.equal(tf32(lo), lo)
         wt = w[i].t()
