@@ -190,10 +190,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
                : "memory");
@@ -766,11 +762,6 @@ size_t prepared_offset(int H, int m) {
 
 }  // namespace
 
-// Floats the prepared weights take at hidden width H (actor and critic).
-extern "C" long long fused_actor_critic_wgmma_prepared_floats(int H) {
-  return (long long)prepared_offset(H, 4);
-}
-
 // The split, transposed weights of aw0, aw1 (and, with `critic`, cw0, cw1)
 // into `prepared`, laid out as `prepared_offset` says.  One launch.
 extern "C" int fused_actor_critic_wgmma_prepare(const void* const* weights, int H, int critic,
@@ -821,10 +812,4 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
   fused_ac_wgmma_kernel<<<(B + M - 1) / M, THREADS, smem, (cudaStream_t)stream>>>(
       maps[0], maps[1], maps[2], maps[3], p);
   return (int)cudaGetLastError();
-}
-
-// Shared memory the forward asks for at hidden width H, and its ring stages.
-extern "C" int fused_actor_critic_wgmma_smem(int H, int* stages) {
-  *stages = 1 << stage_shift(H);
-  return ALIGN + (STAGE_BYTES << stage_shift(H)) + tail_bytes(H);
 }

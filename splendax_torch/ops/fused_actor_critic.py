@@ -81,11 +81,6 @@ def prepared_floats(H: int) -> int:
     return 2 * (2 * pad8(H) * K1_PAD + 2 * pad8(H) * pad16(H))
 
 
-def prepared_matrices(prepared: torch.Tensor, H: int) -> list[torch.Tensor]:
-    """Views [2, HP, KP] of aw0, aw1, cw0 and cw1 in a prepared buffer."""
-    return [prepared[o:o + 2 * hp * kp].view(2, hp, kp) for o, hp, kp in prepared_layout(H)]
-
-
 def prepare_weights_plain(weights, with_value: bool = True) -> torch.Tensor:
     """The `wgmma` route's weight preparation in plain PyTorch: aw0, aw1 (and
     cw0, cw1 with `with_value`; zeros without) transposed to [out, in], split

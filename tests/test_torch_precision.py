@@ -30,10 +30,7 @@ NETS = {
 TF32_EXACT = 2048
 
 
-def tf32(a: torch.Tensor) -> torch.Tensor:
-    """Round f32 to TF32 as `cvt.rna.tf32.f32` does."""
-    bits = a.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+tf32 = fac.tf32  # f32 -> TF32 as `cvt.rna.tf32.f32` rounds (the last test pins it down)
 
 
 def split(a: torch.Tensor):
@@ -179,7 +176,7 @@ def test_prepare_weights_plain_splits_exactly(hidden):
     buf = fac.prepare_weights_plain(w)
     assert buf.dtype == torch.float32 and buf.numel() == fac.prepared_floats(hidden)
     hp = (hidden + 7) // 8 * 8
-    mats = fac.prepared_matrices(buf, hidden)
+    mats = [buf[o:o + 2 * hp_ * kp].view(2, hp_, kp) for o, hp_, kp in fac.prepared_layout(hidden)]
     for m, i in zip(mats, (0, 2, 6, 8)):
         k = w[i].shape[0]
         assert m.shape == (2, hp, 304 if k == 297 else (k + 15) // 16 * 16)
