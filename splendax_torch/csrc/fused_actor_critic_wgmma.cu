@@ -46,9 +46,10 @@
 // computes NC = 64 x CONSUMERS output columns, 64 for each consumer group:
 // `wgmma.m64n64k8` with A (the activations, split) from registers and B
 // (hi, lo) from the ring.  A chunk of two k-steps is one fence, six products
-// and one commit group, waited for at once: the probe found a fixed cost of
-// some 400 clocks a fence (with A in registers the fence waits for the
-// products before it), so fewer, larger groups win; a chunk of more k-steps
+// and one commit group, waited for at once: the probe's one- and
+// three-product times fit a fixed cost of some 400 clocks a fence (with A
+// in registers the fence waits for the products before it), so fewer,
+// larger groups win; a chunk of more k-steps
 // would hold more of the ring than H = 768 leaves.  Two sets of A registers
 // alternate, the next chunk's fragments split while this chunk runs (the
 // hardware reads a wgmma's A registers while it runs, so a set is rewritten
