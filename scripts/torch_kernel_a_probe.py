@@ -19,8 +19,9 @@ wgmma serialisation warning).
 65, 4097, and on the committed h256 and h768 nets at B = 8192; the prep
 kernel against `prepare_weights_plain` bit for bit; rows independent of B
 (1,000 + 7,192 and 4,096 + 4,096 against 8,192); then one timing at B = 8192
-with value, with the no_loads variants beside it.  Each knob variant that
-computes the forward is held to the same float64 contract.
+with value, with the no_loads variants beside it.  Every variant is called
+through the wrapper (`fused_actor_critic._launch` with the variant's
+library), as the path calls the library's own build.
 
 Without --check, after the checks:
 
@@ -33,8 +34,6 @@ Without --check, after the checks:
   no_loads         no weight stage is ever copied (wrong numbers: the
                    compute alone);
   no_loads_one     both;
-  consumers1       one consumer warpgroup (64 columns a pass);
-  stages2          a ring of two stages (what the ring's depth buys);
   B = 1, 256, 1024, 2048, 3072 without value and 4096 with it (the host
   policies, the eval, the root prior, the pool slots, a dp=2 rank): both
   routes and the addmm chain;
@@ -62,13 +61,9 @@ WGMMA_VARIANTS = {
     "wgmma_one_product": ("-DPROBE_ONE_PRODUCT",),
     "wgmma_no_loads": ("-DPROBE_NO_LOADS",),
     "wgmma_no_loads_one": ("-DPROBE_NO_LOADS", "-DPROBE_ONE_PRODUCT"),
-    "wgmma_consumers1": ("-DKA_CONSUMERS=1",),
-    "wgmma_stages2": ("-DKA_MAX_STAGES=2",),
 }
 # The compute alone: timed in --check too.
 WGMMA_SPLIT = ("wgmma_no_loads", "wgmma_no_loads_one")
-# Variants that compute the forward: held to the float64 contract.
-WGMMA_CORRECT = ("wgmma", "wgmma_consumers1")
 
 MMA_LOOP = r"""
 #include <cstdint>
@@ -96,14 +91,15 @@ extern "C" int run(int blocks, int iters, float* out) {
 
 def build(check: bool) -> dict:
     """{name: loaded library} for every variant (with --check only the
-    correct wgmma variants and PR 2's kernel) and the mma loop; prints the
-    wgmma variants' ptxas reports."""
+    wgmma kernel, its no_loads variants and PR 2's kernel), each bound by the
+    wrapper, and the mma loop; prints the wgmma variants' ptxas reports."""
     from splendax_torch.ops import _build
+    from splendax_torch.ops import fused_actor_critic as fac
 
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
     for name, flags in WGMMA_VARIANTS.items():
-        if not check or name in WGMMA_CORRECT + WGMMA_SPLIT:
+        if not check or name in ("wgmma",) + WGMMA_SPLIT:
             jobs[name] = (_build.CSRC / "fused_actor_critic_wgmma.cu",
                           os.path.join(OUT, f"lib{name}.so"), flags)
     for name, flags in MMA_SYNC_VARIANTS.items():
@@ -121,61 +117,20 @@ def build(check: bool) -> dict:
             lines = [ln.strip() for ln in rep.splitlines()
                      if "registers" in ln or "spill" in ln or "wgmma" in ln or "arning" in ln]
             print(f"ptxas {name}: " + " | ".join(lines), flush=True)
-    return {name: ctypes.CDLL(out) for name, (_, out, _) in jobs.items()}
+    libs = {name: ctypes.CDLL(out) for name, (_, out, _) in jobs.items()}
+    return {name: lib if name == "mma_loop" else fac.bind(lib, route_of(name))
+            for name, lib in libs.items()}
 
 
-class Route:
-    """One built library of either route, called as the wrapper calls it."""
+def route_of(name: str) -> str:
+    return "wgmma" if name.startswith("wgmma") else "mma_sync"
 
-    def __init__(self, lib, wgmma: bool):
-        p = ctypes.c_void_p
-        self.wgmma = wgmma
-        if wgmma:
-            self.prep = lib.fused_actor_critic_wgmma_prepare
-            self.prep.argtypes = [ctypes.POINTER(p), ctypes.c_int, ctypes.c_int, p, p]
-            self.fwd = lib.fused_actor_critic_wgmma_forward
-            self.fwd.argtypes = [p, p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(p), p, p, p, p]
-        else:
-            self.fwd = lib.fused_actor_critic_forward
-            self.fwd.argtypes = [p, p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(p), p, p, p]
-        self.fwd.restype = ctypes.c_int
-        if wgmma:
-            self.prep.restype = ctypes.c_int
 
-    def prepare(self, w, with_value=True):
-        import torch
+def forward(libs, name, w, obs, mask, with_value=True, prepared=None):
+    """Variant `name`'s forward through the wrapper: (logits, value)."""
+    from splendax_torch.ops import fused_actor_critic as fac
 
-        from splendax_torch.ops import fused_actor_critic as fac
-
-        H = w[0].shape[1]
-        buf = torch.empty(fac.prepared_floats(H), device=w[0].device)
-        ptrs = (ctypes.c_void_p * 12)(*[t.data_ptr() for t in w])
-        err = self.prep(ptrs, H, int(with_value), buf.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-        assert err == 0, f"prep: CUDA error {err}"
-        return buf
-
-    def forward(self, w, obs, mask, with_value=True, prepared=None):
-        """(logits, value); the wgmma route prepares the weights first unless
-        given `prepared`."""
-        import torch
-
-        B, H = obs.shape[0], w[0].shape[1]
-        logits = torch.empty((B, 45), device=obs.device)
-        value = torch.empty((B,), device=obs.device) if with_value else None
-        ptrs = (ctypes.c_void_p * 12)(*[t.data_ptr() for t in w])
-        stream = torch.cuda.current_stream().cuda_stream
-        vp = value.data_ptr() if with_value else None
-        if self.wgmma:
-            if prepared is None:
-                prepared = self.prepare(w, with_value)
-            err = self.fwd(obs.data_ptr(), mask.data_ptr(), B, H, ptrs, prepared.data_ptr(),
-                           logits.data_ptr(), vp, stream)
-        else:
-            err = self.fwd(obs.data_ptr(), mask.data_ptr(), B, H, ptrs, logits.data_ptr(), vp,
-                           stream)
-        assert err == 0, f"forward: CUDA error {err}"
-        return logits, value
+    return fac._launch(route_of(name), w, obs, mask, with_value, prepared, lib=libs[name])
 
 
 def share(got, want) -> float:
@@ -200,7 +155,7 @@ def random_weights(H, seed, device):
     return out
 
 
-def checks(routes: dict, nets: dict, obs_all, mask_all) -> None:
+def checks(libs: dict, nets: dict, obs_all, mask_all) -> None:
     """The correctness checks of --check (and of the full run)."""
     import numpy as np
     import torch
@@ -208,7 +163,7 @@ def checks(routes: dict, nets: dict, obs_all, mask_all) -> None:
     from splendax_torch.ops import fused_actor_critic as fac
 
     dev = obs_all.device
-    worst = {name: 0.0 for name in WGMMA_CORRECT}
+    worst = 0.0
     for H in (37, 100, 256, 768):
         w = random_weights(H, H, dev)
         w64 = [t.double() for t in w]
@@ -219,34 +174,29 @@ def checks(routes: dict, nets: dict, obs_all, mask_all) -> None:
             mask[0] = False
             for with_value in (True, False):
                 ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
-                for name in WGMMA_CORRECT:
-                    got = routes[name].forward(w, obs, mask, with_value)
-                    torch.cuda.synchronize()
-                    for g, r in zip(got, ref):
-                        if g is None:
-                            continue
-                        assert torch.isfinite(g).all(), f"{name} non-finite at H={H} B={B}"
-                        worst[name] = max(worst[name], share(g, r))
-        prepared = routes["wgmma"].prepare(w)
+                got = forward(libs, "wgmma", w, obs, mask, with_value)
+                torch.cuda.synchronize()
+                for g, r in zip(got, ref):
+                    if g is None:
+                        continue
+                    assert torch.isfinite(g).all(), f"wgmma non-finite at H={H} B={B}"
+                    worst = max(worst, share(g, r))
+        prepared = fac.prepare_weights(w, True, libs["wgmma"])
         assert torch.equal(prepared, fac.prepare_weights_plain(w)), f"prep differs at H={H}"
     print("random weights, H in (37, 100, 256, 768), B in (1, 63, 64, 65, 4097), with and "
-          "without value, share of rtol/atol 1e-5 vs float64: "
-          + ", ".join(f"{n} {v:.3f}" for n, v in worst.items()) + "; prep equals "
+          f"without value, share of rtol/atol 1e-5 vs float64: wgmma {worst:.3f}; prep equals "
           "prepare_weights_plain bit for bit", flush=True)
     for H, w in nets.items():
         w64 = [t.double() for t in w]
         obs, mask = obs_all[:8192].contiguous(), mask_all[:8192].contiguous()
         ref = fac.fused_masked_forward_plain(w64, obs, mask)
         f32 = fac.fused_masked_forward_plain(w, obs, mask)
-        line = []
-        for name in WGMMA_CORRECT:
-            got = routes[name].forward(w, obs, mask)
-            s64 = max(share(g, r) for g, r in zip(got, ref))
-            s32 = max(share(g, r) for g, r in zip(got, f32))
-            line.append(f"{name} {s64:.3f} ({s32:.3f} vs float32)")
-        whole = routes["wgmma"].forward(w, obs, mask)
+        whole = forward(libs, "wgmma", w, obs, mask)
+        s64 = max(share(g, r) for g, r in zip(whole, ref))
+        s32 = max(share(g, r) for g, r in zip(whole, f32))
+        line = [f"wgmma {s64:.3f} ({s32:.3f} vs float32)"]
         for cut in (1000, 4096):
-            parts = [routes["wgmma"].forward(w, obs[a:b].contiguous(), mask[a:b].contiguous())
+            parts = [forward(libs, "wgmma", w, obs[a:b].contiguous(), mask[a:b].contiguous())
                      for a, b in ((0, cut), (cut, 8192))]
             same = all(torch.equal(torch.cat([p[j] for p in parts]), whole[j]) for j in (0, 1))
             line.append(f"split {cut}+{8192 - cut} bit-equal {same}")
@@ -270,15 +220,16 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    from splendax_torch.ops import fused_actor_critic as fac
+
     libs = build(check)
-    routes = {n: Route(lib, n.startswith("wgmma")) for n, lib in libs.items() if n != "mma_loop"}
 
     dev = torch.device("cuda")
     nets = {H: ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, src), device=dev))
             for H, src in ((256, "runs/ppo_splendor_2b/ppo_splendor_params.npz"),
                            (768, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"))}
     obs_all, mask_all = cs.realistic_obs(32768, 30, seed=768, device=dev)
-    checks(routes, nets, obs_all, mask_all)
+    checks(libs, nets, obs_all, mask_all)
 
     w, H = nets[768], 768
 
@@ -293,24 +244,22 @@ def main() -> int:
         x32 = obs.float()
         out = {}
         for name in names:
-            r = routes[name]
-            if r.wgmma:
-                prepared = r.prepare(w, with_value)
-                out[name] = cs.device_ms(lambda: r.forward(w, obs, mask, with_value, prepared), n)[0]
-            else:
-                out[name] = cs.device_ms(lambda: r.forward(w, obs, mask, with_value), n)[0]
+            prepared = fac.prepare_weights(w, with_value, libs[name])
+            out[name] = cs.device_ms(
+                lambda: forward(libs, name, w, obs, mask, with_value, prepared), n)[0]
         out["wgmma route (prep + kernel)"] = cs.device_ms(
-            lambda: routes["wgmma"].forward(w, obs, mask, with_value), n)[0]
-        out["prep"] = cs.device_ms(lambda: routes["wgmma"].prepare(w, with_value), n)[0]
-        out["mma_sync (PR 2)"] = cs.device_ms(lambda: routes["kernel"].forward(w, obs, mask,
-                                                                               with_value), n)[0]
+            lambda: forward(libs, "wgmma", w, obs, mask, with_value), n)[0]
+        out["prep"] = cs.device_ms(lambda: fac.prepare_weights(w, with_value, libs["wgmma"]),
+                                   n)[0]
+        out["mma_sync (PR 2)"] = cs.device_ms(
+            lambda: forward(libs, "kernel", w, obs, mask, with_value), n)[0]
         out["addmm chain"] = cs.device_ms(lambda: addmm_chain(x32, with_value), n)[0]
         bound = cs.bound_a(B, H, with_value, 2)[0]
         print(f"B={B} H={H} value={with_value} (bound {bound:.4f} ms): "
               + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + " ms", flush=True)
 
     if check:
-        timings(8192, True, obs_all, mask_all, names=WGMMA_CORRECT + WGMMA_SPLIT)
+        timings(8192, True, obs_all, mask_all, names=("wgmma",) + WGMMA_SPLIT)
         return 0
 
     for B in (8192, 32768):
@@ -327,7 +276,7 @@ def main() -> int:
 
     obs, mask = obs_all[:8192].contiguous(), mask_all[:8192].contiguous()
     for name in ("one_product", "no_loads", "no_loads_one"):
-        ms = cs.device_ms(lambda: routes[name].forward(w, obs, mask), 20)[0]
+        ms = cs.device_ms(lambda: forward(libs, name, w, obs, mask), 20)[0]
         print(f"mma_sync route variant {name}: {ms:.4f} ms (B=8192, H={H}, with value)",
               flush=True)
     run = libs["mma_loop"].run

@@ -71,21 +71,11 @@
 // file with -D to see where the time goes; the library is built with none.
 // PROBE_NO_LOADS never copies a weight stage (wrong numbers: the compute
 // alone); PROBE_ONE_PRODUCT takes one TF32 product for each f32 one (wrong
-// numbers: a third of the tensor work); KA_CONSUMERS (1 or 2) and
-// KA_MAX_STAGES set the design's knobs.
+// numbers: a third of the tensor work).
 
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
-
-#ifndef KA_CONSUMERS
-#define KA_CONSUMERS 2
-#endif
-#ifndef KA_MAX_STAGES
-#define KA_MAX_STAGES 16
-#endif
-
-
 
 namespace {
 
@@ -95,7 +85,8 @@ constexpr int HEAD_TILES = 6;  // 45 logits padded to 48: six n-tiles of 8
 constexpr int HEAD_PAD = 8 * HEAD_TILES;
 constexpr int K1P = 304;       // OBS padded to a multiple of 8
 constexpr int M = 64;          // rows per block: one warpgroup's M
-constexpr int CONSUMERS = KA_CONSUMERS;
+constexpr int CONSUMERS = 2;     // consumer warpgroups
+constexpr int MAX_STAGES = 16;   // the ring's stages at most
 constexpr int CHUNK = 2;  // k-steps of 8 summed on the tensor cores before each f32 add
 constexpr int WG_N = 64;                  // output columns per consumer group and pass
 constexpr int NC = WG_N * CONSUMERS;      // output columns per pass
@@ -111,7 +102,6 @@ constexpr int MAX_HIDDEN = 768;
 constexpr float BIG_NEG = -1e9f;
 constexpr float TF32_EXACT = 2048.f;      // integers up to this magnitude are exact in TF32
 
-static_assert(CONSUMERS == 1 || CONSUMERS == 2, "one or two consumer warpgroups");
 static_assert(K1P % (KSTEP * CHUNK) == 0, "layer 1's K comes in whole chunks");
 
 __host__ __device__ constexpr int pad8(int x) { return (x + 7) / 8 * 8; }
@@ -127,14 +117,14 @@ __host__ __device__ constexpr int hidden_floats(int H) {
 }
 // Shared memory after the ring: h1, full and empty barriers, any-legal flags, value partials.
 __host__ __device__ constexpr int tail_bytes(int H) {
-  return hidden_floats(H) * 4 + 2 * KA_MAX_STAGES * 8 + M * 4 + CONSUMERS * M * 4;
+  return hidden_floats(H) * 4 + 2 * MAX_STAGES * 8 + M * 4 + CONSUMERS * M * 4;
 }
 // log2 of the ring's stages at hidden width H: the most that fit, rounded
 // down to a power of two, so that a k-step's stage and phase are bit fields.
 constexpr int stage_shift(int H) {
   const int s = (SMEM_MAX - ALIGN - tail_bytes(H)) / STAGE_BYTES;
   int shift = 0;
-  while ((2 << shift) <= s && (2 << shift) <= KA_MAX_STAGES) ++shift;
+  while ((2 << shift) <= s && (2 << shift) <= MAX_STAGES) ++shift;
   return shift;
 }
 static_assert((1 << stage_shift(MAX_HIDDEN)) >= CHUNK, "the ring holds a chunk at H = 768");
@@ -307,7 +297,7 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
 struct Smem {
   uint32_t ring;   // shared address of stage 0
   float* h1;       // [M, SH] first hidden layer; partial logits at the end of the actor
-  uint32_t full;   // shared address of full[0]; empty[s] is full + 8 (KA_MAX_STAGES + s)
+  uint32_t full;   // shared address of full[0]; empty[s] is full + 8 (MAX_STAGES + s)
   int* any_legal;  // [M]
   float* vpart;    // [CONSUMERS, M]
   int shift;  // the ring has 1 << shift stages
@@ -315,7 +305,7 @@ struct Smem {
 
 __device__ __forceinline__ uint32_t full_bar(const Smem& s, int st) { return s.full + 8 * st; }
 __device__ __forceinline__ uint32_t empty_bar(const Smem& s, int st) {
-  return s.full + 8 * (KA_MAX_STAGES + st);
+  return s.full + 8 * (MAX_STAGES + st);
 }
 
 // Where the consumer thread sits: group c, warp wl of the group, lane = 4 g + t.
@@ -591,9 +581,8 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
       consumer_sync();
       for (int i = tid; i < rows * ACT; i += CONSUMER_THREADS) {
         const int r = i / ACT, col = i - r * ACT;
-        float s = part[r * HEAD_PAD + col];
-        if (CONSUMERS == 2) s += part[(M + r) * HEAD_PAD + col];
-        s += __ldg(w[5] + col);
+        const float s =
+            part[r * HEAD_PAD + col] + part[(M + r) * HEAD_PAD + col] + __ldg(w[5] + col);
         const size_t o = (size_t)row0 * ACT + i;
         p.logits[o] = p.mask[o] || !sm.any_legal[r] ? s : BIG_NEG;
       }
@@ -610,9 +599,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
       }
       consumer_sync();
       if (tid < rows) {
-        float s = sm.vpart[tid];
-        if (CONSUMERS == 2) s += sm.vpart[M + tid];
-        p.value[row0 + tid] = s + __ldg(w[5]);
+        p.value[row0 + tid] = sm.vpart[tid] + sm.vpart[M + tid] + __ldg(w[5]);
       }
     }
   }
@@ -634,7 +621,7 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
   sm.h1 = reinterpret_cast<float*>(gbase + stages * STAGE_BYTES);
   unsigned char* bars = reinterpret_cast<unsigned char*>(sm.h1 + hidden_floats(H));
   sm.full = smem_u32(bars);
-  sm.any_legal = reinterpret_cast<int*>(bars + 2 * KA_MAX_STAGES * 8);
+  sm.any_legal = reinterpret_cast<int*>(bars + 2 * MAX_STAGES * 8);
   sm.vpart = reinterpret_cast<float*>(sm.any_legal + M);
 
   const int tid = threadIdx.x, row0 = blockIdx.x * M, rows = min(M, p.B - row0);

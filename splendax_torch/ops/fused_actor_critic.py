@@ -120,28 +120,27 @@ def fused_masked_forward_plain(weights, obs, mask, with_value: bool = True):
     return logits, (v @ cw2 + cb2)[:, 0]
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    fn = _build.load("fused_actor_critic").fused_actor_critic_forward
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+SOURCES = {"wgmma": "fused_actor_critic_wgmma", "mma_sync": "fused_actor_critic"}
 
 
-@functools.lru_cache(maxsize=None)
-def _wgmma_lib():
-    lib = _build.load("fused_actor_critic_wgmma")
-    p = ctypes.c_void_p
-    lib.fused_actor_critic_wgmma_prepare.argtypes = [
-        ctypes.POINTER(p), ctypes.c_int, ctypes.c_int, p, p]
-    lib.fused_actor_critic_wgmma_forward.argtypes = [
-        p, p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(p), p, p, p, p]
-    for fn in (lib.fused_actor_critic_wgmma_prepare, lib.fused_actor_critic_wgmma_forward):
+def bind(lib: ctypes.CDLL, r: str) -> ctypes.CDLL:
+    """Declares the C interface of route `r`'s library `lib`, built from
+    `csrc/<SOURCES[r]>.cu` (with any probe switches), and returns it."""
+    p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+    if r == "wgmma":
+        fns = [(lib.fused_actor_critic_wgmma_prepare, [w, i, i, p, p]),
+               (lib.fused_actor_critic_wgmma_forward, [p, p, i, i, w, p, p, p, p])]
+    else:
+        fns = [(lib.fused_actor_critic_forward, [p, p, i, i, w, p, p, p])]
+    for fn, argtypes in fns:
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _route_lib(r: str) -> ctypes.CDLL:
+    return bind(_build.load(SOURCES[r]), r)
 
 
 def _ptrs(weights):
@@ -152,9 +151,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def prepare_weights(weights, with_value: bool = True) -> torch.Tensor:
+def prepare_weights(weights, with_value: bool = True, lib=None) -> torch.Tensor:
     """The `wgmma` route's prepared weights: on a CUDA tensor one launch of
-    the preparation kernel (counted in `prep_launches`), on a CPU tensor
+    the preparation kernel (counted in `prep_launches`) from `lib` (the
+    library's own build unless given one), on a CPU tensor
     `prepare_weights_plain`."""
     if weights[0].device.type == "cpu":
         return prepare_weights_plain(weights, with_value)
@@ -167,7 +167,8 @@ def prepare_weights(weights, with_value: bool = True) -> torch.Tensor:
             raise ValueError(f"prepare_weights: weights[{i}] must be contiguous float32 on "
                              f"{weights[0].device}")
     prepared = torch.empty(prepared_floats(H), dtype=torch.float32, device=weights[0].device)
-    err = _wgmma_lib().fused_actor_critic_wgmma_prepare(
+    lib = _route_lib("wgmma") if lib is None else lib
+    err = lib.fused_actor_critic_wgmma_prepare(
         _ptrs(weights), H, int(with_value), prepared.data_ptr(), _stream(prepared))
     if err != 0:
         raise RuntimeError(f"fused_actor_critic weight preparation failed: CUDA error {err}")
@@ -210,28 +211,32 @@ def fused_masked_forward(weights, obs: torch.Tensor, mask: torch.Tensor, with_va
     return _launch(route(H), weights, obs, mask, with_value)
 
 
-def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None):
-    """One forward on route `r` of checked CUDA inputs; the `wgmma` route
-    prepares the weights first unless given `prepared`.  `route(H)` names
-    the route of the path; a measurement may time the other one."""
+def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None):
+    """One forward on route `r` of checked CUDA inputs, from `lib` (a
+    library of `bind`; the library's own build unless given one); the
+    `wgmma` route prepares the weights first unless given `prepared`.
+    `route(H)` names the route of the path; a measurement may time the other
+    one, or a probe's build of it."""
     global launches
+    if r not in SOURCES:
+        raise ValueError(f"unknown route {r!r}")
     B, H = obs.shape[0], weights[0].shape[1]
     logits = torch.empty((B, ACT_DIM), dtype=torch.float32, device=obs.device)
     value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
     if B == 0:
         return logits, value
     value_ptr = value.data_ptr() if with_value else None
+    lib = _route_lib(r) if lib is None else lib
     if r == "wgmma":
         if prepared is None:
-            prepared = prepare_weights(weights, with_value)
-        err = _wgmma_lib().fused_actor_critic_wgmma_forward(
+            prepared = prepare_weights(weights, with_value, lib)
+        err = lib.fused_actor_critic_wgmma_forward(
             obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), prepared.data_ptr(),
             logits.data_ptr(), value_ptr, _stream(obs))
-    elif r == "mma_sync":
-        err = _lib()(obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), logits.data_ptr(),
-                     value_ptr, _stream(obs))
     else:
-        raise ValueError(f"unknown route {r!r}")
+        err = lib.fused_actor_critic_forward(obs.data_ptr(), mask.data_ptr(), B, H,
+                                             _ptrs(weights), logits.data_ptr(), value_ptr,
+                                             _stream(obs))
     if err != 0:
         raise RuntimeError(f"fused_actor_critic {r} kernel launch failed: CUDA error {err}")
     launches += 1
