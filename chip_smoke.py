@@ -28,9 +28,10 @@ Phases, in order; any failure exits non-zero:
      same function at the main path's shapes, on the device clock (the
      summed kernel time under torch.profiler).  Kernel A takes its wgmma
      route at H <= 768 (held at H = 256 and 768, its prep kernel bit for bit
-     against the plain preparation) and its mma_sync route above (held at
-     H = 1024 on random weights); at each main-path shape the wgmma kernel,
-     the route with its prep, PR 2's mma_sync kernel on the same rows, the
+     against the plain preparation, its tile and cluster modes bit for bit
+     against each other) and its mma_sync route above (held at H = 1024 on
+     random weights); at each main-path shape both modes of the wgmma kernel,
+     alone and with their prep, PR 2's mma_sync kernel on the same rows, the
      plain forward and the addmm chain are timed;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
@@ -82,8 +83,10 @@ Phases, in order; any failure exits non-zero:
      step 0): kernel A's mma_sync route on a driven path.
 
 Every driven path at H <= 768 (4 to 16) must launch kernel A on its wgmma
-route only, each forward with one weight preparation; path 17 on its
-mma_sync route only.
+route only, each forward with one weight preparation and in the mode its B
+derives (`wgmma_mode`: cluster mode up to CLUSTER_MAX_ROWS rows, tile mode
+above), the cluster mode on the pool slots, the eval suite, the root prior
+and the host policies; path 17 on its mma_sync route only.
 
 Phases 9 to 16 run after phase 6 and before phase 7, so the host-clock
 rates (phases 3 to 6 and 9 to 16) are taken before the first
@@ -149,13 +152,13 @@ def profiled_kernels(run, min_launches: int = 1, tries: int = 3) -> list:
     return []
 
 
-def device_ms(fn, n: int, warmup: int = 3) -> tuple[float, float]:
+def device_ms(fn, n: int, warmup: int = 3, per_call: int = 1) -> tuple[float, float]:
     """(ms, host ms) per call of `fn`.  ms is the summed device time of
     every kernel that n back-to-back calls launch, from torch.profiler
-    (`profiled_kernels`, which needs a launch from each of the n calls),
-    over n; where no profiler session sees them, the time between two CUDA
-    events around n calls, over n, and a line says so.  host ms is the wall
-    time of n calls ending in a synchronize, over n."""
+    (`profiled_kernels`, which needs the `per_call` launches of each of the
+    n calls), over n; where no profiler session sees them, the time between
+    two CUDA events around n calls, over n, and a line says so.  host ms is
+    the wall time of n calls ending in a synchronize, over n."""
     import torch
 
     def calls():
@@ -169,7 +172,7 @@ def device_ms(fn, n: int, warmup: int = 3) -> tuple[float, float]:
     calls()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / n
-    kernels = profiled_kernels(calls, min_launches=n)
+    kernels = profiled_kernels(calls, min_launches=n * per_call)
     if kernels:
         return sum(e.self_device_time_total for e in kernels) / 1e3 / n, host_ms
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -247,8 +250,10 @@ def phase_kernels(device) -> dict:
     # slot's search runs 32768 playout lanes (with and without value) and a
     # root prior on 1024 rows; the search phase and the eval CLI give 32,
     # 24576 (256 games x 96 Gumbel lanes) and 92160 (256 x 45 x 8 MC lanes).
-    # 4096 is a dp=2 rank's agent forward and bootstrap value.
-    checked_b = (1, 17, 32, 64, 256, 257, 1024, 2048, 3072, 4096, 8192, 24576, 32768, 92160)
+    # 4096 is a dp=2 rank's agent forward and bootstrap value; 512 a full
+    # pool's snapshot slot (12 snapshots share 3/4 of 8192 rows).
+    checked_b = (1, 17, 32, 64, 256, 257, 512, 1024, 2048, 3072, 4096, 8192, 24576, 32768,
+                 92160)
     # Distillation's teacher, at the width it runs (H=768, the recipe's
     # source net), on rows of their own: 184320 lanes (256 games x 45 x 16
     # rollouts, the distill CLI phase) and 737280 (the recipe's 1024-game
@@ -261,6 +266,18 @@ def phase_kernels(device) -> dict:
         """max |got - want| as a share of the rtol/atol 1e-5 tolerance."""
         got, want = got.double(), want.double()
         return ((got - want).abs() / (1e-5 + 1e-5 * want.abs())).max().item()
+
+    modes = tuple(fac.launches_by_mode)
+
+    def each_mode(w, obs, mask, with_value, where):
+        """The forward as the path runs it, after checking that each mode,
+        forced on the same rows, gives it bit for bit."""
+        got = fac.fused_masked_forward(w, obs, mask, with_value=with_value)
+        for m in modes:
+            forced = fac._launch("wgmma", w, obs, mask, with_value, mode=m)
+            check(all(a is None or torch.equal(a, b) for a, b in zip(got, forced)),
+                  f"kernel A's {m} mode differs from the path's forward at {where}")
+        return got
 
     for H, src in ((256, "runs/ppo_splendor_2b/ppo_splendor_params.npz"),
                    (768, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz")):
@@ -277,14 +294,14 @@ def phase_kernels(device) -> dict:
         for B, obs_src, mask_src in rows:
             obs, mask = obs_src[:B].contiguous(), mask_src[:B].contiguous()
             for with_value in (True, False):
-                outs = [fac.fused_masked_forward(w, obs, mask, with_value=with_value),
+                where = f"H={H} B={B} value={with_value}"
+                outs = [each_mode(w, obs, mask, with_value, where),
                         fac.fused_masked_forward_plain(w, obs, mask, with_value=with_value),
                         fac.fused_masked_forward_plain(w64, obs, mask, with_value=with_value)]
                 torch.cuda.synchronize()
                 for got, f32, ref in zip(*outs):
                     if got is None:
                         continue
-                    where = f"H={H} B={B} value={with_value}"
                     check(torch.isfinite(got).all().item(), f"kernel A non-finite at {where}")
                     check(torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-5),
                           f"kernel A disagrees with the float64 plain version at {where}: "
@@ -301,7 +318,7 @@ def phase_kernels(device) -> dict:
         # mask, at the CLI phase's 256 games and the recipe's 1024.
         for B in (256, 1024):
             every = torch.ones((B, 45), dtype=torch.bool, device=device)
-            got = fac.fused_masked_forward(w, obs_all[:B].contiguous(), every, with_value=False)[0]
+            got = each_mode(w, obs_all[:B].contiguous(), every, False, f"root prior B={B}")[0]
             ref = fac.fused_masked_forward_plain(w64, obs_all[:B].contiguous(), every, False)[0]
             check(torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-5)
                   and (got > -1e8).all().item(),
@@ -314,7 +331,7 @@ def phase_kernels(device) -> dict:
             obs[max(B - 100, 0)::9, 0] = 4097
             mask = mask_all[:B].contiguous()
             for with_value in (True, False):
-                got = fac.fused_masked_forward(w, obs, mask, with_value)
+                got = each_mode(w, obs, mask, with_value, f"obs of 4097 B={B}")
                 ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
                 for g, r in zip(got, ref):
                     if g is not None:
@@ -338,8 +355,8 @@ def phase_kernels(device) -> dict:
               f"{shares[0]:.3f} of the rtol/atol 1e-5 tolerance; the float32 plain version: "
               f"{shares[1]:.3f} of it vs float64; kernel vs float32 plain: {shares[2]:.3f} "
               f"(at most {F32_PLAIN_SLACK}; B in {[r[0] for r in rows]}, with and without value, "
-              f"and B in (1, 8192) with obs of 4097; wgmma route; the prep kernel equals its "
-              f"plain version bit for bit)", flush=True)
+              f"and B in (1, 8192) with obs of 4097; wgmma route, its modes {modes} bit-equal "
+              f"on every row; the prep kernel equals its plain version bit for bit)", flush=True)
     # The mma_sync route, at H = 1024 (768 < H <= 1024), on seeded random
     # weights and engine obs, held the same way.
     H = 1024
@@ -378,20 +395,25 @@ def phase_kernels(device) -> dict:
           f"float64 plain version, {share_wide:.3f} of the tolerance; B in (1, 257, 1024, 4097, "
           f"8192), with and without value", flush=True)
     # Times at H = 768: the agent forward and the bootstrap value (B = 8192,
-    # with value), the pool slots' forwards (B = 2048, 3072, no value) and the
-    # eval suite's greedy forward (B = 256, no value), then the league slot's
-    # search: its leaves (B = 32768, with value, logits dropped), its playout
-    # moves (B = 32768, no value) and its root prior (B = 1024, no value),
-    # then the host policies' greedy move (B = 1, no value), then
-    # distillation's teacher: its leaves (with value) and playout moves (no
-    # value) at 737280 lanes (the recipe's chunk) and 184320 (the CLI
-    # phase's; its root prior is the B = 1024 row above); each beside the
-    # addmm chain for the same rows and heads.
+    # with value), the pool slots' forwards (B = 2048, 3072, no value; 512, a
+    # full pool's snapshot slot) and the eval suite's greedy forward (B = 256,
+    # no value), then the league slot's search: its leaves (B = 32768, with
+    # value, logits dropped), its playout moves (B = 32768, no value) and its
+    # root prior (B = 1024, no value), then the host policies' greedy move (B
+    # = 1, no value), then distillation's teacher: its leaves (with value) and
+    # playout moves (no value) at 737280 lanes (the recipe's chunk) and 184320
+    # (the CLI phase's; its root prior is the B = 1024 row above), then a dp=2
+    # rank's agent and bootstrap (B = 4096); each beside the addmm chain for
+    # the same rows and heads.  Both modes of the wgmma route are timed at
+    # every shape, each alone and, up to B = 8192, with its prep.
     H = 768
     w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device))
     l1_products = 2 if obs_all.abs().max().item() <= 2048 else 3
+    clusters = fac.max_clusters(H)
+    print(f"kernel A H={H}: cluster mode runs clusters of {fac.column_groups(H)} blocks, "
+          f"{clusters} resident at once ({clusters * fac.column_groups(H)} blocks)", flush=True)
     shapes = []
-    for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False),
+    for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False), (512, False),
                           (32768, True), (32768, False), (1024, False), (1, False),
                           (737280, True), (737280, False), (184320, True), (184320, False),
                           (4096, True), (4096, False)):
@@ -407,33 +429,48 @@ def phase_kernels(device) -> dict:
 
         n = 20 if B <= 32768 else 5
         prepared = fac.prepare_weights(w, with_value)
-        # The wgmma route as the path runs it (prep + kernel), its kernel
-        # alone, PR 2's mma_sync kernel on the same rows, the plain forward
-        # and the addmm chain.
-        route_ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w, obs, mask, with_value), n)
-        ms = device_ms(lambda: fac._launch("wgmma", w, obs, mask, with_value, prepared), n)[0]
+        # The wgmma route as the path runs it (prep + kernel, in the mode B
+        # derives), each mode's kernel alone and (up to B = 8192) the other
+        # mode with its prep, PR 2's mma_sync kernel on the same rows, the
+        # plain forward and the addmm chain.
+        mode = fac.wgmma_mode(B, H)
+        route_ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w, obs, mask, with_value), n,
+                                      per_call=2)
+        mode_ms = {m: device_ms(lambda: fac._launch("wgmma", w, obs, mask, with_value, prepared,
+                                                    mode=m), n)[0] for m in modes}
+        prep_ms = {m: route_ms if m == mode else device_ms(
+            lambda: fac._launch("wgmma", w, obs, mask, with_value, mode=m), n, per_call=2)[0]
+            for m in modes if m == mode or B <= 8192}
         mma_sync_ms = device_ms(lambda: fac._launch("mma_sync", w, obs, mask, with_value), n)[0]
         plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w, obs, mask, with_value), n)[0]
         library_ms = device_ms(addmm_chain, n)[0]
         bound_ms, bound_by, bound_f32_ms = bound_a(B, H, with_value, l1_products)
-        shapes.append(dict(B=B, with_value=with_value, ms=ms, route_ms=route_ms,
+        shapes.append(dict(B=B, with_value=with_value, mode=mode, ms=mode_ms[mode],
+                           route_ms=route_ms, mode_ms=mode_ms, mode_prep_ms=prep_ms,
                            mma_sync_ms=mma_sync_ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                            host_ms=host_ms))
-        print(f"kernel A B={B} H={H} value={with_value}: wgmma kernel {ms:.4f} ms, route with its "
-              f"prep {route_ms:.4f} ms, mma_sync (PR 2) {mma_sync_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); bound "
-              f"{bound_ms:.4f} ms by {bound_by} (3xTF32, layer 1 in {l1_products} products), "
-              f"{bound_f32_ms:.4f} ms on f32 CUDA cores; host {host_ms:.4f} ms per call",
-              flush=True)
-    agent = shapes[0]
-    results["fused_actor_critic_wgmma"] = dict(
-        max_abs_err=err_a, **{k: agent[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                    "bound_by", "bound_f32_ms", "host_ms",
-                                                    "route_ms", "mma_sync_ms")},
-        bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
-        checked_against="plain version in float64, rtol/atol 1e-5", by_shape=shapes,
-    )
+        print(f"kernel A B={B} H={H} value={with_value}: wgmma kernel "
+              + ", ".join(f"{m} {mode_ms[m]:.4f}" for m in modes) + " ms; with its prep "
+              + ", ".join(f"{m} {t:.4f}" for m, t in prep_ms.items()) + f" ms (the path: "
+              f"{mode}); mma_sync (PR 2) {mma_sync_ms:.4f} ms, plain {plain_ms:.4f} ms, addmm "
+              f"chain {library_ms:.4f} ms (device clock); bound {bound_ms:.4f} ms by {bound_by} "
+              f"(3xTF32, layer 1 in {l1_products} products), {bound_f32_ms:.4f} ms on f32 CUDA "
+              f"cores; host {host_ms:.4f} ms per call", flush=True)
+    # Each mode's row at a shape that the path runs in it: the agent forward
+    # (B = 8192 with value) in tile mode, a pool slot (B = 2048) in cluster
+    # mode, unless their B derive the other mode.
+    for m, B0 in (("tile", 8192), ("cluster", 2048)):
+        row = next((r for r in shapes if r["mode"] == m and r["B"] == B0), None) or next(
+            r for r in shapes if r["mode"] == m)
+        results["fused_actor_critic_" + m] = dict(
+            mode=m, max_abs_err=err_a, shape=dict(B=row["B"], with_value=row["with_value"]),
+            ms=row["mode_ms"][m], route_ms=row["mode_prep_ms"][m],
+            **{k: row[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "bound_f32_ms", "host_ms", "mma_sync_ms")},
+            bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
+            checked_against="plain version in float64, rtol/atol 1e-5; the other mode bit for bit",
+            by_shape=shapes if m == "tile" else "as fused_actor_critic_tile")
 
     # The prep kernel at H = 768, with and without the critic: its bytes
     # bound reads the first two layers' weights once and writes each
@@ -650,17 +687,40 @@ def flagship_state(cfg, device):
     return ts
 
 
+# The wgmma route's mode each forward of this process should take, derived
+# from its B (`derive_modes`): "derived_tile" and "derived_cluster" beside
+# the counters that `read_launches` returns.
+DERIVED = {"tile": 0, "cluster": 0}
+
+
+def derive_modes() -> None:
+    """From here on each wgmma forward of this process whose mode the
+    wrapper picks adds the mode its B gives (`wgmma_mode`) to DERIVED.  A
+    launch that names its mode (the kernel phase's) adds nothing."""
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    launch = fac._launch
+    if getattr(launch, "derives", False):
+        return
+
+    def derived(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None):
+        if r == "wgmma" and mode is None:
+            DERIVED[fac.wgmma_mode(obs.shape[0], weights[0].shape[1])] += 1
+        return launch(r, weights, obs, mask, with_value, prepared, lib, mode)
+
+    derived.derives = True
+    fac._launch = derived
+
+
 def read_launches() -> dict:
-    """The launch counters: kernel A's forwards in all ("fused_actor_critic")
-    and by route, its weight preparations, and kernel B."""
+    """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
+    by route and by the wgmma route's mode, its weight preparations, and
+    kernel B; and the modes derived from the forwards' B."""
     from splendax_torch.ops import fused_actor_critic as fac
     from splendax_torch.ops import ring_take as rt
 
-    return {"fused_actor_critic": fac.launches,
-            "fused_actor_critic_wgmma": fac.launches_by_route["wgmma"],
-            "fused_actor_critic_mma_sync": fac.launches_by_route["mma_sync"],
-            "fused_actor_critic_prep": fac.prep_launches,
-            "ring_take": rt.launches}
+    return {**fac.launch_counts(), "ring_take": rt.launches,
+            **{f"derived_{m}": n for m, n in DERIVED.items()}}
 
 
 def zero_launches() -> None:
@@ -668,20 +728,26 @@ def zero_launches() -> None:
     from splendax_torch.ops import ring_take as rt
 
     fac.launches = 0
-    for r in fac.launches_by_route:
-        fac.launches_by_route[r] = 0
+    for counts in (fac.launches_by_route, fac.launches_by_mode, DERIVED):
+        for k in counts:
+            counts[k] = 0
     fac.prep_launches = 0
     rt.launches = 0
 
 
 def check_route(path: str, n: dict, route: str = "wgmma") -> None:
     """Every kernel A launch of the path took `route` (the hidden width's),
-    and each wgmma forward prepared its weights once."""
+    each wgmma forward prepared its weights once, and the wgmma forwards took
+    the modes their B derive."""
     other = "mma_sync" if route == "wgmma" else "wgmma"
     prep = n["fused_actor_critic"] if route == "wgmma" else 0
     check(n["fused_actor_critic"] > 0 and n["fused_actor_critic_" + route] == n["fused_actor_critic"]
           and n["fused_actor_critic_" + other] == 0 and n["fused_actor_critic_prep"] == prep,
           f"{path}: kernel A's launches did not all take the {route} route: {n}")
+    modes = {m: n["fused_actor_critic_" + m] for m in ("tile", "cluster")}
+    check(sum(modes.values()) == n["fused_actor_critic_wgmma"]
+          and all(modes[m] == n["derived_" + m] for m in modes),
+          f"{path}: kernel A's modes {modes} are not those its B derive: {n}")
 
 
 def phase_rollout(device):
@@ -1350,6 +1416,7 @@ def parallel_rank(runs) -> dict:
 
     dev = local_device("cuda")
     check(dev.type == "cuda", f"a rank runs on {dev}")
+    derive_modes()
     out = {}
     for label, dp, tp, turns in runs:
         cfg = PPOConfig(**dict(LEAGUE_NO_SLOT, num_steps=turns), dp=dp, tp=tp)
@@ -1458,6 +1525,10 @@ def phase_parallel(device) -> dict:
     for r in results:
         for k, v in r["launches"].items():
             launches[k] += v
+        # The dry run's forwards take at most 64 rows (8 games, a search of
+        # m k0 = 8 lanes each), so each derives the cluster mode.
+        check(fac.wgmma_mode(64, 256) == "cluster", "the dry run's B no longer derive cluster mode")
+        launches["derived_cluster"] += r["launches"]["fused_actor_critic_wgmma"]
     print(f"parallel: dryrun_multichip(4) on the card, {time.perf_counter() - t0:.1f} s; routes of "
           f"rank 0 {results[0]['routes']}", flush=True)
     bench_scaling.main(["--ranks", "2", "--batch-per-rank", "4096", "--steps", "20", "--reps", "1",
@@ -2026,6 +2097,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    derive_modes()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2066,6 +2138,15 @@ def main() -> int:
     # the wgmma route.  The wide path (H = 1024) takes the mma_sync route.
     for path, n in by_path.items():
         check_route(path, n)
+    # The call sites of the cluster mode: the pool slots (rollout, update,
+    # league), the eval suite (update, train), the root prior (league,
+    # distill) and the host policies (host).
+    for path in ("rollout", "update", "train", "league", "host", "distill", "distill chunk"):
+        check(by_path[path]["fused_actor_critic_cluster"] > 0,
+              f"{path}: no kernel A launch took the cluster mode: {by_path[path]}")
+    print("kernel A's wgmma launches by mode (tile / cluster, as their B derive): " + "; ".join(
+        f"{path} {n['fused_actor_critic_tile']} / {n['fused_actor_critic_cluster']}"
+        for path, n in by_path.items()), flush=True)
     by_path["train H=1024"] = phase_wide(device)
     check_route("train H=1024", by_path["train H=1024"], route="mma_sync")
     kern = phase_kernels(device)
@@ -2075,7 +2156,8 @@ def main() -> int:
 
     tpu_a = "splendax/ops/fused_actor_critic.py:37"
     meta = {
-        "fused_actor_critic_wgmma": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
+        "fused_actor_critic_tile": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
+        "fused_actor_critic_cluster": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_prep": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_mma_sync": ("splendax_torch/csrc/fused_actor_critic.cu", tpu_a),
         "ring_take": ("splendax_torch/csrc/ring_take.cu", "splendax/ops/ring_take.py:38"),

@@ -3,7 +3,8 @@
 their times beside the `addmm` chain, and the tensor cores' mma.sync TF32 rate.
 
     python3 scripts/torch_kernel_a_probe.py            # everything below, ~2 min
-    python3 scripts/torch_kernel_a_probe.py --check    # build, check, one timing; ~1 min
+    python3 scripts/torch_kernel_a_probe.py --check    # build, check, small-B timings; ~1 min
+    python3 scripts/torch_kernel_a_probe.py --check --parent DIR   # and DIR's wgmma kernel
 
 Builds variants of `splendax_torch/csrc/fused_actor_critic_wgmma.cu` (the
 `wgmma` route, H <= 768) and `fused_actor_critic.cu` (the `mma_sync` route,
@@ -14,14 +15,26 @@ committed h768 net on engine obs.  Prints the card's name and power limit
 first, and each new variant's ptxas report (registers, spills, and any
 wgmma serialisation warning).
 
---check: the `wgmma` route against the float64 plain forward (rtol/atol
-1e-5) on seeded random weights at H = 37, 100, 256, 768 and B = 1, 63, 64,
-65, 4097, and on the committed h256 and h768 nets at B = 8192; the prep
-kernel against `prepare_weights_plain` bit for bit; rows independent of B
-(1,000 + 7,192 and 4,096 + 4,096 against 8,192); then one timing at B = 8192
-with value, with the no_loads variants beside it.  Every variant is called
-through the wrapper (`fused_actor_critic._launch` with the variant's
-library), as the path calls the library's own build.
+--check: the `wgmma` route in each mode against the float64 plain forward
+(rtol/atol 1e-5) on seeded random weights at H = 37, 100, 256, 768 and B =
+1, 63, 64, 65, 4097, and on the committed h256 and h768 nets at B = 8192,
+the two modes bit for bit against each other; the prep kernel against
+`prepare_weights_plain` bit for bit; rows independent of B (1,000 + 7,192
+and 4,096 + 4,096 against 8,192); then a cluster-mode block's steps on
+%globaltimer (the clocks variants: median us of each step over the blocks
+and the spread of their starts, at B = 64 and 2048 without value and 8192
+with it; at B = 64 also without weight loads, without obs loads and without
+head-weight loads); then timings of both modes at B = 1, 256, 512, 1024,
+2048, 3072 without value, 4096 and 8192 with it, with the no_loads variants
+beside them at 8192.  Every variant is called through the wrapper
+(`fused_actor_critic._launch` with the variant's library and a forced mode),
+as the path calls the library's own build.
+
+--parent DIR: also builds DIR/splendax_torch/csrc/fused_actor_critic_wgmma.cu
+(another tree's wgmma kernel, with the C interface of a single mode: no
+`groups` argument) and times it on the same prepared weights, in turns with
+this tree's tile mode (parent, tile, tile, parent, parent, tile), at B =
+8192, 32768 and 737280 with value and at B = 2048 without.
 
 Without --check, after the checks:
 
@@ -34,9 +47,9 @@ Without --check, after the checks:
   no_loads         no weight stage is ever copied (wrong numbers: the
                    compute alone);
   no_loads_one     both;
-  B = 1, 256, 1024, 2048, 3072 without value and 4096 with it (the host
-  policies, the eval, the root prior, the pool slots, a dp=2 rank): both
-  routes and the addmm chain;
+  B = 1, 256, 512, 1024, 2048, 3072 without value and 4096 with it (the
+  host policies, the eval, a full pool's snapshot slot, the root prior, the
+  pool slots, a dp=2 rank): both routes, both modes and the addmm chain;
   PR 2's variants at B = 8192 with value (one_product, no_loads,
   no_loads_one) and its mma.sync TF32 rate per SM clock.
 """
@@ -61,9 +74,19 @@ WGMMA_VARIANTS = {
     "wgmma_one_product": ("-DPROBE_ONE_PRODUCT",),
     "wgmma_no_loads": ("-DPROBE_NO_LOADS",),
     "wgmma_no_loads_one": ("-DPROBE_NO_LOADS", "-DPROBE_ONE_PRODUCT"),
+    "wgmma_clocks": ("-DPROBE_CLOCKS",),
+    "wgmma_clocks_no_loads": ("-DPROBE_CLOCKS", "-DPROBE_NO_LOADS"),
+    "wgmma_clocks_no_obs": ("-DPROBE_CLOCKS", "-DPROBE_NO_OBS"),
+    "wgmma_clocks_no_w2": ("-DPROBE_CLOCKS", "-DPROBE_NO_W2"),
 }
+CLOCKS = ("wgmma_clocks", "wgmma_clocks_no_loads", "wgmma_clocks_no_obs", "wgmma_clocks_no_w2")
 # The compute alone: timed in --check too.
 WGMMA_SPLIT = ("wgmma_no_loads", "wgmma_no_loads_one")
+# A cluster block's steps, between the clocks variant's stamps 0-9, 6-10, 10-11, 11-7.
+STEPS = ("obs and mask scan", "cluster sync", "role split", "layer 1", "copies out",
+         "layer 2 as the columns come in",
+         "head, partials written", "reduction", "reads done", "head", "all in", "partials written",
+         "bias and tanh", "head product")
 
 MMA_LOOP = r"""
 #include <cstdint>
@@ -89,7 +112,7 @@ extern "C" int run(int blocks, int iters, float* out) {
 """
 
 
-def build(check: bool) -> dict:
+def build(check: bool, parent: str | None = None) -> dict:
     """{name: loaded library} for every variant (with --check only the
     wgmma kernel, its no_loads variants and PR 2's kernel), each bound by the
     wrapper, and the mma loop; prints the wgmma variants' ptxas reports."""
@@ -99,13 +122,17 @@ def build(check: bool) -> dict:
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
     for name, flags in WGMMA_VARIANTS.items():
-        if not check or name in ("wgmma",) + WGMMA_SPLIT:
+        if not check or name in ("wgmma",) + CLOCKS + WGMMA_SPLIT:
             jobs[name] = (_build.CSRC / "fused_actor_critic_wgmma.cu",
                           os.path.join(OUT, f"lib{name}.so"), flags)
     for name, flags in MMA_SYNC_VARIANTS.items():
         if not check or name == "kernel":
             jobs[name] = (_build.CSRC / "fused_actor_critic.cu", os.path.join(OUT, f"lib{name}.so"),
                           flags)
+    if parent is not None:
+        jobs["parent"] = (os.path.join(parent, "splendax_torch", "csrc",
+                                       "fused_actor_critic_wgmma.cu"),
+                          os.path.join(OUT, "libparent.so"), ())
     if not check:
         loop_cu = os.path.join(OUT, "mma_loop.cu")
         with open(loop_cu, "w") as f:
@@ -118,7 +145,12 @@ def build(check: bool) -> dict:
                      if "registers" in ln or "spill" in ln or "wgmma" in ln or "arning" in ln]
             print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     libs = {name: ctypes.CDLL(out) for name, (_, out, _) in jobs.items()}
-    return {name: lib if name == "mma_loop" else fac.bind(lib, route_of(name))
+    if "parent" in libs:
+        fn = libs["parent"].fused_actor_critic_wgmma_forward
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, i, i, ctypes.POINTER(p), p, p, p, p]
+        fn.restype = i
+    return {name: lib if name in ("mma_loop", "parent") else fac.bind(lib, route_of(name))
             for name, lib in libs.items()}
 
 
@@ -126,11 +158,29 @@ def route_of(name: str) -> str:
     return "wgmma" if name.startswith("wgmma") else "mma_sync"
 
 
-def forward(libs, name, w, obs, mask, with_value=True, prepared=None):
-    """Variant `name`'s forward through the wrapper: (logits, value)."""
+def forward(libs, name, w, obs, mask, with_value=True, prepared=None, mode=None):
+    """Variant `name`'s forward through the wrapper, in `mode` (the one B
+    derives unless given): (logits, value)."""
     from splendax_torch.ops import fused_actor_critic as fac
 
-    return fac._launch(route_of(name), w, obs, mask, with_value, prepared, lib=libs[name])
+    return fac._launch(route_of(name), w, obs, mask, with_value, prepared, lib=libs[name],
+                       mode=mode if route_of(name) == "wgmma" else None)
+
+
+def parent_forward(lib, w, obs, mask, with_value, prepared):
+    """The parent tree's wgmma kernel on prepared weights: (logits, value)."""
+    import torch
+
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    B = obs.shape[0]
+    logits = torch.empty((B, 45), dtype=torch.float32, device=obs.device)
+    value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
+    err = lib.fused_actor_critic_wgmma_forward(
+        obs.data_ptr(), mask.data_ptr(), B, w[0].shape[1], fac._ptrs(w), prepared.data_ptr(),
+        logits.data_ptr(), value.data_ptr() if with_value else None, fac._stream(obs))
+    assert err == 0, f"the parent's kernel failed: CUDA error {err}"
+    return logits, value
 
 
 def share(got, want) -> float:
@@ -163,7 +213,7 @@ def checks(libs: dict, nets: dict, obs_all, mask_all) -> None:
     from splendax_torch.ops import fused_actor_critic as fac
 
     dev = obs_all.device
-    worst = 0.0
+    worst = dict.fromkeys(fac.launches_by_mode, 0.0)
     for H in (37, 100, 256, 768):
         w = random_weights(H, H, dev)
         w64 = [t.double() for t in w]
@@ -174,18 +224,21 @@ def checks(libs: dict, nets: dict, obs_all, mask_all) -> None:
             mask[0] = False
             for with_value in (True, False):
                 ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
-                got = forward(libs, "wgmma", w, obs, mask, with_value)
+                got = {m: forward(libs, "wgmma", w, obs, mask, with_value, mode=m) for m in worst}
                 torch.cuda.synchronize()
-                for g, r in zip(got, ref):
-                    if g is None:
-                        continue
-                    assert torch.isfinite(g).all(), f"wgmma non-finite at H={H} B={B}"
-                    worst = max(worst, share(g, r))
+                for m, out in got.items():
+                    for g, r, t in zip(out, ref, got["tile"]):
+                        if g is None:
+                            continue
+                        assert torch.isfinite(g).all(), f"wgmma {m} non-finite at H={H} B={B}"
+                        assert torch.equal(g, t), f"wgmma {m} differs from tile at H={H} B={B}"
+                        worst[m] = max(worst[m], share(g, r))
         prepared = fac.prepare_weights(w, True, libs["wgmma"])
         assert torch.equal(prepared, fac.prepare_weights_plain(w)), f"prep differs at H={H}"
     print("random weights, H in (37, 100, 256, 768), B in (1, 63, 64, 65, 4097), with and "
-          f"without value, share of rtol/atol 1e-5 vs float64: wgmma {worst:.3f}; prep equals "
-          "prepare_weights_plain bit for bit", flush=True)
+          "without value, share of rtol/atol 1e-5 vs float64: "
+          + ", ".join(f"{m} {v:.3f}" for m, v in worst.items())
+          + "; the modes bit-equal; prep equals prepare_weights_plain bit for bit", flush=True)
     for H, w in nets.items():
         w64 = [t.double() for t in w]
         obs, mask = obs_all[:8192].contiguous(), mask_all[:8192].contiguous()
@@ -195,6 +248,11 @@ def checks(libs: dict, nets: dict, obs_all, mask_all) -> None:
         s64 = max(share(g, r) for g, r in zip(whole, ref))
         s32 = max(share(g, r) for g, r in zip(whole, f32))
         line = [f"wgmma {s64:.3f} ({s32:.3f} vs float32)"]
+        for m in fac.launches_by_mode:
+            same = all(torch.equal(a, b)
+                       for a, b in zip(forward(libs, "wgmma", w, obs, mask, mode=m), whole))
+            line.append(f"{m} mode bit-equal {same}")
+            assert same, f"the {m} mode differs at H={H}"
         for cut in (1000, 4096):
             parts = [forward(libs, "wgmma", w, obs[a:b].contiguous(), mask[a:b].contiguous())
                      for a, b in ((0, cut), (cut, 8192))]
@@ -208,7 +266,9 @@ def checks(libs: dict, nets: dict, obs_all, mask_all) -> None:
 def main() -> int:
     import torch
 
-    check = "--check" in sys.argv[1:]
+    args = sys.argv[1:]
+    check = "--check" in args
+    parent = args[args.index("--parent") + 1] if "--parent" in args else None
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 1
@@ -222,7 +282,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     from splendax_torch.ops import fused_actor_critic as fac
 
-    libs = build(check)
+    libs = build(check, parent)
 
     dev = torch.device("cuda")
     nets = {H: ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, src), device=dev))
@@ -245,29 +305,81 @@ def main() -> int:
         out = {}
         for name in names:
             prepared = fac.prepare_weights(w, with_value, libs[name])
-            out[name] = cs.device_ms(
-                lambda: forward(libs, name, w, obs, mask, with_value, prepared), n)[0]
-        out["wgmma route (prep + kernel)"] = cs.device_ms(
-            lambda: forward(libs, "wgmma", w, obs, mask, with_value), n)[0]
+            for m in fac.launches_by_mode:
+                out[f"{name} {m}"] = cs.device_ms(
+                    lambda: forward(libs, name, w, obs, mask, with_value, prepared, m), n)[0]
+        for m in fac.launches_by_mode:
+            out[f"wgmma {m} (prep + kernel)"] = cs.device_ms(
+                lambda: forward(libs, "wgmma", w, obs, mask, with_value, mode=m), n)[0]
         out["prep"] = cs.device_ms(lambda: fac.prepare_weights(w, with_value, libs["wgmma"]),
                                    n)[0]
         out["mma_sync (PR 2)"] = cs.device_ms(
             lambda: forward(libs, "kernel", w, obs, mask, with_value), n)[0]
         out["addmm chain"] = cs.device_ms(lambda: addmm_chain(x32, with_value), n)[0]
         bound = cs.bound_a(B, H, with_value, 2)[0]
-        print(f"B={B} H={H} value={with_value} (bound {bound:.4f} ms): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + " ms", flush=True)
+        print(f"B={B} H={H} value={with_value} (bound {bound:.4f} ms; the path's mode "
+              f"{fac.wgmma_mode(B, H)}): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+              + " ms", flush=True)
 
+    def clocks(B, with_value, name="wgmma_clocks"):
+        """The cluster mode's steps at B rows, from a clocks variant."""
+        import numpy as np
+
+        obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+        for _ in range(3):  # warm
+            logits, _ = forward(libs, name, w, obs, mask, with_value, mode="cluster")
+        torch.cuda.synchronize()
+        grid = fac.launch_shape(B, H, with_value, "cluster")[0]
+        n = grid[0] * grid[1] * grid[2]
+        t = logits.flatten().view(torch.int64)[:13 * n].view(n, 13).cpu().numpy()
+        t = t - t[:, :1].min()
+        steps = np.concatenate([np.diff(t[:, :10], axis=1),
+                                t[:, [10, 11, 7, 12, 10]] - t[:, [6, 10, 11, 6, 12]]], axis=1) / 1e3
+        print(f"cluster mode clocks ({name}) B={B} value={with_value}: {n} blocks, span "
+              f"{(t[:, 9].max()) / 1e3:.1f} us, block starts at "
+              + "/".join(f"{np.percentile(t[:, 0], q) / 1e3:.1f}" for q in (0, 50, 90, 100))
+              + " us (min/median/p90/max); median us per step: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in zip(STEPS, np.median(steps, axis=0))),
+              flush=True)
+
+    def against_parent(B, with_value, obs_src, mask_src, n=20):
+        """The parent's kernel and this tree's tile mode in turns, same rows."""
+        obs, mask = obs_src[:B].contiguous(), mask_src[:B].contiguous()
+        prepared = fac.prepare_weights(w, with_value)
+        run = {"parent": lambda: parent_forward(libs["parent"], w, obs, mask, with_value, prepared),
+               "tile": lambda: forward(libs, "wgmma", w, obs, mask, with_value, prepared, "tile")}
+        ms = [(k, cs.device_ms(run[k], n)[0])
+              for k in ("parent", "tile", "tile", "parent", "parent", "tile")]
+        print(f"B={B} H={H} value={with_value}, in turns: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms) + " ms", flush=True)
+
+    print(f"cluster mode at H={H}: {fac.max_clusters(H)} clusters of {fac.column_groups(H)} "
+          f"blocks resident at once", flush=True)
+    if parent is not None:
+        obs_big, mask_big = cs.realistic_obs(737280, 30, seed=768, device=dev)
+        for B, with_value in ((8192, True), (32768, True), (737280, True), (2048, False)):
+            big = B > 32768
+            against_parent(B, with_value, obs_big if big else obs_all,
+                           mask_big if big else mask_all, n=5 if big else 20)
+        del obs_big, mask_big
+    for B, with_value in ((64, False), (2048, False), (8192, True)):
+        clocks(B, with_value)
+    for name in CLOCKS[1:]:
+        clocks(64, False, name)
     if check:
+        for B, with_value in ((1, False), (256, False), (512, False), (1024, False),
+                              (2048, False), (3072, False), (4096, True)):
+            timings(B, with_value, obs_all, mask_all)
         timings(8192, True, obs_all, mask_all, names=("wgmma",) + WGMMA_SPLIT)
         return 0
 
     for B in (8192, 32768):
-        timings(B, True, obs_all, mask_all, names=tuple(WGMMA_VARIANTS))
+        timings(B, True, obs_all, mask_all,
+                names=tuple(n for n in WGMMA_VARIANTS if n not in CLOCKS))
     timings(8192, False, obs_all, mask_all)
     timings(32768, False, obs_all, mask_all)
-    for B, with_value in ((1, False), (256, False), (1024, False), (2048, False), (3072, False),
-                          (4096, True)):
+    for B, with_value in ((1, False), (256, False), (512, False), (1024, False), (2048, False),
+                          (3072, False), (4096, True)):
         timings(B, with_value, obs_all, mask_all)
     obs_big, mask_big = cs.realistic_obs(737280, 30, seed=768, device=dev)
     for with_value in (True, False):

@@ -11,10 +11,12 @@
 // six products are 2 B (2·297 H + 2 H² + 46 H) = 27.4 GFLOP; taken as three
 // TF32 products each (two for layer 1, whose obs are exact in TF32) that is
 // 0.151 ms on the TF32 tensor cores (494.7 TFLOP/s dense).  Weights, obs,
-// mask and outputs are 20 MB, 0.006 ms at 3.35 TB/s.  Each 64-row block
+// mask and outputs are 20 MB, 0.006 ms at 3.35 TB/s.  Each 64-row tile
 // streams all the split weights (13.4 MB at H = 768) from L2, so a call
 // reads (B / 64) x 13.4 MB of L2; at 48 TF32 FLOP for each byte streamed the
-// L2 rate, not the tensor cores, is the likely limit.
+// L2 rate, not the tensor cores, is the likely limit.  At small B the bound
+// is bytes, and what a tile's blocks take is the latency of their weight
+// stream: that is what the cluster mode below is for.
 //
 // Numerics (3xTF32), as in `fused_actor_critic.cu`: each f32 operand a is
 // split into hi = tf32(a) (cvt.rna) and lo = tf32(a - hi), and a·b is taken
@@ -24,10 +26,10 @@
 // of 8 is summed by `wgmma` from zero into a scratch accumulator, and each
 // chunk's sum is added to the f32 accumulator on the CUDA cores, rounded to
 // nearest: chained over all of K, the tensor cores' own accumulation drifts
-// past the 1e-5 contract.  Layer 1 skips lo·hi in a block whose obs are all
+// past the 1e-5 contract.  Layer 1 skips lo·hi in a tile whose obs are all
 // exact in TF32 (|x| <= 2048): that product is then exactly zero.  Every sum
-// runs in a fixed order per row, so a row's outputs do not depend on B or
-// on the other rows of its tile.
+// runs in a fixed order per row, so a row's outputs do not depend on B, on
+// the other rows of its tile, or on the mode.
 //
 // Weights.  `prepare_kernel` writes, for aw0, aw1, cw0 and cw1 ([in, out]),
 // hi and lo as [2][HP][KP]: output-major, K contiguous (wgmma takes TF32
@@ -50,28 +52,65 @@
 // three-product times fit a fixed cost of some 400 clocks a fence (with A
 // in registers the fence waits for the products before it), so fewer,
 // larger groups win; a chunk of more k-steps
-// would hold more of the ring than H = 768 leaves.  Two sets of A registers
-// alternate, the next chunk's fragments split while this chunk runs (the
-// hardware reads a wgmma's A registers while it runs, so a set is rewritten
-// only after the chunk that read it is done).  The first hidden layer lives
-// in shared memory in f32 (row stride = 4 mod 8 floats: a warp's A-fragment
-// loads hit 32 banks): 197,632 bytes at H = 768, which leaves four 8 KB
-// stages; this budget is the reason for the H <= 768 route.  Layer 1's A
-// comes from the obs in global memory, int32 -> f32 in registers,
-// prefetched two k-steps ahead.  The second hidden layer is never stored:
-// bias and tanh in registers, then the heads.  A wgmma m64nN accumulator
-// holds, in each group of 8 columns, the pairs of an mma.sync m16n8
-// accumulator over the warp's 16 rows, so it is the A operand of an m16n8k8
-// head product as it stands (with k index j < 4 at column 2j and j + 4 at
-// 2j + 1): the logits take 3xTF32 mma.sync, the value f32 FMAs, and a row's
-// head sums stay in the warp that owns the row.  The consumer groups'
-// partial heads are summed in a fixed order through shared memory.
+// would hold more of the ring than H = 768 leaves in tile mode.  Two sets of
+// A registers alternate, the next chunk's fragments split while this chunk
+// runs (the hardware reads a wgmma's A registers while it runs, so a set is
+// rewritten only after the chunk that read it is done).  The first hidden
+// layer lives in shared memory in f32 (row stride = 4 mod 8 floats: a warp's
+// A-fragment loads hit 32 banks).  Layer 1's A comes from the obs in global
+// memory, int32 -> f32 in registers, prefetched two k-steps ahead.  The
+// second hidden layer is never stored: bias and tanh in registers, then the
+// heads.  A wgmma m64nN accumulator holds, in each group of 8 columns, the
+// pairs of an mma.sync m16n8 accumulator over the warp's 16 rows, so it is
+// the A operand of an m16n8k8 head product as it stands (with k index j < 4
+// at column 2j and j + 4 at 2j + 1): the logits take 3xTF32 mma.sync, the
+// value f32 FMAs, and a row's head sums stay in the warp that owns the row.
+//
+// Heads.  A consumer group's partial head over one pass's 64 columns starts
+// from zero: the logits a chain of 3xTF32 mma.sync over its eight groups of
+// 8 columns, the value an f32 FMA chain over the thread's 16 columns, then
+// summed over the quad's 4 threads (xor 1, then xor 2).  The partials of the
+// passes are added in pass order from zero, each consumer group's apart;
+// then the two groups' sums are added, then the bias.  Both modes compute
+// exactly these sums in this order.
+//
+// Modes.  Tile mode: a block per 64-row tile takes both heads and every
+// pass, with the whole first hidden layer in its own shared memory (197,632
+// bytes at H = 768, which leaves four 8 KB stages; this budget is the reason
+// for the H <= 768 route).  At small B that is few blocks, each taking every
+// pass in turn.  Cluster mode: a block per (64-row tile, pass, head); the
+// ceil(H / 128) blocks of one tile and head form a cluster (6 at H = 768,
+// within the portable 8), and each streams 1 / passes of one head's weights.
+// A block computes its pass's 128 columns of layer 1 into its h1, which has
+// tile mode's layout, and sends them to every other block of the cluster by
+// bulk copies through distributed shared memory (cp.async.bulk
+// shared::cluster, one a row, counted in bytes on the receiver's mbarrier
+// for that sender); it computes the same pass's columns of layer 2 from its
+// own h1 in tile mode's k order, each pass's k-steps once that pass's
+// columns have come in, then its partial head.  The cluster's blocks then
+// add the partials (ld.shared::cluster), each block a share of the outputs.
+// The mbarriers of each block order the steps: one a sender, by bytes, for
+// its columns; and, counting one arrival from every block of the cluster,
+// every block has all the columns (so no copy still reads this block's h1,
+// which then takes the partials), every partial is written, every block is
+// done reading the others' partials (no block exits before).  Two other
+// exchanges ran slower on an H100: layer 2 reading its A from the other
+// blocks' shared memory a fragment at a time, and h1 stored pass-major (one
+// 32 KB copy a receiver, but XOR-swizzled addresses in layer 2's loop).  The
+// wrapper picks the mode from B (`fused_actor_critic.wgmma_mode`); the bits
+// are the same in both.
 //
 // Probe switches.  scripts/torch_kernel_a_probe.py builds variants of this
 // file with -D to see where the time goes; the library is built with none.
 // PROBE_NO_LOADS never copies a weight stage (wrong numbers: the compute
 // alone); PROBE_ONE_PRODUCT takes one TF32 product for each f32 one (wrong
-// numbers: a third of the tensor work).
+// numbers: a third of the tensor work); PROBE_NO_OBS takes layer 1's A as
+// ones instead of loading the obs (wrong numbers: layer 1 without its
+// loads); PROBE_CLOCKS writes, in place of the
+// logits, each cluster-mode block's %globaltimer at 12 points of its work
+// (the probe reads them; needs B >= 64).  PROBE_SMEM_EXTRA=<bytes> asks for
+// that much more shared memory in cluster mode, past the card's limit: the
+// launch is refused (tests/test_torch_cuda.py holds the wrapper to raising).
 
 #include <cstdint>
 #include <cuda.h>
@@ -99,10 +138,17 @@ constexpr int STAGE_BYTES = 2 * NC * KSTEP * 4;  // hi and lo, NC outputs x 8 k
 constexpr int SMEM_MAX = 232448;
 constexpr int ALIGN = 256;                // 32-byte swizzle atoms repeat every 256 bytes
 constexpr int MAX_HIDDEN = 768;
+constexpr int MAX_GROUPS = 8;             // a cluster's blocks: the portable limit
 constexpr float BIG_NEG = -1e9f;
 constexpr float TF32_EXACT = 2048.f;      // integers up to this magnitude are exact in TF32
+// The cluster mode's barriers: every block has all the columns of h1,
+// every partial head is written, every block is done reading the others'
+// partials; and, by bytes, the columns of the block of rank r have come in
+// (COLUMNS_IN + r).
+enum { ALL_IN, PARTIALS_WRITTEN, READS_DONE, COLUMNS_IN, CLUSTER_BARS = COLUMNS_IN + MAX_GROUPS };
 
 static_assert(K1P % (KSTEP * CHUNK) == 0, "layer 1's K comes in whole chunks");
+static_assert((MAX_HIDDEN + NC - 1) / NC <= MAX_GROUPS, "the cluster stays portable");
 
 __host__ __device__ constexpr int pad8(int x) { return (x + 7) / 8 * 8; }
 // The second layer's K: H padded to a multiple of 16, so that its k-steps
@@ -115,9 +161,10 @@ __host__ __device__ constexpr int hidden_stride(int H) { return pad16(H) + 4; }
 __host__ __device__ constexpr int hidden_floats(int H) {
   return M * (hidden_stride(H) > HEAD_PAD * CONSUMERS ? hidden_stride(H) : HEAD_PAD * CONSUMERS);
 }
-// Shared memory after the ring: h1, full and empty barriers, any-legal flags, value partials.
+// Shared memory after the ring: h1, value partials, the ring's full and
+// empty barriers and the cluster mode's, any-legal flags.
 __host__ __device__ constexpr int tail_bytes(int H) {
-  return hidden_floats(H) * 4 + 2 * MAX_STAGES * 8 + M * 4 + CONSUMERS * M * 4;
+  return hidden_floats(H) * 4 + CONSUMERS * M * 4 + (2 * MAX_STAGES + CLUSTER_BARS) * 8 + M * 4;
 }
 // log2 of the ring's stages at hidden width H: the most that fit, rounded
 // down to a power of two, so that a k-step's stage and phase are bit fields.
@@ -136,6 +183,7 @@ struct Params {
   float* logits;
   float* value;  // null: actor only
   int B, H, shift;  // the ring has 1 << shift stages
+  int groups;       // cluster mode: the cluster's blocks, one pass each; 0 in tile mode
 };
 
 // ---------------------------------------------------------------- PTX helpers
@@ -164,21 +212,30 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
 // wgmma that follow.  A wait of more than 2^32 clocks (about 2 s) traps, so
 // that a broken pipeline ends the launch with an error instead of hanging
 // the card.
+#define KA_MBAR_WAIT(TRY_WAIT)                          \
+  asm volatile(                                         \
+      "{\n .reg .pred p;\n .reg .u64 t0, t1;\n"         \
+      " mov.u64 t0, %%clock64;\n"                       \
+      "WAIT:\n"                                         \
+      " " TRY_WAIT " p, [%0], %1;\n"                    \
+      " @p bra.uni DONE;\n"                             \
+      " mov.u64 t1, %%clock64;\n"                       \
+      " sub.u64 t1, t1, t0;\n"                          \
+      " setp.gt.u64 p, t1, 4294967296;\n"               \
+      " @p trap;\n"                                     \
+      " bra.uni WAIT;\n"                                \
+      "DONE:\n}" ::"r"(bar),                            \
+      "r"(parity)                                       \
+      : "memory")
+
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n .reg .u64 t0, t1;\n"
-      " mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @p bra.uni DONE;\n"
-      " mov.u64 t1, %%clock64;\n"
-      " sub.u64 t1, t1, t0;\n"
-      " setp.gt.u64 p, t1, 4294967296;\n"
-      " @p trap;\n"
-      " bra.uni WAIT;\n"
-      "DONE:\n}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
+  KA_MBAR_WAIT("mbarrier.try_wait.parity.shared::cta.b64");
+}
+
+// The same wait with acquire at cluster scope: the arrivals came from the
+// cluster's blocks, releasing their writes to their own shared memory.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  KA_MBAR_WAIT("mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
@@ -199,6 +256,57 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
 }
+
+// Every thread of every block of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The address in the cluster's shared window of `addr` (a shared address of
+// this block) in the block of rank `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// dst (in the cluster's shared window) <- bytes of this block's shared
+// memory at src, by the async proxy; the bytes count on the barrier at
+// `bar` (in the cluster's window, beside dst).
+__device__ __forceinline__ void copy_to(uint32_t dst, uint32_t src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One arrival on the barrier at `bar` (a shared address of this block) in
+// the block of rank `rank`, releasing this thread's writes to the cluster.
+__device__ __forceinline__ void arrive_in(uint32_t bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+                   mapa(bar, rank))
+               : "memory");
+}
+
+#ifdef PROBE_CLOCKS
+// Stamp i of a cluster-mode block: %globaltimer (ns) when thread 0 passes
+// it; the block's 12 stamps go to the logits in place of its outputs.
+#define KA_STAMP(t, i) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t[i])::"memory")
+#else
+#define KA_STAMP(t, i)
+#endif
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
@@ -297,15 +405,19 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
 struct Smem {
   uint32_t ring;   // shared address of stage 0
   float* h1;       // [M, SH] first hidden layer; partial logits at the end of the actor
-  uint32_t full;   // shared address of full[0]; empty[s] is full + 8 (MAX_STAGES + s)
+  float* vpart;    // [CONSUMERS, M] value partials
+  uint32_t full;   // shared address of full[0]; empty[s] is full + 8 (MAX_STAGES + s), the
+                   // cluster mode's barrier i full + 8 (2 MAX_STAGES + i)
   int* any_legal;  // [M]
-  float* vpart;    // [CONSUMERS, M]
   int shift;  // the ring has 1 << shift stages
 };
 
 __device__ __forceinline__ uint32_t full_bar(const Smem& s, int st) { return s.full + 8 * st; }
 __device__ __forceinline__ uint32_t empty_bar(const Smem& s, int st) {
   return s.full + 8 * (MAX_STAGES + st);
+}
+__device__ __forceinline__ uint32_t cluster_bar(const Smem& s, int i) {
+  return s.full + 8 * (2 * MAX_STAGES + i);
 }
 
 // Where the consumer thread sits: group c, warp wl of the group, lane = 4 g + t.
@@ -321,9 +433,13 @@ __device__ __forceinline__ void obs_frag(const int32_t* __restrict__ x, int rows
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + 8 * (i & 1), k = k0 + 4 * (i >> 1);
+#ifdef PROBE_NO_OBS
+    v[i] = r < rows && k < OBS;
+#else
     // A clamped address and a select: no branch among the wgmma.
     const int got = __ldg(x + (size_t)min(r, rows - 1) * OBS + min(k, OBS - 1));
     v[i] = r < rows && k < OBS ? got : 0;
+#endif
   }
 }
 
@@ -439,39 +555,57 @@ __device__ __forceinline__ void finish_chunk(const Smem& sm, uint32_t it0, int j
   add32(acc, s);
 }
 
-// acc = A W[:, this group's 64 columns of the pass], over nk k-steps (a
-// multiple of CHUNK), the ring's k-steps it0 ... it0 + nk - 1, a chunk of
-// CHUNK k-steps at a time.  Each chunk is one fence and one commit group,
+// acc += A W[:, this group's 64 columns of the pass] over k-steps j0 ... j1
+// - 1 of the pass (j1 - j0 a multiple of CHUNK), the ring's k-steps it0 + j,
+// a chunk of CHUNK k-steps at a time.  Each chunk is one fence and one commit group,
 // summed on the tensor cores from zero and added to acc once it is done;
 // the wait for it is the only one, so the chunk's products run back to
 // back.  The hardware reads a wgmma's A registers while it runs, so the two
 // sets of A registers alternate: the next chunk's fragments are loaded
 // while this chunk runs, into the set the chunk before read.
 template <bool L1, bool EXACT>
-__device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_t it0, int nk,
-                                          const float* h1, int SH, const int32_t* __restrict__ x,
-                                          int rows, float (&acc)[32]) {
+__device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_t it0, int j0,
+                                          int j1, const float* h1, int SH,
+                                          const int32_t* __restrict__ x, int rows,
+                                          float (&acc)[32]) {
   float s[32];
   int pa[4], pb[4];
   uint32_t ah0[CHUNK][4], al0[CHUNK][4], ah1[CHUNK][4], al1[CHUNK][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = s[i] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
   if constexpr (L1) {
-    obs_frag(x, rows, l, 0, pa);
-    obs_frag(x, rows, l, 1, pb);
+    obs_frag(x, rows, l, j0, pa);
+    obs_frag(x, rows, l, j0 + 1, pb);
   }
-  load_chunk<L1, EXACT>(l, 0, h1, SH, x, rows, pa, pb, ah0, al0);
-  for (int j = 0;; j += 2 * CHUNK) {
+  load_chunk<L1, EXACT>(l, j0, h1, SH, x, rows, pa, pb, ah0, al0);
+  for (int j = j0;; j += 2 * CHUNK) {
     issue_chunk<L1, EXACT>(sm, l, it0, j, ah0, al0, s);
-    if (j + CHUNK < nk) load_chunk<L1, EXACT>(l, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
+    if (j + CHUNK < j1) load_chunk<L1, EXACT>(l, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
     finish_chunk(sm, it0, j, acc, s);
-    if (j + CHUNK == nk) return;
+    if (j + CHUNK == j1) return;
     issue_chunk<L1, EXACT>(sm, l, it0, j + CHUNK, ah1, al1, s);
-    if (j + 2 * CHUNK < nk)
+    if (j + 2 * CHUNK < j1)
       load_chunk<L1, EXACT>(l, j + 2 * CHUNK, h1, SH, x, rows, pa, pb, ah0, al0);
     finish_chunk(sm, it0, j + CHUNK, acc, s);
-    if (j + 2 * CHUNK == nk) return;
+    if (j + 2 * CHUNK == j1) return;
   }
+}
+
+__device__ __forceinline__ void zero32(float (&acc)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+}
+
+// Layer 1 of one pass: acc = x W0[:, this group's columns], whichever
+// products the tile's obs need.
+__device__ __forceinline__ void layer1_pass(const Smem& sm, const Lane& l, uint32_t it0,
+                                            const int32_t* __restrict__ x, int rows, bool exact,
+                                            float (&acc)[32]) {
+  zero32(acc);
+  if (exact)
+    gemm_pass<true, true>(sm, l, it0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
+  else
+    gemm_pass<true, false>(sm, l, it0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
 }
 
 // Column of accumulator element (i, e) of n8 group i: 8 i + 2 t + e within the group's 64.
@@ -493,10 +627,41 @@ __device__ __forceinline__ void bias_tanh(const Lane& l, float (&acc)[32],
     }
 }
 
-// logits += h2 W2[this group's columns, 0:45] for the warp's 16 rows.
-__device__ __forceinline__ void logit_update(const Lane& l, const float (&h2)[32],
-                                             const float* __restrict__ W2, int H, int n0,
-                                             float (&out)[HEAD_TILES][4]) {
+
+// h1[r, col] <- acc for this thread's columns col of the pass at n0 below pad16(H).
+__device__ __forceinline__ void store_h1(const Lane& l, const float (&acc)[32], float* h1, int H,
+                                         int n0) {
+  const int r0 = 16 * l.wl + l.g, SH = hidden_stride(H);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = acc_col(l, n0, i, 0);
+    if (col >= pad16(H)) continue;
+    *reinterpret_cast<float2*>(h1 + r0 * SH + col) = make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(h1 + (r0 + 8) * SH + col) =
+        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
+// The partial logits of this thread's rows into [CONSUMERS, M, HEAD_PAD] at part.
+__device__ __forceinline__ void store_logits(const Lane& l, const float (&lg)[HEAD_TILES][4],
+                                             float* part) {
+  const int r0 = 16 * l.wl + l.g;
+#pragma unroll
+  for (int hn = 0; hn < HEAD_TILES; ++hn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      part[(l.c * M + r0 + 8 * (i >> 1)) * HEAD_PAD + 8 * hn + 2 * l.t + (i & 1)] = lg[hn][i];
+}
+
+// out = h2 W2[this group's columns of the pass, 0:45] for the warp's 16
+// rows, a chain from zero over the group's eight column groups of 8.
+__device__ __forceinline__ void logit_partial(const Lane& l, const float (&h2)[32],
+                                              const float* __restrict__ W2, int H, int n0,
+                                              float (&out)[HEAD_TILES][4]) {
+#pragma unroll
+  for (int hn = 0; hn < HEAD_TILES; ++hn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[hn][i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     uint32_t ah[4], al[4];
@@ -508,17 +673,25 @@ __device__ __forceinline__ void logit_update(const Lane& l, const float (&h2)[32
     for (int hn = 0; hn < HEAD_TILES; ++hn) {
       const int n = 8 * hn + l.g;
       uint32_t bh0, bl0, bh1, bl1;
+#ifdef PROBE_NO_W2
+      split(r0 < H && n < ACT ? 0.01f * n : 0.f, bh0, bl0);
+      split(r1 < H && n < ACT ? 0.02f * n : 0.f, bh1, bl1);
+#else
       split(r0 < H && n < ACT ? __ldg(W2 + r0 * ACT + n) : 0.f, bh0, bl0);
       split(r1 < H && n < ACT ? __ldg(W2 + r1 * ACT + n) : 0.f, bh1, bl1);
+#endif
       mma3(out[hn], ah, al, bh0, bh1, bl0, bl1);
     }
   }
 }
 
-// value partials (rows g, g + 8 of the warp) += h2 wv over this thread's columns, in f32.
-__device__ __forceinline__ void value_update(const Lane& l, const float (&h2)[32],
-                                             const float* __restrict__ wv, int H, int n0,
-                                             float (&out)[2]) {
+// out = h2 wv over this group's columns of the pass for rows g and g + 8 of
+// the warp: an f32 FMA chain from zero over the thread's 16 columns, then the
+// sum over the quad's 4 threads, which all hold it.
+__device__ __forceinline__ void value_partial(const Lane& l, const float (&h2)[32],
+                                              const float* __restrict__ wv, int H, int n0,
+                                              float (&out)[2]) {
+  out[0] = out[1] = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -528,9 +701,14 @@ __device__ __forceinline__ void value_update(const Lane& l, const float (&h2)[32
       out[0] = fmaf(h2[4 * i + e], w, out[0]);
       out[1] = fmaf(h2[4 * i + 2 + e], w, out[1]);
     }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    out[j] += __shfl_xor_sync(0xffffffffu, out[j], 1);
+    out[j] += __shfl_xor_sync(0xffffffffu, out[j], 2);
+  }
 }
 
-// The consumer warpgroups: both heads, a pass at a time.
+// Tile mode: both heads, a pass at a time.
 __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
                                         const int32_t* __restrict__ x, int rows, int row0,
                                         bool exact, bool with_value) {
@@ -545,39 +723,36 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
     const float* const* w = p.w + 6 * head;
     // Layer 1: h1 = tanh(x W0 + b0), all columns, into shared memory.
     for (int q = 0; q < passes; ++q, it += nk1) {
-      if (exact)
-        gemm_pass<true, true>(sm, l, it, nk1, nullptr, SH, x, rows, acc);
-      else
-        gemm_pass<true, false>(sm, l, it, nk1, nullptr, SH, x, rows, acc);
+      layer1_pass(sm, l, it, x, rows, exact, acc);
       bias_tanh(l, acc, w[1], H, NC * q);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int col = acc_col(l, NC * q, i, 0);
-        if (col >= pad16(H)) continue;
-        *reinterpret_cast<float2*>(sm.h1 + r0 * SH + col) = make_float2(acc[4 * i], acc[4 * i + 1]);
-        *reinterpret_cast<float2*>(sm.h1 + (r0 + 8) * SH + col) =
-            make_float2(acc[4 * i + 2], acc[4 * i + 3]);
-      }
+      store_h1(l, acc, sm.h1, H, NC * q);
     }
     consumer_sync();  // h1 is whole
-    // Layer 2 a pass at a time, straight into the heads.
+    // Layer 2 a pass at a time, straight into the heads: each pass's
+    // partial added to the running sums in pass order.
     float lg[HEAD_TILES][4] = {}, v[2] = {0.f, 0.f};
     for (int q = 0; q < passes; ++q, it += nk2) {
-      gemm_pass<false, false>(sm, l, it, nk2, sm.h1, SH, x, rows, acc);
+      zero32(acc);
+      gemm_pass<false, false>(sm, l, it, 0, nk2, sm.h1, SH, x, rows, acc);
       bias_tanh(l, acc, w[3], H, NC * q);
-      if (head == 0)
-        logit_update(l, acc, w[4], H, NC * q, lg);
-      else
-        value_update(l, acc, w[4], H, NC * q, v);
+      if (head == 0) {
+        float pl[HEAD_TILES][4];
+        logit_partial(l, acc, w[4], H, NC * q, pl);
+#pragma unroll
+        for (int hn = 0; hn < HEAD_TILES; ++hn)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) lg[hn][i] += pl[hn][i];
+      } else {
+        float pv[2];
+        value_partial(l, acc, w[4], H, NC * q, pv);
+        v[0] += pv[0];
+        v[1] += pv[1];
+      }
     }
     consumer_sync();  // every read of h1 is done: its space takes the partial heads
     if (head == 0) {
-      float* part = sm.h1;  // [CONSUMERS, M, HEAD_PAD]
-#pragma unroll
-      for (int hn = 0; hn < HEAD_TILES; ++hn)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          part[(l.c * M + r0 + 8 * (i >> 1)) * HEAD_PAD + 8 * hn + 2 * l.t + (i & 1)] = lg[hn][i];
+      const float* part = sm.h1;
+      store_logits(l, lg, sm.h1);
       consumer_sync();
       for (int i = tid; i < rows * ACT; i += CONSUMER_THREADS) {
         const int r = i / ACT, col = i - r * ACT;
@@ -588,11 +763,6 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
       }
       consumer_sync();  // the partials are read before the critic writes h1
     } else {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        v[j] += __shfl_xor_sync(0xffffffffu, v[j], 1);
-        v[j] += __shfl_xor_sync(0xffffffffu, v[j], 2);
-      }
       if (l.t == 0) {
         sm.vpart[l.c * M + r0] = v[0];
         sm.vpart[l.c * M + r0 + 8] = v[1];
@@ -605,6 +775,124 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
   }
 }
 
+// Cluster mode: the consumers are done with step i; once all have passed
+// their barrier, lane q of the first warp arrives on barrier i of block q,
+// for every block of the cluster (this one's too), all at once.
+__device__ __forceinline__ void publish(const Smem& sm, int i, int groups) {
+  consumer_sync();
+  if (threadIdx.x < groups) arrive_in(cluster_bar(sm, i), threadIdx.x);
+}
+
+
+// Bytes of a row of h1 in the pass of the block of rank r: its columns
+// below pad16(H), which it sends to every other block of its cluster.
+__device__ __forceinline__ int pass_bytes(int H, int r) {
+  return 4 * (min(NC * (r + 1), pad16(H)) - NC * r);
+}
+
+// Cluster mode: this block's head and pass (its rank in the cluster).
+// Layer 1's columns of the pass into h1, then sent to every other block of
+// the cluster by bulk copies, one a row; layer 2's columns of the pass over
+// the whole of h1, as in tile mode, each pass's k-steps once its columns
+// have come in; its partial head into h1's space once no copy reads h1 any
+// more; once every partial is written, this block's share of the outputs,
+// the partials of the passes in pass order.
+__device__ __forceinline__ void consume_cluster(const Smem& sm, const Params& p,
+                                                const int32_t* __restrict__ x, int rows,
+                                                int row0, bool exact, int head, int rank,
+                                                uint64_t* clk) {
+  const int tid = threadIdx.x, H = p.H, P = p.groups, n0 = NC * rank, SH = hidden_stride(H);
+  const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
+  const float* const* w = p.w + 6 * head;
+  const int r0 = 16 * l.wl + l.g;
+  float acc[32];
+  layer1_pass(sm, l, 0, x, rows, exact, acc);
+  bias_tanh(l, acc, w[1], H, n0);
+  store_h1(l, acc, sm.h1, H, n0);
+  KA_STAMP(clk, 4);
+  // The copies read h1 through the async proxy.
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  consumer_sync();
+  for (int i = tid; i < M * (P - 1); i += CONSUMER_THREADS) {
+    const int r = i % M, d = i / M, to = d + (d >= rank);
+    const uint32_t src = smem_u32(sm.h1 + r * SH + n0);
+    copy_to(mapa(src, to), src, pass_bytes(H, rank), mapa(cluster_bar(sm, COLUMNS_IN + rank), to));
+  }
+  KA_STAMP(clk, 5);
+  // Layer 2 in the k order of tile mode, each pass's k-steps once its
+  // columns are in: the copies still coming overlap the products.
+  zero32(acc);
+  constexpr int STEPS = NC / KSTEP;
+  for (int r = 0; r < P; ++r) {
+    mbar_wait_cluster(cluster_bar(sm, COLUMNS_IN + r), 0);
+    gemm_pass<false, false>(sm, l, K1P / KSTEP, STEPS * r, min(STEPS * (r + 1), pad16(H) / KSTEP),
+                            sm.h1, SH, x, rows, acc);
+  }
+  if (tid < P) arrive_in(cluster_bar(sm, ALL_IN), tid);
+  KA_STAMP(clk, 6);
+  bias_tanh(l, acc, w[3], H, n0);
+  KA_STAMP(clk, 12);
+  float pl[HEAD_TILES][4], pv[2];
+  if (head == 0)
+    logit_partial(l, acc, w[4], H, n0, pl);
+  else
+    value_partial(l, acc, w[4], H, n0, pv);
+  KA_STAMP(clk, 10);
+  mbar_wait_cluster(cluster_bar(sm, ALL_IN), 0);  // no copy reads this block's h1 any more
+  consumer_sync();                                // nor does layer 2
+  KA_STAMP(clk, 11);
+  float* part = sm.h1;  // [CONSUMERS, M, HEAD_PAD] logits, or [CONSUMERS, M] value
+  if (head == 0) {
+    store_logits(l, pl, part);
+  } else if (l.t == 0) {
+    part[l.c * M + r0] = pv[0];
+    part[l.c * M + r0 + 8] = pv[1];
+  }
+  publish(sm, PARTIALS_WRITTEN, P);
+  mbar_wait_cluster(cluster_bar(sm, PARTIALS_WRITTEN), 0);
+  KA_STAMP(clk, 7);
+  const uint32_t base = smem_u32(part);
+  if (head == 0) {
+    for (int i = rank * CONSUMER_THREADS + tid; i < rows * ACT; i += P * CONSUMER_THREADS) {
+      const int r = i / ACT, col = i - r * ACT;
+      float s0 = 0.f, s1 = 0.f;
+      for (int q = 0; q < P; ++q) {
+        const uint32_t a = mapa(base + 4 * (r * HEAD_PAD + col), q);
+        s0 += ld_cluster(a);
+        s1 += ld_cluster(a + 4 * M * HEAD_PAD);
+      }
+      const float s = s0 + s1 + __ldg(w[5] + col);
+      const size_t o = (size_t)row0 * ACT + i;
+#ifndef PROBE_CLOCKS
+      p.logits[o] = p.mask[o] || !sm.any_legal[r] ? s : BIG_NEG;
+#endif
+    }
+  } else {
+    for (int r = rank * CONSUMER_THREADS + tid; r < rows; r += P * CONSUMER_THREADS) {
+      float s0 = 0.f, s1 = 0.f;
+      for (int q = 0; q < P; ++q) {
+        const uint32_t a = mapa(base + 4 * r, q);
+        s0 += ld_cluster(a);
+        s1 += ld_cluster(a + 4 * M);
+      }
+      p.value[row0 + r] = s0 + s1 + __ldg(w[5]);
+    }
+  }
+  KA_STAMP(clk, 8);
+  publish(sm, READS_DONE, P);
+  mbar_wait_cluster(cluster_bar(sm, READS_DONE), 0);  // no other block reads this one now
+#ifdef PROBE_CLOCKS
+  KA_STAMP(clk, 9);
+  if (tid == 0) {
+    const size_t b = blockIdx.x + (size_t)gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    for (int i = 0; i < 13; ++i) reinterpret_cast<uint64_t*>(p.logits)[13 * b + i] = clk[i];
+  }
+#endif
+}
+
+// CL: cluster mode (grid: tiles x groups x heads, a cluster over the
+// groups), else tile mode (grid: tiles).
+template <bool CL>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
                       const __grid_constant__ CUtensorMap map_a1,
@@ -619,17 +907,36 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
   sm.shift = p.shift;
   sm.ring = base;
   sm.h1 = reinterpret_cast<float*>(gbase + stages * STAGE_BYTES);
-  unsigned char* bars = reinterpret_cast<unsigned char*>(sm.h1 + hidden_floats(H));
+  sm.vpart = sm.h1 + hidden_floats(H);
+  unsigned char* bars = reinterpret_cast<unsigned char*>(sm.vpart + CONSUMERS * M);
   sm.full = smem_u32(bars);
-  sm.any_legal = reinterpret_cast<int*>(bars + 2 * MAX_STAGES * 8);
-  sm.vpart = reinterpret_cast<float*>(sm.any_legal + M);
+  sm.any_legal = reinterpret_cast<int*>(bars + (2 * MAX_STAGES + CLUSTER_BARS) * 8);
 
   const int tid = threadIdx.x, row0 = blockIdx.x * M, rows = min(M, p.B - row0);
   const int32_t* x = p.obs + (size_t)row0 * OBS;
+  const bool with_value = p.value != nullptr;
+  // The heads and passes this block streams: all of them in tile mode, one
+  // each in cluster mode.
+  int head0 = 0, heads = with_value ? 2 : 1, q0 = 0, nq = (H + NC - 1) / NC;
+  if constexpr (CL) {
+    head0 = blockIdx.z;
+    heads = 1;
+    q0 = cluster_rank();
+    nq = 1;
+  }
+  uint64_t clk[13];
+  KA_STAMP(clk, 0);
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full_bar(sm, s), 1);
       mbar_init(empty_bar(sm, s), CONSUMER_THREADS / 32);
+    }
+    if constexpr (CL) {
+      for (int i = ALL_IN; i < COLUMNS_IN; ++i) mbar_init(cluster_bar(sm, i), p.groups);
+      for (int r = 0; r < p.groups; ++r) {
+        mbar_init(cluster_bar(sm, COLUMNS_IN + r), 1);
+        mbar_expect_tx(cluster_bar(sm, COLUMNS_IN + r), r == q0 ? 0 : M * pass_bytes(H, r));
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -642,7 +949,11 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
     sm.any_legal[tid] = any;
   }
   const bool exact = !__syncthreads_or(big);
-  const bool with_value = p.value != nullptr;
+  KA_STAMP(clk, 1);
+  if constexpr (CL) {
+    cluster_sync();  // every block's barriers are set before another arrives on them
+    KA_STAMP(clk, 2);
+  }
 
   // The warpgroup's role, warp-uniform as the compiler sees it (through a
   // shuffle), so that the consumers' wgmma sit on no divergent path.
@@ -651,15 +962,15 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
 #ifndef PROBE_NO_LOADS
     if (tid == CONSUMER_THREADS) {
-      // The producer's thread: every stage of every pass, in the consumers' order.
-      const int passes = (H + NC - 1) / NC, nk2 = pad16(H) / KSTEP, mask = stages - 1;
+      // The producer's thread: every stage of the block's passes, in the consumers' order.
+      const int nk2 = pad16(H) / KSTEP, mask = stages - 1;
       uint32_t it = 0;
-      for (int head = 0; head < (with_value ? 2 : 1); ++head)
+      for (int head = head0; head < head0 + heads; ++head)
         for (int layer = 0; layer < 2; ++layer) {
           const CUtensorMap* map = head == 0 ? (layer == 0 ? &map_a0 : &map_a1)
                                              : (layer == 0 ? &map_c0 : &map_c1);
           const int nk = layer == 0 ? K1P / KSTEP : nk2;
-          for (int q = 0; q < passes; ++q)
+          for (int q = q0; q < q0 + nq; ++q)
             for (int j = 0; j < nk; ++j, ++it) {
               const int st = it & mask;
               mbar_wait(empty_bar(sm, st), ((it >> p.shift) & 1) ^ 1);
@@ -674,7 +985,11 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
 #endif
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
-    consume(sm, p, x, rows, row0, exact, with_value);
+    KA_STAMP(clk, 3);
+    if constexpr (CL)
+      consume_cluster(sm, p, x, rows, row0, exact, head0, q0, clk);
+    else
+      consume(sm, p, x, rows, row0, exact, with_value);
   }
 }
 
@@ -748,6 +1063,35 @@ size_t prepared_offset(int H, int m) {
   return (m >> 1) * (a + b) + (m & 1) * a;
 }
 
+// The kernel of a mode, with its shared memory limit raised once.
+template <bool CL>
+cudaError_t kernel_ready() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fused_ac_wgmma_kernel<CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  return attr;
+}
+
+size_t smem_bytes(int H) {
+  return ALIGN + ((size_t)STAGE_BYTES << stage_shift(H)) + tail_bytes(H);
+}
+
+// The cluster mode's launch: tiles x groups x heads blocks, a cluster over the groups.
+cudaLaunchConfig_t cluster_config(int tiles, int groups, int heads, size_t smem,
+                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, groups, heads);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = groups;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 // The split, transposed weights of aw0, aw1 (and, with `critic`, cw0, cw1)
@@ -772,11 +1116,15 @@ extern "C" int fused_actor_critic_wgmma_prepare(const void* const* weights, int 
 // obs int32 [B, 297], mask uint8 [B, 45], weights as listed in Params (the
 // heads and biases are read from there), `prepared` as the prepare call left
 // it; writes logits f32 [B, 45] and, unless `value` is null, value f32 [B].
+// groups = 0 runs tile mode; else cluster mode, with groups = ceil(H / 128)
+// (the blocks of a cluster, one pass each).
 extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mask, int B, int H,
                                                 const void* const* weights, const void* prepared,
-                                                void* logits, void* value, void* stream) {
+                                                void* logits, void* value, int groups,
+                                                void* stream) {
   if (B <= 0) return 0;
   if (H < 1 || H > MAX_HIDDEN) return (int)cudaErrorInvalidValue;
+  if (groups != 0 && groups != (H + NC - 1) / NC) return (int)cudaErrorInvalidValue;
   const int HP = pad8(H);
   CUtensorMap maps[4];
   for (int m = 0; m < 4; ++m) {
@@ -792,12 +1140,42 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
   p.value = (float*)value;
   p.B = B;
   p.H = H;
+  p.groups = groups;
+  const bool cl = groups > 0;
   p.shift = stage_shift(H);
-  const size_t smem = ALIGN + ((size_t)STAGE_BYTES << p.shift) + tail_bytes(H);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      fused_ac_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  size_t smem = smem_bytes(H);
+  const int tiles = (B + M - 1) / M;
+  if (!cl) {
+    const cudaError_t attr = kernel_ready<false>();
+    if (attr != cudaSuccess) return (int)attr;
+    fused_ac_wgmma_kernel<false><<<tiles, THREADS, smem, (cudaStream_t)stream>>>(
+        maps[0], maps[1], maps[2], maps[3], p);
+    return (int)cudaGetLastError();
+  }
+#ifdef PROBE_SMEM_EXTRA
+  smem += PROBE_SMEM_EXTRA;
+#endif
+  const cudaError_t attr = kernel_ready<true>();
   if (attr != cudaSuccess) return (int)attr;
-  fused_ac_wgmma_kernel<<<(B + M - 1) / M, THREADS, smem, (cudaStream_t)stream>>>(
-      maps[0], maps[1], maps[2], maps[3], p);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(tiles, groups, value ? 2 : 1, smem, (cudaStream_t)stream, &cluster);
+  void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &p};
+  const cudaError_t err =
+      cudaLaunchKernelExC(&cfg, (const void*)fused_ac_wgmma_kernel<true>, args);
+  const cudaError_t last = cudaGetLastError();  // cleared: a refused launch is reported once
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// How many clusters of the cluster mode at hidden width H can be resident
+// on the card at once, into *count.
+extern "C" int fused_actor_critic_wgmma_max_clusters(int H, int* count) {
+  if (H < 1 || H > MAX_HIDDEN) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = kernel_ready<true>();
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(1, (H + NC - 1) / NC, 1, smem_bytes(H), nullptr, &cluster);
+  return (int)cudaOccupancyMaxActiveClusters(count, (const void*)fused_ac_wgmma_kernel<true>,
+                                             &cfg);
 }

@@ -8,15 +8,20 @@ width alone (`route`): up to 768 the `wgmma` route
 (`csrc/fused_actor_critic_wgmma.cu`: wgmma fed by TMA, after one launch of
 its weight preparation), above it the `mma_sync` route
 (`csrc/fused_actor_critic.cu`).  Both take 3xTF32 products on the tensor
-cores.  On a CPU tensor it runs `fused_masked_forward_plain`, the same
-function in plain PyTorch.  The kernels are held within rtol/atol 1e-5 of
+cores.  The `wgmma` route has two modes, chosen by `wgmma_mode(B, H)`: tile
+mode (a block per 64-row tile does every column) and, at small B, cluster
+mode (a cluster of blocks per tile and head splits the hidden columns).  A
+row's outputs are the same bits in both modes and at every B.  On a CPU
+tensor it runs `fused_masked_forward_plain`, the same function in plain
+PyTorch.  The kernels are held within rtol/atol 1e-5 of
 the plain version, which computes in the weights' dtype: on the committed
 nets the plain float32 version is itself that far from the exact forward,
 so float64 weights give the reference.
 
 Counters: `launches` counts forwards that launched a kernel (one each),
-`launches_by_route` splits them by route, and `prep_launches` counts the
-weight preparations of the `wgmma` route.
+`launches_by_route` splits them by route, `launches_by_mode` splits the
+`wgmma` route's by mode, and `prep_launches` counts the weight preparations
+of the `wgmma` route; `launch_counts()` reads them all.
 
 `weights` is the list of the 12 weight and bias tensors in the JAX package's
 layout, [in, out]: aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2
@@ -38,9 +43,17 @@ BIG_NEG = -1e9
 MAX_HIDDEN = 1024
 WGMMA_MAX_HIDDEN = 768  # the widest first hidden layer the wgmma kernel's 64-row tile holds
 K1_PAD = 304  # OBS_DIM padded to a multiple of 8
+ROWS = 64  # the wgmma kernel's row tile
+PASS_COLUMNS = 128  # hidden columns of one pass of the wgmma kernel
+PORTABLE_CLUSTER = 8  # the most blocks a cluster may have without opting out
+# The wgmma route's cluster mode up to this many rows, tile mode above:
+# where the split stops paying on an H100 at H = 768 (chip_smoke.py times
+# both modes at every B of the main path).
+CLUSTER_MAX_ROWS = 4096
 
 launches = 0
 launches_by_route = {"wgmma": 0, "mma_sync": 0}
+launches_by_mode = {"tile": 0, "cluster": 0}
 prep_launches = 0
 
 
@@ -49,6 +62,41 @@ def route(H: int) -> str:
     function of the batch, so a row's outputs do not depend on how the rows
     are split into calls."""
     return "wgmma" if H <= WGMMA_MAX_HIDDEN else "mma_sync"
+
+
+def wgmma_mode(B: int, H: int) -> str:
+    """The `wgmma` route's mode for B rows at hidden width H: "cluster" (a
+    cluster of `column_groups(H)` blocks per 64-row tile and head, one pass
+    of 128 hidden columns each) up to `CLUSTER_MAX_ROWS` rows, where few
+    tiles would leave the card waiting on their weight streams, else "tile"
+    (a block per tile).  The modes sum in the same order, so the choice
+    changes no bit."""
+    return "cluster" if B <= CLUSTER_MAX_ROWS else "tile"
+
+
+def column_groups(H: int) -> int:
+    """The blocks of a cluster-mode cluster: one per pass of 128 hidden
+    columns."""
+    return -(-H // PASS_COLUMNS)
+
+
+def launch_shape(B: int, H: int, with_value: bool, mode: str):
+    """(grid, cluster) of the `wgmma` kernel's launch, as the C side forms
+    them: tile mode one block per 64-row tile; cluster mode one per tile,
+    pass and head, a cluster over the passes of one tile and head."""
+    tiles = -(-B // ROWS)
+    if mode == "tile":
+        return (tiles, 1, 1), (1, 1, 1)
+    g = column_groups(H)
+    return (tiles, g, 2 if with_value else 1), (1, g, 1)
+
+
+def launch_counts() -> dict:
+    """Every counter of this module, by the names chip_smoke.py reports."""
+    return {"fused_actor_critic": launches,
+            **{f"fused_actor_critic_{r}": n for r, n in launches_by_route.items()},
+            **{f"fused_actor_critic_{m}": n for m, n in launches_by_mode.items()},
+            "fused_actor_critic_prep": prep_launches}
 
 
 def pad8(n: int) -> int:
@@ -129,7 +177,8 @@ def bind(lib: ctypes.CDLL, r: str) -> ctypes.CDLL:
     p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     if r == "wgmma":
         fns = [(lib.fused_actor_critic_wgmma_prepare, [w, i, i, p, p]),
-               (lib.fused_actor_critic_wgmma_forward, [p, p, i, i, w, p, p, p, p])]
+               (lib.fused_actor_critic_wgmma_forward, [p, p, i, i, w, p, p, p, i, p]),
+               (lib.fused_actor_critic_wgmma_max_clusters, [i, ctypes.POINTER(i)])]
     else:
         fns = [(lib.fused_actor_critic_forward, [p, p, i, i, w, p, p, p])]
     for fn, argtypes in fns:
@@ -211,16 +260,31 @@ def fused_masked_forward(weights, obs: torch.Tensor, mask: torch.Tensor, with_va
     return _launch(route(H), weights, obs, mask, with_value)
 
 
-def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None):
+def max_clusters(H: int) -> int:
+    """How many cluster-mode clusters at hidden width H the card holds at
+    once."""
+    n = ctypes.c_int(0)
+    err = _route_lib("wgmma").fused_actor_critic_wgmma_max_clusters(H, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"fused_actor_critic cluster occupancy query failed: CUDA error {err}")
+    return n.value
+
+
+def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None, mode=None):
     """One forward on route `r` of checked CUDA inputs, from `lib` (a
     library of `bind`; the library's own build unless given one); the
-    `wgmma` route prepares the weights first unless given `prepared`.
-    `route(H)` names the route of the path; a measurement may time the other
-    one, or a probe's build of it."""
+    `wgmma` route prepares the weights first unless given `prepared`, and
+    runs in `wgmma_mode(B, H)` unless given `mode`.  `route(H)` and
+    `wgmma_mode` name what the path runs; a measurement or a test may force
+    the other route or mode, or a probe's build."""
     global launches
     if r not in SOURCES:
         raise ValueError(f"unknown route {r!r}")
     B, H = obs.shape[0], weights[0].shape[1]
+    if r == "wgmma":
+        mode = wgmma_mode(B, H) if mode is None else mode
+        if mode not in launches_by_mode:
+            raise ValueError(f"unknown mode {mode!r}")
     logits = torch.empty((B, ACT_DIM), dtype=torch.float32, device=obs.device)
     value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
     if B == 0:
@@ -230,9 +294,10 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
     if r == "wgmma":
         if prepared is None:
             prepared = prepare_weights(weights, with_value, lib)
+        groups = column_groups(H) if mode == "cluster" else 0
         err = lib.fused_actor_critic_wgmma_forward(
             obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), prepared.data_ptr(),
-            logits.data_ptr(), value_ptr, _stream(obs))
+            logits.data_ptr(), value_ptr, groups, _stream(obs))
     else:
         err = lib.fused_actor_critic_forward(obs.data_ptr(), mask.data_ptr(), B, H,
                                              _ptrs(weights), logits.data_ptr(), value_ptr,
@@ -241,4 +306,6 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
         raise RuntimeError(f"fused_actor_critic {r} kernel launch failed: CUDA error {err}")
     launches += 1
     launches_by_route[r] += 1
+    if r == "wgmma":
+        launches_by_mode[mode] += 1
     return logits, value

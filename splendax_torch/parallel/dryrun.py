@@ -70,11 +70,7 @@ def _rank(n: int, device: str) -> dict:
     lines.append(f"dryrun_multichip search-eval OK: gumbel m={m} k0={k0} on dp={dp} tp={tp}, "
                  f"B={B}, all actions legal")
     return {"lines": lines, "device": str(dev), "loss": metrics["loss"].item(),
-            "launches": {"fused_actor_critic": fac.launches,
-                         "fused_actor_critic_wgmma": fac.launches_by_route["wgmma"],
-                         "fused_actor_critic_mma_sync": fac.launches_by_route["mma_sync"],
-                         "fused_actor_critic_prep": fac.prep_launches,
-                         "ring_take": rt.launches},
+            "launches": {**fac.launch_counts(), "ring_take": rt.launches},
             "routes": dict(collectives.routes)}
 
 

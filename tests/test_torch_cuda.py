@@ -427,17 +427,81 @@ def test_prep_kernel_equals_plain_bit_for_bit(cuda, H, with_value):
 @pytest.mark.parametrize("H", [256, 768])
 def test_wgmma_rows_do_not_depend_on_b(cuda, H):
     """Rows split into calls as a dp rank or a pool slot splits them (1000 +
-    7192, 4096 + 4096) equal the B=8192 call bit for bit."""
+    7192, 4096 + 4096), and across the cluster mode's threshold and its
+    tiles' edges (1 + 8191, 64 + 8128, 512 + 7680, 2048 + 6144, 4095 + 4097:
+    a small call in cluster mode, the rest in tile mode), equal the B=8192
+    call bit for bit."""
     rng = np.random.RandomState(H)
     w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
     obs = torch.as_tensor(rng.randint(0, 8, size=(8192, 297)).astype(np.int32), device=cuda)
     mask = torch.as_tensor(rng.rand(8192, 45) < 0.4, device=cuda)
     whole = fac.fused_masked_forward(w, obs, mask)
-    for cut in (1000, 4096):
+    before = dict(fac.launches_by_mode)
+    for cut in (1000, 4096, 1, 64, 512, 2048, 4095):
         parts = [fac.fused_masked_forward(w, obs[a:b].contiguous(), mask[a:b].contiguous())
                  for a, b in ((0, cut), (cut, 8192))]
         for j in (0, 1):
             assert torch.equal(torch.cat([p[j] for p in parts]), whole[j])
+    assert all(fac.launches_by_mode[m] > before[m] for m in before)  # both modes ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 100, 256, 768])
+@pytest.mark.parametrize("B", [1, 63, 65, 1000, 4097])
+def test_wgmma_modes_agree_bit_for_bit(cuda, H, B):
+    """The tile and the cluster mode, forced on the same rows, give the same
+    bits, with and without value, at widths of one pass (1, 100), of two
+    (256) and of six (768), on ragged tiles; one launch each, counted by
+    mode; within rtol/atol 1e-5 of the float64 plain forward."""
+    rng = np.random.RandomState(H + B)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+    obs[B // 2, 7] = 4097  # a tile that takes layer 1's third product
+    mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+    mask[0] = False
+    w64 = [t.double() for t in w]
+    for with_value in (True, False):
+        before = dict(fac.launches_by_mode)
+        tile = fac._launch("wgmma", w, obs, mask, with_value, mode="tile")
+        cluster = fac._launch("wgmma", w, obs, mask, with_value, mode="cluster")
+        torch.cuda.synchronize()
+        assert {m: fac.launches_by_mode[m] - before[m] for m in before} == {"tile": 1, "cluster": 1}
+        ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
+        for a, b, r in zip(tile, cluster, ref):
+            if r is None:
+                assert a is None and b is None
+                continue
+            assert torch.equal(a, b)
+            torch.testing.assert_close(a.double(), r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_refused_cluster_launch_raises(cuda, tmp_path):
+    """A cluster-mode launch that the card refuses (a build that asks for
+    more shared memory than a block may have) raises through the wrapper,
+    and nothing else runs in its place: no counter moves and the outputs of
+    a forward that did not run are never returned."""
+    import ctypes
+
+    from splendax_torch.ops import _build
+
+    lib = tmp_path / "libwgmma_refused.so"
+    _build.compile_many({"refused": (_build.CSRC / "fused_actor_critic_wgmma.cu", lib,
+                                     ("-DPROBE_SMEM_EXTRA=65536",))})
+    refused = fac.bind(ctypes.CDLL(str(lib)), "wgmma")
+    rng = np.random.RandomState(5)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, 768), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(256, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(256, 45) < 0.4, device=cuda)
+    prepared = fac.prepare_weights(w)
+    counts = fac.launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fac._launch("wgmma", w, obs, mask, True, prepared, lib=refused, mode="cluster")
+    torch.cuda.synchronize()
+    assert fac.launch_counts() == counts
+    # The same build's tile mode, and the library's own cluster mode, still run.
+    tile = fac._launch("wgmma", w, obs, mask, True, prepared, lib=refused, mode="tile")
+    assert torch.equal(tile[0], fac._launch("wgmma", w, obs, mask, True, mode="cluster")[0])
 
 
 @pytest.mark.cuda

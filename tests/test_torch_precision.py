@@ -225,32 +225,82 @@ def mm_wgmma(a, b, chunk, a_exact=False):
     return acc
 
 
-def head_wgmma(h2, w2, hidden):
-    """The logits' product on the accumulator: each consumer group's 64
-    columns of a 128-column pass in groups of 8, each group's three TF32
-    products summed from zero (rounded toward zero) and added in f32; the two
-    groups' partial logits summed in order."""
-    parts = []
-    for c in range(2):
-        part = torch.zeros(h2.shape[0], w2.shape[1], dtype=torch.float32)
-        for n0 in range(0, hidden, 128):
-            for k0 in range(n0 + 64 * c, min(n0 + 64 * c + 64, hidden), 8):
-                part = part + mm_wgmma(h2[:, k0:k0 + 8], w2[k0:k0 + 8], chunk=1)
-        parts.append(part)
-    return parts[0] + parts[1]
+def fma32(a, b, c):
+    """fmaf on float32: a b + c with one rounding (the float64 product of two
+    float32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def group_partials(h2, w2, wv, n0, hidden):
+    """One consumer group's partial heads over the 64 columns from n0 of a
+    pass, each from zero: the logits, a 3xTF32 product per group of 8
+    columns added in f32; the value, each quad thread's f32 FMA chain over
+    its 16 columns (8 i + 2 t + e, i then e), then summed over the quad as
+    the two shuffles do, (t0 + t1) + (t2 + t3)."""
+    B = h2.shape[0]
+    logits = torch.zeros(B, w2.shape[1], dtype=torch.float32)
+    for k0 in range(n0, min(n0 + 64, hidden), 8):
+        logits = logits + mm_wgmma(h2[:, k0:k0 + 8], w2[k0:k0 + 8], chunk=1)
+    lanes = []
+    for t in range(4):
+        v = torch.zeros(B, dtype=torch.float32)
+        for i in range(8):
+            for e in range(2):
+                col = n0 + 8 * i + 2 * t + e
+                if col < hidden:
+                    v = fma32(h2[:, col], wv[col, 0].expand(B), v)
+        lanes.append(v)
+    return logits, (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def heads_tile(h2, w2, wv, hidden):
+    """The heads as a tile-mode block sums them: each consumer group's
+    partials added to its running sums pass by pass, from zero; then the two
+    groups' sums added (the bias comes after)."""
+    run = [[torch.zeros(h2.shape[0], w2.shape[1]), torch.zeros(h2.shape[0])] for _ in range(2)]
+    for n0 in range(0, hidden, 128):
+        for c in range(2):
+            lg, v = group_partials(h2, w2, wv, n0 + 64 * c, hidden)
+            run[c][0] = run[c][0] + lg
+            run[c][1] = run[c][1] + v
+    return run[0][0] + run[1][0], run[0][1] + run[1][1]
+
+
+def heads_cluster(h2, w2, wv, hidden, per_block):
+    """The heads as a cluster sums them: blocks of `per_block` passes each
+    write the partials of their passes, then one reducer per output adds
+    every pass's partials in pass order from zero, each consumer group's
+    apart, then the two groups' sums."""
+    passes = list(range(0, hidden, 128))
+    written = {}
+    for b0 in reversed(range(0, len(passes), per_block)):  # the blocks, in any order
+        for n0 in passes[b0:b0 + per_block]:
+            for c in range(2):
+                written[n0, c] = group_partials(h2, w2, wv, n0 + 64 * c, hidden)
+    out = []
+    for j in range(2):  # logits, value
+        sums = []
+        for c in range(2):
+            s = torch.zeros_like(written[0, 0][j])
+            for n0 in passes:
+                s = s + written[n0, c][j]
+            sums.append(s)
+        out.append(sums[0] + sums[1])
+    return tuple(out)
 
 
 def emulated_wgmma_forward(weights, obs, mask, chunk):
+    """The wgmma route's forward, its heads summed as both modes sum them."""
     aw0, ab0, aw1, ab1, aw2, ab2, cw0, cb0, cw1, cb1, cw2, cb2 = weights
     hidden = aw0.shape[1]
     x = obs.to(torch.float32)
     exact = bool((x.abs() <= TF32_EXACT).all())
     h = torch.tanh(mm_wgmma(x, aw0, chunk, exact) + ab0)
     h = torch.tanh(mm_wgmma(h, aw1, chunk) + ab1)
-    logits = fac.masked_logits(head_wgmma(h, aw2, hidden) + ab2, mask)
+    logits = fac.masked_logits(heads_tile(h, aw2, cw2, hidden)[0] + ab2, mask)
     v = torch.tanh(mm_wgmma(x, cw0, chunk, exact) + cb0)
     v = torch.tanh(mm_wgmma(v, cw1, chunk) + cb1)
-    return logits, (v @ cw2 + cb2)[:, 0]
+    return logits, heads_tile(v, aw2, cw2, hidden)[1] + cb2[0]
 
 
 @pytest.mark.parametrize("chunk", [1, 2, 4])
@@ -259,7 +309,8 @@ def test_wgmma_arithmetic_matches_float64(batch, hidden, chunk):
     """rtol/atol 1e-5 of the float64 plain forward: the committed nets on
     engine obs (128 rows), with the wgmma route's arithmetic at the chunk
     lengths tried on the card (2 is the route's; 8 missed the contract
-    there, at 1.13 of the tolerance on 8192 rows)."""
+    there, at 1.13 of the tolerance on 8192 rows), its heads summed as both
+    modes sum them: per pass and consumer group from zero, in pass order."""
     w = ac.kernel_weights(ac.import_params_npz(NETS[hidden], device="cpu"))
     obs, mask = batch[0][:128], batch[1][:128]
     lr, vr = fac.fused_masked_forward_plain([t.double() for t in w], obs, mask)
@@ -267,6 +318,73 @@ def test_wgmma_arithmetic_matches_float64(batch, hidden, chunk):
     torch.testing.assert_close(le.double(), lr, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(ve.double(), vr, rtol=1e-5, atol=1e-5)
     assert (le[0] > -1e8).all()
+
+
+@pytest.mark.parametrize("hidden", [256, 768])
+@pytest.mark.parametrize("B", [1, 17, 64])
+def test_wgmma_rows_match_float64_at_any_b(batch, hidden, B):
+    """The first B of 128 rows through the wgmma route's arithmetic (chunks
+    of two, the heads in the modes' order) equal the same rows of the
+    128-row forward bit for bit, and are within rtol/atol 1e-5 of the float64
+    plain forward."""
+    w = ac.kernel_weights(ac.import_params_npz(NETS[hidden], device="cpu"))
+    obs, mask = batch[0][:128], batch[1][:128]
+    whole = emulated_wgmma_forward(w, obs, mask, 2)
+    part = emulated_wgmma_forward(w, obs[:B], mask[:B], 2)
+    for got, want in zip(part, whole):
+        assert torch.equal(got, want[:B])
+    lr, vr = fac.fused_masked_forward_plain([t.double() for t in w], obs[:B], mask[:B])
+    torch.testing.assert_close(part[0].double(), lr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(part[1].double(), vr, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hidden, per_block", [(37, 1), (100, 1), (256, 1), (256, 2), (300, 1),
+                                               (300, 3), (768, 1), (768, 2), (768, 3), (768, 6)])
+def test_wgmma_cluster_heads_equal_tile_heads(hidden, per_block):
+    """The heads summed as a cluster sums them (blocks of `per_block` passes
+    write their partials; one reducer an output adds them in pass order)
+    equal the tile mode's running sums bit for bit, at any number of column
+    groups: the two modes share one definition of the heads.  Seeded
+    random second hidden layers (tanh range) and head weights; the sums are
+    within rtol/atol 1e-5 of float64."""
+    rng = np.random.RandomState(hidden + per_block)
+    h2 = torch.from_numpy(np.tanh(rng.randn(40, hidden)).astype(np.float32))
+    w = random_weights(hidden, seed=hidden)
+    tile = heads_tile(h2, w[4], w[10], hidden)
+    cluster = heads_cluster(h2, w[4], w[10], hidden, per_block)
+    for got, want in zip(cluster, tile):
+        assert torch.equal(got, want)
+    exact = (h2.double() @ w[4].double(), (h2.double() @ w[10].double())[:, 0])
+    for got, want in zip(tile, exact):
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hidden", [1, 37, 100, 128, 129, 256, 300, 640, 768])
+def test_wgmma_mode_is_a_function_of_b_and_h(hidden):
+    """The wgmma route's mode follows (B, H) alone, cluster mode up to
+    CLUSTER_MAX_ROWS rows; its launch puts one block per 64-row tile, pass
+    of 128 columns and head, the cluster over the passes of one tile and
+    head: the cluster divides the grid and stays within the portable 8
+    blocks.  Tile mode launches one block per tile, no cluster."""
+    import inspect
+
+    assert list(inspect.signature(fac.wgmma_mode).parameters) == ["B", "H"]
+    groups = fac.column_groups(hidden)
+    assert groups == -(-hidden // 128) and 1 <= groups <= fac.PORTABLE_CLUSTER
+    for B in (1, 63, 64, 65, 512, fac.CLUSTER_MAX_ROWS, fac.CLUSTER_MAX_ROWS + 1, 8192, 737280):
+        mode = fac.wgmma_mode(B, hidden)
+        assert mode == ("cluster" if B <= fac.CLUSTER_MAX_ROWS else "tile")
+        for with_value in (True, False):
+            for m in ("tile", "cluster"):
+                grid, cluster = fac.launch_shape(B, hidden, with_value, m)
+                assert grid[0] == -(-B // 64)
+                assert all(g % c == 0 for g, c in zip(grid, cluster))
+                assert cluster[0] * cluster[1] * cluster[2] <= fac.PORTABLE_CLUSTER
+                if m == "cluster":
+                    assert grid[1:] == (groups, 2 if with_value else 1)
+                    assert cluster == (1, groups, 1)
+                else:
+                    assert grid[1:] == (1, 1) and cluster == (1, 1, 1)
 
 
 @pytest.mark.parametrize("hidden, want", [(1, "wgmma"), (256, "wgmma"), (768, "wgmma"),
