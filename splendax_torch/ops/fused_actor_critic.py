@@ -67,10 +67,10 @@ def route(H: int) -> str:
 def wgmma_mode(B: int, H: int) -> str:
     """The `wgmma` route's mode for B rows at hidden width H: "cluster" (a
     cluster of `column_groups(H)` blocks per 64-row tile and head, one pass
-    of 128 hidden columns each) up to `CLUSTER_MAX_ROWS` rows, where few
-    tiles would leave the card waiting on their weight streams, else "tile"
-    (a block per tile).  The modes sum in the same order, so the choice
-    changes no bit."""
+    of 128 hidden columns each) up to `CLUSTER_MAX_ROWS` rows, where tile
+    mode's few blocks would each take every pass in turn while most SMs
+    idle, else "tile" (a block per tile).  The modes sum in the same order,
+    so the choice changes no bit."""
     return "cluster" if B <= CLUSTER_MAX_ROWS else "tile"
 
 
