@@ -29,10 +29,13 @@ Phases, in order; any failure exits non-zero:
      summed kernel time under torch.profiler).  Kernel A takes its wgmma
      route at H <= 768 (held at H = 256 and 768, its prep kernel bit for bit
      against the plain preparation, its tile and cluster modes bit for bit
-     against each other) and its mma_sync route above (held at H = 1024 on
-     random weights); at each main-path shape both modes of the wgmma kernel,
-     alone and with their prep, PR 2's mma_sync kernel on the same rows, the
-     plain forward and the addmm chain are timed;
+     against each other) and its wide route above (held at H = 1024, 1280
+     and 2048 on random weights, B = 1 to 8192, obs of 4097); at each
+     main-path shape both modes of the wgmma kernel, alone and with their
+     prep, PR 2's mma_sync kernel on the same rows, the plain forward and the
+     addmm chain are timed, and so is the wide route at the wide paths'
+     shapes (H = 1024, B = 1024 and 8192; H = 1280, B = 8192) beside the
+     same yardsticks;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
   9. the searches: without a network, `determinize`, the Gumbel search
@@ -80,13 +83,17 @@ Phases, in order; any failure exits non-zero:
      Kernel A on 4096 + 4096 and 1000 + 7192 rows equals the B=8192 call
      bit for bit;
  17. `train.train` at hidden 1024 (one update of 1024 x 8 with an eval at
-     step 0): kernel A's mma_sync route on a driven path.
+     step 0) and at hidden 1280 (one update of 512 x 8): kernel A's wide
+     route on a driven path;
+ 18. the committed h1024 net (`runs/ppo_splendor_2b_h1024`) greedy against
+     the basic heuristic over 256 games, through the wide route.
 
 Every driven path at H <= 768 (4 to 16) must launch kernel A on its wgmma
 route only, each forward with one weight preparation and in the mode its B
 derives (`wgmma_mode`: cluster mode up to CLUSTER_MAX_ROWS rows, tile mode
 above), the cluster mode on the pool slots, the eval suite, the root prior
-and the host policies; path 17 on its mma_sync route only.
+and the host policies; paths 17 and 18 on the wide route only, each forward
+with one weight preparation.
 
 Phases 9 to 16 run after phase 6 and before phase 7, so the host-clock
 rates (phases 3 to 6 and 9 to 16) are taken before the first
@@ -340,7 +347,7 @@ def phase_kernels(device) -> dict:
                               f"kernel A with obs of 4097 at H={H} B={B} value={with_value}: "
                               f"{share(g, r):.3f} of the tolerance")
                         shares[0] = max(shares[0], share(g, r))
-        check(fac.launches_by_route["mma_sync"] == before["mma_sync"]
+        check(all(fac.launches_by_route[r] == before[r] for r in before if r != "wgmma")
               and fac.launches_by_route["wgmma"] > before["wgmma"],
               f"kernel A at H={H} left the wgmma route: {fac.launches_by_route}")
         # The prep kernel against its plain version, bit for bit (the actor's
@@ -357,43 +364,60 @@ def phase_kernels(device) -> dict:
               f"(at most {F32_PLAIN_SLACK}; B in {[r[0] for r in rows]}, with and without value, "
               f"and B in (1, 8192) with obs of 4097; wgmma route, its modes {modes} bit-equal "
               f"on every row; the prep kernel equals its plain version bit for bit)", flush=True)
-    # The mma_sync route, at H = 1024 (768 < H <= 1024), on seeded random
-    # weights and engine obs, held the same way.
-    H = 1024
-    rng = np.random.RandomState(H)
-    w_wide = []
-    for n_out in (45, 1):
-        for fi, fo in ((297, H), (H, H), (H, n_out)):
-            for shape in ((fi, fo), (fo,)):
-                w_wide.append(torch.as_tensor(
-                    (rng.uniform(-1, 1, shape) / np.sqrt(fi)).astype(np.float32), device=device))
-    w64_wide = [t.double() for t in w_wide]
-    err_wide, share_wide = 0.0, 0.0
+    # The wide route (every H > 768), at H = 1024, 1280 and 2048 on seeded
+    # random weights and engine obs, held the same way; the last case puts
+    # obs of 4097 (not exact in TF32) into some of B = 8192's tiles.
+    def random_weights(H):
+        rng = np.random.RandomState(H)
+        out = []
+        for n_out in (45, 1):
+            for fi, fo in ((297, H), (H, H), (H, n_out)):
+                for shape in ((fi, fo), (fo,)):
+                    out.append(torch.as_tensor(
+                        (rng.uniform(-1, 1, shape) / np.sqrt(fi)).astype(np.float32),
+                        device=device))
+        return out
+
+    wide_b = (1, 256, 257, 1024, 4096, 4097, 8192)
+    wide_cases = [(B, False) for B in wide_b] + [(8192, True)]
+    err_wide, share_wide, share_wide32, n_wide = 0.0, 0.0, 0.0, 0
     before = dict(fac.launches_by_route)
-    for B in (1, 257, 1024, 4097, 8192):
-        obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
-        for with_value in (True, False):
-            outs = [fac.fused_masked_forward(w_wide, obs, mask, with_value),
-                    fac.fused_masked_forward_plain(w_wide, obs, mask, with_value),
-                    fac.fused_masked_forward_plain(w64_wide, obs, mask, with_value)]
-            torch.cuda.synchronize()
-            for got, f32, ref in zip(*outs):
-                if got is None:
-                    continue
-                where = f"H={H} B={B} value={with_value}"
-                check(torch.isfinite(got).all().item()
-                      and torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-5)
-                      and share(got, f32) <= F32_PLAIN_SLACK,
-                      f"kernel A's mma_sync route at {where}: {share(got, ref):.3f} of the "
-                      f"tolerance vs float64, {share(got, f32):.3f} vs float32")
-                err_wide = max(err_wide, (got.double() - ref).abs().max().item())
-                share_wide = max(share_wide, share(got, ref))
+    for H in (1024, 1280, 2048):
+        w_h = random_weights(H)
+        w64_h = [t.double() for t in w_h]
+        for B, big in wide_cases:
+            obs, mask = obs_all[:B].clone(), mask_all[:B].contiguous()
+            if big:
+                obs[B - 100::9, 0] = 4097
+                obs[0, 5] = 4097
+            for with_value in (True, False):
+                outs = [fac.fused_masked_forward(w_h, obs, mask, with_value),
+                        fac.fused_masked_forward_plain(w_h, obs, mask, with_value),
+                        fac.fused_masked_forward_plain(w64_h, obs, mask, with_value)]
+                n_wide += 1
+                torch.cuda.synchronize()
+                where = f"H={H} B={B} value={with_value}" + (" obs of 4097" if big else "")
+                for got, f32, ref in zip(*outs):
+                    if got is None:
+                        continue
+                    check(torch.isfinite(got).all().item()
+                          and torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-5)
+                          and share(got, f32) <= F32_PLAIN_SLACK,
+                          f"kernel A's wide route at {where}: {share(got, ref):.3f} of the "
+                          f"tolerance vs float64, {share(got, f32):.3f} vs float32")
+                    err_wide = max(err_wide, (got.double() - ref).abs().max().item())
+                    share_wide = max(share_wide, share(got, ref))
+                    share_wide32 = max(share_wide32, share(got, f32))
+                check((outs[0][0][0] > -1e8).all().item(),
+                      f"kernel A's wide route masked a row with no legal action at {where}")
     check(fac.launches_by_route["wgmma"] == before["wgmma"]
-          and fac.launches_by_route["mma_sync"] == before["mma_sync"] + 10,
-          f"kernel A at H=1024 left the mma_sync route: {fac.launches_by_route}")
-    print(f"kernel A H=1024 (mma_sync route, random weights): max abs err {err_wide:.3g} vs the "
-          f"float64 plain version, {share_wide:.3f} of the tolerance; B in (1, 257, 1024, 4097, "
-          f"8192), with and without value", flush=True)
+          and fac.launches_by_route["mma_sync"] == before["mma_sync"]
+          and fac.launches_by_route["wide"] == before["wide"] + n_wide,
+          f"kernel A at H > 768 left the wide route: {fac.launches_by_route}")
+    print(f"kernel A H=1024, 1280, 2048 (wide route, random weights): max abs err {err_wide:.3g} "
+          f"vs the float64 plain version, {share_wide:.3f} of the tolerance; kernel vs float32 "
+          f"plain {share_wide32:.3f} (at most {F32_PLAIN_SLACK}); B in {wide_b} and 8192 with obs "
+          f"of 4097, with and without value", flush=True)
     # Times at H = 768: the agent forward and the bootstrap value (B = 8192,
     # with value), the pool slots' forwards (B = 2048, 3072, no value; 512, a
     # full pool's snapshot slot) and the eval suite's greedy forward (B = 256,
@@ -494,33 +518,51 @@ def phase_kernels(device) -> dict:
         bound_peak="HBM3, 3.35 TB/s", checked_against="plain version, bit for bit",
         by_shape=preps)
 
-    # The mma_sync route at the wide path's shapes: H = 1024, B = 1024 with
-    # value (its agent forward and bootstrap) and without (its pool slot).
+    # The wide route at the wide paths' shapes: H = 1024, B = 1024 with value
+    # (the train path's agent forward and bootstrap) and without (its pool
+    # slot), B = 8192 with value; H = 1280, B = 8192 with value.  Beside it,
+    # in the same call: the route alone (weights prepared once), PR 2's
+    # mma_sync kernel on the same rows (H <= 1024 only), the plain forward
+    # and the addmm chain.
     wides = []
-    for B, with_value in ((1024, True), (1024, False), (8192, True)):
+    for H, B, with_value in ((1024, 1024, True), (1024, 1024, False), (1024, 8192, True),
+                             (1280, 8192, True)):
+        w_h = random_weights(H)
         obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
         x32 = obs.to(torch.float32)
 
-        def addmm_wide(x32=x32, heads=(0, 6) if with_value else (0,)):
+        def addmm_wide(x32=x32, w_h=w_h, heads=(0, 6) if with_value else (0,)):
             for o in heads:
-                h = torch.tanh(torch.addmm(w_wide[o + 1], x32, w_wide[o]))
-                h = torch.tanh(torch.addmm(w_wide[o + 3], h, w_wide[o + 2]))
-                torch.addmm(w_wide[o + 5], h, w_wide[o + 4])
+                h = torch.tanh(torch.addmm(w_h[o + 1], x32, w_h[o]))
+                h = torch.tanh(torch.addmm(w_h[o + 3], h, w_h[o + 2]))
+                torch.addmm(w_h[o + 5], h, w_h[o + 4])
 
-        ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w_wide, obs, mask, with_value), 20)
-        plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w_wide, obs, mask,
+        prepared = fac.prepare_weights(w_h, with_value)
+        route_ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w_h, obs, mask, with_value),
+                                      20, per_call=4)
+        ms = device_ms(lambda: fac._launch("wide", w_h, obs, mask, with_value, prepared), 20,
+                       per_call=3)[0]
+        mma_sync_ms = (device_ms(lambda: fac._launch("mma_sync", w_h, obs, mask, with_value),
+                                 20)[0] if H <= 1024 else None)
+        plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w_h, obs, mask,
                                                                     with_value), 20)[0]
         library_ms = device_ms(addmm_wide, 20)[0]
-        bound_ms, bound_by, _ = bound_a(B, 1024, with_value, l1_products)
-        wides.append(dict(B=B, H=1024, with_value=with_value, ms=ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_ms, bound_by, bound_f32_ms = bound_a(B, H, with_value, l1_products)
+        wides.append(dict(B=B, H=H, with_value=with_value, ms=ms, route_ms=route_ms,
+                          mma_sync_ms=mma_sync_ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                           host_ms=host_ms))
-        print(f"kernel A mma_sync route B={B} H=1024 value={with_value}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-              f"{bound_by}; host {host_ms:.4f} ms per call", flush=True)
-    results["fused_actor_critic_mma_sync"] = dict(
-        max_abs_err=err_wide, **{k: wides[0][k] for k in ("ms", "plain_ms", "library_ms",
-                                                          "bound_ms", "bound_by", "host_ms")},
+        print(f"kernel A wide route B={B} H={H} value={with_value}: {ms:.4f} ms alone, "
+              f"{route_ms:.4f} ms with its prep (the path); mma_sync (PR 2) "
+              + (f"{mma_sync_ms:.4f} ms" if mma_sync_ms is not None else "- (H > 1024)")
+              + f", plain {plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); "
+              f"bound {bound_ms:.4f} ms by {bound_by} (3xTF32, layer 1 in {l1_products} "
+              f"products), {bound_f32_ms:.4f} ms on f32 CUDA cores; host {host_ms:.4f} ms per "
+              f"call", flush=True)
+    results["fused_actor_critic_wide"] = dict(
+        max_abs_err=err_wide, shape=dict(B=wides[0]["B"], H=wides[0]["H"], with_value=True),
+        **{k: wides[0][k] for k in ("ms", "route_ms", "mma_sync_ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "bound_f32_ms", "host_ms")},
         bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
         checked_against="plain version in float64, rtol/atol 1e-5", by_shape=wides)
 
@@ -703,10 +745,11 @@ def derive_modes() -> None:
     if getattr(launch, "derives", False):
         return
 
-    def derived(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None):
+    def derived(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None,
+                scratch=None):
         if r == "wgmma" and mode is None:
             DERIVED[fac.wgmma_mode(obs.shape[0], weights[0].shape[1])] += 1
-        return launch(r, weights, obs, mask, with_value, prepared, lib, mode)
+        return launch(r, weights, obs, mask, with_value, prepared, lib, mode, scratch)
 
     derived.derives = True
     fac._launch = derived
@@ -737,12 +780,14 @@ def zero_launches() -> None:
 
 def check_route(path: str, n: dict, route: str = "wgmma") -> None:
     """Every kernel A launch of the path took `route` (the hidden width's),
-    each wgmma forward prepared its weights once, and the wgmma forwards took
-    the modes their B derive."""
-    other = "mma_sync" if route == "wgmma" else "wgmma"
-    prep = n["fused_actor_critic"] if route == "wgmma" else 0
+    none another route, each forward prepared its weights once, and the
+    wgmma forwards took the modes their B derive."""
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    others = [r for r in fac.launches_by_route if r != route]
     check(n["fused_actor_critic"] > 0 and n["fused_actor_critic_" + route] == n["fused_actor_critic"]
-          and n["fused_actor_critic_" + other] == 0 and n["fused_actor_critic_prep"] == prep,
+          and all(n["fused_actor_critic_" + r] == 0 for r in others)
+          and n["fused_actor_critic_prep"] == n["fused_actor_critic"],
           f"{path}: kernel A's launches did not all take the {route} route: {n}")
     modes = {m: n["fused_actor_critic_" + m] for m in ("tile", "cluster")}
     check(sum(modes.values()) == n["fused_actor_critic_wgmma"]
@@ -1537,30 +1582,70 @@ def phase_parallel(device) -> dict:
 
 
 def phase_wide(device) -> dict:
-    """`train.train` at hidden 1024, wider than the wgmma route's 768: one
-    update of 1024 games x 8 turns from random weights, with the eval suite
-    at step 0, so that kernel A's mma_sync route runs on a driven path."""
+    """`train.train` past the wgmma route's 768, on kernel A's wide route:
+    at hidden 1024 one update of 1024 games x 8 turns from random weights,
+    with the eval suite at step 0; at hidden 1280 (wider than the 1024 the
+    port once refused) one update of 512 x 8.  The counters are zeroed
+    before each run and read after it; returns their sums."""
     import torch
 
     from splendax_torch.train import train
 
-    with tempfile.TemporaryDirectory() as log_dir:
-        cfg = train.parse_args([
-            "--num-envs", "1024", "--num-steps", "8", "--hidden", "1024",
-            "--total-timesteps", "8192", "--eval-games", "16", "--eval-every-updates", "99",
-            "--checkpoint-every-updates", "99", "--snapshot-every-updates", "99",
-            "--log-dir", log_dir])
-        zero_launches()
-        t0 = time.perf_counter()
-        ts = train.train(cfg, device=device)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = read_launches()
-    check(ts.update_idx == 1, f"train H=1024: ended at update {ts.update_idx}")
-    check(launches["fused_actor_critic"] >= 2 * cfg.num_steps + 1 and launches["ring_take"] > 0,
-          f"train H=1024: launches {launches}")
-    print(f"train H=1024: 1 update of {cfg.num_envs} x {cfg.num_steps} with an eval of "
-          f"4 x {cfg.eval_games} games in {dt:.3f} s; launches {launches}", flush=True)
+    total = {}
+    for H, envs in ((1024, 1024), (1280, 512)):
+        with tempfile.TemporaryDirectory() as log_dir:
+            cfg = train.parse_args([
+                "--num-envs", str(envs), "--num-steps", "8", "--hidden", str(H),
+                "--total-timesteps", str(envs * 8), "--eval-games", "16",
+                "--eval-every-updates", "99", "--checkpoint-every-updates", "99",
+                "--snapshot-every-updates", "99", "--log-dir", log_dir])
+            zero_launches()
+            t0 = time.perf_counter()
+            ts = train.train(cfg, device=device)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = read_launches()
+        check(ts.update_idx == 1, f"train H={H}: ended at update {ts.update_idx}")
+        check(launches["fused_actor_critic"] >= 2 * cfg.num_steps + 1
+              and launches["ring_take"] > 0, f"train H={H}: launches {launches}")
+        check_route(f"train H={H}", launches, route="wide")
+        print(f"train H={H}: 1 update of {cfg.num_envs} x {cfg.num_steps} with an eval of "
+              f"4 x {cfg.eval_games} games in {dt:.3f} s; launches {launches}", flush=True)
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+    return total
+
+
+def phase_eval_h1024(device) -> dict:
+    """The committed h1024 net (`runs/ppo_splendor_2b_h1024`, full width)
+    greedy against the basic heuristic over 256 games on the card, every
+    forward through kernel A's wide route; its win rate beside the one the
+    JAX run recorded over 400 games (`final_eval.json`)."""
+    import torch
+
+    from splendax_torch.eval import suite
+    from splendax_torch.models import actor_critic as ac
+
+    run = os.path.join(ROOT, "runs", "ppo_splendor_2b_h1024")
+    params = ac.import_params_npz(os.path.join(run, "ppo_splendor_params.npz"), device=device)
+    check(params.hidden == 1024, f"h1024 net has hidden {params.hidden}")
+    with open(os.path.join(run, "final_eval.json")) as f:
+        recorded = json.load(f)["basic"]
+    zero_launches()
+    t0 = time.perf_counter()
+    r = suite.run_evaluation_suite(params, 256, seed=0, opponents=["basic"],
+                                   device=device)["basic"]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check_route("eval h1024", launches, route="wide")
+    check(r["n"] == 256 and r["illegal_action_rate"] == 0, f"eval h1024: {r}")
+    # The recorded rate is 0.9675 +- 0.0174 over 400 games; 0.9 is far below
+    # any 256-game sample of it, and far above what a broken forward plays.
+    check(r["win_rate"] >= 0.9, f"eval h1024: win rate {r['win_rate']} vs basic, recorded "
+          f"{recorded['win_rate']}")
+    print(f"eval h1024 (committed net, H=1024, greedy vs basic, 256 games): wr={r['win_rate']:.4f} "
+          f"(recorded {recorded['win_rate']:.4f} over {recorded['n']}), turns {r['avg_turns']:.2f}, "
+          f"{dt:.3f} s; launches {launches}", flush=True)
     return launches
 
 
@@ -2135,7 +2220,8 @@ def main() -> int:
     check(by_path["parallel"]["fused_actor_critic"] > 0 and by_path["parallel"]["ring_take"] > 0,
           f"the parallel path did not launch both kernels: {by_path['parallel']}")
     # Every path above runs a net of H <= 768: all its kernel A launches take
-    # the wgmma route.  The wide path (H = 1024) takes the mma_sync route.
+    # the wgmma route.  The wide paths (H = 1024 and 1280) take the wide
+    # route, which phase_wide and phase_eval_h1024 check.
     for path, n in by_path.items():
         check_route(path, n)
     # The call sites of the cluster mode: the pool slots (rollout, update,
@@ -2147,8 +2233,8 @@ def main() -> int:
     print("kernel A's wgmma launches by mode (tile / cluster, as their B derive): " + "; ".join(
         f"{path} {n['fused_actor_critic_tile']} / {n['fused_actor_critic_cluster']}"
         for path, n in by_path.items()), flush=True)
-    by_path["train H=1024"] = phase_wide(device)
-    check_route("train H=1024", by_path["train H=1024"], route="mma_sync")
+    by_path["train H=1024, 1280"] = phase_wide(device)
+    by_path["eval h1024"] = phase_eval_h1024(device)
     kern = phase_kernels(device)
     phase_profile(cfg, ts)
     phase_profile(cfg_league, ts_league, label="profile (league slot)")
@@ -2159,7 +2245,7 @@ def main() -> int:
         "fused_actor_critic_tile": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_cluster": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_prep": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
-        "fused_actor_critic_mma_sync": ("splendax_torch/csrc/fused_actor_critic.cu", tpu_a),
+        "fused_actor_critic_wide": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "ring_take": ("splendax_torch/csrc/ring_take.cu", "splendax/ops/ring_take.py:38"),
     }
     rows = []

@@ -5,6 +5,7 @@ their times beside the `addmm` chain, and the tensor cores' mma.sync TF32 rate.
     python3 scripts/torch_kernel_a_probe.py            # everything below, ~2 min
     python3 scripts/torch_kernel_a_probe.py --check    # build, check, small-B timings; ~1 min
     python3 scripts/torch_kernel_a_probe.py --check --parent DIR   # and DIR's wgmma kernel
+    python3 scripts/torch_kernel_a_probe.py --wide     # the wide route (H > 768) alone; ~1 min
 
 Builds variants of `splendax_torch/csrc/fused_actor_critic_wgmma.cu` (the
 `wgmma` route, H <= 768) and `fused_actor_critic.cu` (the `mma_sync` route,
@@ -29,6 +30,15 @@ head-weight loads); then timings of both modes at B = 1, 256, 512, 1024,
 beside them at 8192.  Every variant is called through the wrapper
 (`fused_actor_critic._launch` with the variant's library and a forced mode),
 as the path calls the library's own build.
+
+--wide: only the wide route (H > 768, the same source): checked against the
+float64 plain forward at H = 1024, 1280 and 2048 (B = 1, 65, 8192, with and
+without value); then at H = 1024, B = 1024 with and without value and B =
+8192 with value, and H = 1280, B = 8192 with value, the route's split: the
+kernel alone, each of its three launches (layer 1, layer 2 with the partial
+heads, the outputs: device-clock sums by kernel), its one_product, no_loads
+and no_loads_one variants, PR 2's mma_sync kernel (H <= 1024) and the addmm
+chain.
 
 --parent DIR: also builds DIR/splendax_torch/csrc/fused_actor_critic_wgmma.cu
 (another tree's wgmma kernel, with the C interface of a single mode: no
@@ -112,17 +122,20 @@ extern "C" int run(int blocks, int iters, float* out) {
 """
 
 
-def build(check: bool, parent: str | None = None) -> dict:
+def build(check: bool, parent: str | None = None, wide: bool = False) -> dict:
     """{name: loaded library} for every variant (with --check only the
-    wgmma kernel, its no_loads variants and PR 2's kernel), each bound by the
-    wrapper, and the mma loop; prints the wgmma variants' ptxas reports."""
+    wgmma kernel, its no_loads variants and PR 2's kernel; with --wide
+    those and one_product), each bound by the wrapper, and the mma loop;
+    prints the wgmma variants' ptxas reports."""
     from splendax_torch.ops import _build
     from splendax_torch.ops import fused_actor_critic as fac
 
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
     for name, flags in WGMMA_VARIANTS.items():
-        if not check or name in ("wgmma",) + CLOCKS + WGMMA_SPLIT:
+        if wide and name not in ("wgmma", "wgmma_one_product") + WGMMA_SPLIT:
+            continue
+        if not check or wide or name in ("wgmma",) + CLOCKS + WGMMA_SPLIT:
             jobs[name] = (_build.CSRC / "fused_actor_critic_wgmma.cu",
                           os.path.join(OUT, f"lib{name}.so"), flags)
     for name, flags in MMA_SYNC_VARIANTS.items():
@@ -133,7 +146,7 @@ def build(check: bool, parent: str | None = None) -> dict:
         jobs["parent"] = (os.path.join(parent, "splendax_torch", "csrc",
                                        "fused_actor_critic_wgmma.cu"),
                           os.path.join(OUT, "libparent.so"), ())
-    if not check:
+    if not check and not wide:
         loop_cu = os.path.join(OUT, "mma_loop.cu")
         with open(loop_cu, "w") as f:
             f.write(MMA_LOOP)
@@ -263,6 +276,66 @@ def checks(libs: dict, nets: dict, obs_all, mask_all) -> None:
               + "; ".join(line), flush=True)
 
 
+def wide_probe(libs, cs, dev) -> None:
+    """--wide: the wide route's checks and split."""
+    import torch
+
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    obs_all, mask_all = cs.realistic_obs(8192, 30, seed=1024, device=dev)
+    for H in (1024, 1280, 2048):
+        w = random_weights(H, H, dev)
+        w64 = [t.double() for t in w]
+        worst = 0.0
+        for B in (1, 65, 8192):
+            obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+            for with_value in (True, False):
+                got = fac._launch("wide", w, obs, mask, with_value, lib=libs["wgmma"])
+                ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
+                for g, r in zip(got, ref):
+                    if g is not None:
+                        assert torch.isfinite(g).all(), f"wide non-finite at H={H} B={B}"
+                        worst = max(worst, share(g, r))
+        assert worst <= 1.0, f"wide route at H={H}: {worst:.3f} of the tolerance"
+        print(f"wide route H={H}: {worst:.3f} of rtol/atol 1e-5 vs float64 (B in 1, 65, 8192, "
+              f"with and without value)", flush=True)
+    names = ("wgmma", "wgmma_one_product") + WGMMA_SPLIT
+    for H, B, with_value in ((1024, 1024, True), (1024, 1024, False), (1024, 8192, True),
+                             (1280, 8192, True)):
+        w = random_weights(H, H, dev)
+        obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+        x32 = obs.float()
+        out = {}
+        for name in names:
+            prepared = fac.prepare_weights(w, with_value, libs[name])
+            out[name.replace("wgmma", "wide")] = cs.device_ms(
+                lambda: fac._launch("wide", w, obs, mask, with_value, prepared, lib=libs[name]),
+                20, per_call=3)[0]
+        prepared = fac.prepare_weights(w, with_value, libs["wgmma"])
+        kernels = cs.profiled_kernels(lambda: [fac._launch("wide", w, obs, mask, with_value,
+                                                           prepared, lib=libs["wgmma"])
+                                               for _ in range(20)], min_launches=60)
+        parts = {("outputs" if "wide_heads" in e.key else "layer 1"
+                  if "<1>" in e.key or "Li1E" in e.key else "layer 2"):
+                 e.self_device_time_total / 1e3 / 20 for e in kernels}
+        if H <= 1024:
+            out["mma_sync (PR 2)"] = cs.device_ms(
+                lambda: fac._launch("mma_sync", w, obs, mask, with_value, lib=libs["kernel"]),
+                20)[0]
+
+        def addmm_chain():
+            for o in ((0, 6) if with_value else (0,)):
+                h = torch.tanh(torch.addmm(w[o + 1], x32, w[o]))
+                h = torch.tanh(torch.addmm(w[o + 3], h, w[o + 2]))
+                torch.addmm(w[o + 5], h, w[o + 4])
+
+        out["addmm chain"] = cs.device_ms(addmm_chain, 20)[0]
+        bound = cs.bound_a(B, H, with_value, 2)[0]
+        print(f"wide route B={B} H={H} value={with_value} (bound {bound:.4f} ms): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + " ms; by launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -282,9 +355,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     from splendax_torch.ops import fused_actor_critic as fac
 
-    libs = build(check, parent)
+    wide = "--wide" in args
+    libs = build(check, parent, wide)
 
     dev = torch.device("cuda")
+    if wide:
+        wide_probe(libs, cs, dev)
+        return 0
     nets = {H: ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, src), device=dev))
             for H, src in ((256, "runs/ppo_splendor_2b/ppo_splendor_params.npz"),
                            (768, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"))}

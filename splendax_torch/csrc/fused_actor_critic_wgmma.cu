@@ -135,6 +135,9 @@ constexpr int PRODUCER_REGS = 40;                // setmaxnreg: the producer giv
 constexpr int CONSUMER_REGS = 232;               // registers to the consumers
 constexpr int KSTEP = 8;
 constexpr int STAGE_BYTES = 2 * NC * KSTEP * 4;  // hi and lo, NC outputs x 8 k
+// The wide route's layer 2: a stage also holds its A, 64 rows x 8 k of h1.
+constexpr int WIDE_STAGE_BYTES = STAGE_BYTES + M * KSTEP * 4;
+constexpr int WIDE_SHIFT = 4;  // the wide route's ring: 16 stages
 constexpr int SMEM_MAX = 232448;
 constexpr int ALIGN = 256;                // 32-byte swizzle atoms repeat every 256 bytes
 constexpr int MAX_HIDDEN = 768;
@@ -243,13 +246,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-// dst <- the {8 k, NC outputs, hi and lo} box of `map` at (k, n, 0).
+// dst <- the box of `map` at (k, n, z): a weight map's {8 k, NC outputs, hi
+// and lo} at z = 0, or the wide route's h1 map's {8 k, 64 rows} of head z.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int n,
-                                         uint32_t bar) {
+                                         uint32_t bar, int z = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(n), "r"(0), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(n), "r"(z), "r"(bar)
       : "memory");
 }
 
@@ -404,6 +408,7 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
 
 struct Smem {
   uint32_t ring;   // shared address of stage 0
+  const unsigned char* ring_p;  // the same, as a generic pointer
   float* h1;       // [M, SH] first hidden layer; partial logits at the end of the actor
   float* vpart;    // [CONSUMERS, M] value partials
   uint32_t full;   // shared address of full[0]; empty[s] is full + 8 (MAX_STAGES + s), the
@@ -444,12 +449,29 @@ __device__ __forceinline__ void obs_frag(const int32_t* __restrict__ x, int rows
 }
 
 // This thread's A fragment of k-step j, split: for layer 1 (L1) from the
-// obs prefetched in pa (pa <- pb <- the obs of k-step j + 2), else from h1.
-template <bool L1, bool EXACT>
-__device__ __forceinline__ void load_a(const Lane& l, int j, const float* h1, int SH,
-                                       const int32_t* __restrict__ x, int rows, int (&pa)[4],
-                                       int (&pb)[4], uint32_t (&ah)[4], uint32_t (&al)[4]) {
-  if constexpr (L1) {
+// obs prefetched in pa (pa <- pb <- the obs of k-step j + 2); with RA (the
+// wide route's layer 2) from the A box of the k-step's stage, once it is
+// full; else from h1.
+template <bool L1, bool EXACT, bool RA>
+__device__ __forceinline__ void load_a(const Smem& sm, uint32_t it0, const Lane& l, int j,
+                                       const float* h1, int SH, const int32_t* __restrict__ x,
+                                       int rows, int (&pa)[4], int (&pb)[4], uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  if constexpr (RA) {
+    const uint32_t it = it0 + j;
+    const int st = it & ((1 << sm.shift) - 1);
+#ifndef PROBE_NO_LOADS
+    mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
+#endif
+    // [64 rows][8 k] with 32-byte swizzle: the 16-byte half of row r that
+    // holds k < 4 is half (r >> 2) & 1.
+    const float* a =
+        reinterpret_cast<const float*>(sm.ring_p + st * WIDE_STAGE_BYTES + STAGE_BYTES);
+    const int r = 16 * l.wl + l.g, k0 = 4 * ((r >> 2) & 1) + l.t, k4 = k0 ^ 4;
+    const float av[4] = {a[8 * r + k0], a[8 * (r + 8) + k0], a[8 * r + k4], a[8 * (r + 8) + k4]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(av[i], ah[i], al[i]);
+  } else if constexpr (L1) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float a = (float)pa[i];
@@ -493,7 +515,7 @@ __device__ __forceinline__ void add32(float (&acc)[32], float (&s)[32]) {
 // zero: a wait for its stages, one fence, then for each k-step lo·hi
 // (unless A is exact), hi·lo and hi·hi, and one commit.  ah / al hold the
 // chunk's A fragments, loaded before.
-template <bool L1, bool EXACT>
+template <bool L1, bool EXACT, bool RA>
 __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint32_t it0, int j,
                                             uint32_t (&ah)[CHUNK][4], uint32_t (&al)[CHUNK][4],
                                             float (&s)[32]) {
@@ -505,7 +527,8 @@ __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint3
 #ifndef PROBE_NO_LOADS
     mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
 #endif
-    const uint32_t bh = sm.ring + st * STAGE_BYTES + l.c * WG_N * KSTEP * 4;
+    const uint32_t bh =
+        sm.ring + st * (RA ? WIDE_STAGE_BYTES : STAGE_BYTES) + l.c * WG_N * KSTEP * 4;
     dh[q] = desc_sw32(bh);
     dl[q] = desc_sw32(bh + NC * KSTEP * 4);
   }
@@ -531,14 +554,14 @@ __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint3
 }
 
 // The A fragments of the chunk at k-step j, pinned in their registers.
-template <bool L1, bool EXACT>
-__device__ __forceinline__ void load_chunk(const Lane& l, int j, const float* h1, int SH,
-                                           const int32_t* __restrict__ x, int rows, int (&pa)[4],
-                                           int (&pb)[4], uint32_t (&ah)[CHUNK][4],
-                                           uint32_t (&al)[CHUNK][4]) {
+template <bool L1, bool EXACT, bool RA>
+__device__ __forceinline__ void load_chunk(const Smem& sm, uint32_t it0, const Lane& l, int j,
+                                           const float* h1, int SH, const int32_t* __restrict__ x,
+                                           int rows, int (&pa)[4], int (&pb)[4],
+                                           uint32_t (&ah)[CHUNK][4], uint32_t (&al)[CHUNK][4]) {
 #pragma unroll
   for (int q = 0; q < CHUNK; ++q) {
-    load_a<L1, EXACT>(l, j + q, h1, SH, x, rows, pa, pb, ah[q], al[q]);
+    load_a<L1, EXACT, RA>(sm, it0, l, j + q, h1, SH, x, rows, pa, pb, ah[q], al[q]);
     fence_regs(ah[q]);
     fence_regs(al[q]);
   }
@@ -562,8 +585,10 @@ __device__ __forceinline__ void finish_chunk(const Smem& sm, uint32_t it0, int j
 // the wait for it is the only one, so the chunk's products run back to
 // back.  The hardware reads a wgmma's A registers while it runs, so the two
 // sets of A registers alternate: the next chunk's fragments are loaded
-// while this chunk runs, into the set the chunk before read.
-template <bool L1, bool EXACT>
+// while this chunk runs, into the set the chunk before read.  RA: A comes
+// from the ring's stages (the wide route's layer 2), else from the obs
+// (L1) or h1.
+template <bool L1, bool EXACT, bool RA = false>
 __device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_t it0, int j0,
                                           int j1, const float* h1, int SH,
                                           const int32_t* __restrict__ x, int rows,
@@ -577,15 +602,16 @@ __device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_
     obs_frag(x, rows, l, j0, pa);
     obs_frag(x, rows, l, j0 + 1, pb);
   }
-  load_chunk<L1, EXACT>(l, j0, h1, SH, x, rows, pa, pb, ah0, al0);
+  load_chunk<L1, EXACT, RA>(sm, it0, l, j0, h1, SH, x, rows, pa, pb, ah0, al0);
   for (int j = j0;; j += 2 * CHUNK) {
-    issue_chunk<L1, EXACT>(sm, l, it0, j, ah0, al0, s);
-    if (j + CHUNK < j1) load_chunk<L1, EXACT>(l, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
+    issue_chunk<L1, EXACT, RA>(sm, l, it0, j, ah0, al0, s);
+    if (j + CHUNK < j1)
+      load_chunk<L1, EXACT, RA>(sm, it0, l, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
     finish_chunk(sm, it0, j, acc, s);
     if (j + CHUNK == j1) return;
-    issue_chunk<L1, EXACT>(sm, l, it0, j + CHUNK, ah1, al1, s);
+    issue_chunk<L1, EXACT, RA>(sm, l, it0, j + CHUNK, ah1, al1, s);
     if (j + 2 * CHUNK < j1)
-      load_chunk<L1, EXACT>(l, j + 2 * CHUNK, h1, SH, x, rows, pa, pb, ah0, al0);
+      load_chunk<L1, EXACT, RA>(sm, it0, l, j + 2 * CHUNK, h1, SH, x, rows, pa, pb, ah0, al0);
     finish_chunk(sm, it0, j + CHUNK, acc, s);
     if (j + 2 * CHUNK == j1) return;
   }
@@ -906,6 +932,7 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
   const int stages = 1 << p.shift;
   sm.shift = p.shift;
   sm.ring = base;
+  sm.ring_p = gbase;
   sm.h1 = reinterpret_cast<float*>(gbase + stages * STAGE_BYTES);
   sm.vpart = sm.h1 + hidden_floats(H);
   unsigned char* bars = reinterpret_cast<unsigned char*>(sm.vpart + CONSUMERS * M);
@@ -993,6 +1020,192 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
   }
 }
 
+
+// ------------------------------------------------------------ the wide route
+
+// The wide route's launches: scratch in device memory, [heads][B][pad16(H)]
+// h1, then [passes][CONSUMERS][B][HEAD_PAD] partial logits and, with the
+// critic, [passes][CONSUMERS][B] partial values.
+struct WideParams {
+  const float* w[12];  // as in Params
+  const int32_t* obs;
+  const uint8_t* mask;
+  float* logits;
+  float* value;  // null: actor only
+  float* h1;
+  float* lpart;
+  float* vpart;
+  int B, H;
+};
+
+// Layer 1 of a (pass, tile, head) block: its pass's columns of h1 for the
+// tile's rows, bias and tanh, stored to the scratch in f32.
+__device__ __forceinline__ void wide_layer1(const Smem& sm, const WideParams& p,
+                                            const int32_t* __restrict__ x, int rows, int row0,
+                                            bool exact, int head, int q) {
+  const int tid = threadIdx.x, H = p.H, KH = pad16(H), n0 = NC * q;
+  const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
+  const int r0 = 16 * l.wl + l.g;
+  float acc[32];
+  layer1_pass(sm, l, 0, x, rows, exact, acc);
+  bias_tanh(l, acc, p.w[6 * head + 1], H, n0);
+  float* h1 = p.h1 + ((size_t)head * p.B + row0) * KH;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = acc_col(l, n0, i, 0);
+    if (col >= KH) continue;
+    if (r0 < rows)
+      *reinterpret_cast<float2*>(h1 + (size_t)r0 * KH + col) =
+          make_float2(acc[4 * i], acc[4 * i + 1]);
+    if (r0 + 8 < rows)
+      *reinterpret_cast<float2*>(h1 + (size_t)(r0 + 8) * KH + col) =
+          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
+// Layer 2 of a (pass, tile, head) block: its pass's columns over all of K,
+// A from the ring, in tile mode's k order; bias and tanh; its consumer
+// groups' partial head over the pass's columns, each from zero, stored to
+// the scratch.
+__device__ __forceinline__ void wide_layer2(const Smem& sm, const WideParams& p, int rows,
+                                            int row0, int head, int q) {
+  const int tid = threadIdx.x, H = p.H, n0 = NC * q;
+  const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
+  const float* const* w = p.w + 6 * head;
+  const int r0 = 16 * l.wl + l.g;
+  float acc[32];
+  zero32(acc);
+  gemm_pass<false, false, true>(sm, l, 0, 0, pad16(H) / KSTEP, nullptr, 0, nullptr, rows, acc);
+  bias_tanh(l, acc, w[3], H, n0);
+  const size_t part = ((size_t)q * CONSUMERS + l.c) * p.B + row0;  // this group's first row
+  if (head == 0) {
+    float pl[HEAD_TILES][4];
+    logit_partial(l, acc, w[4], H, n0, pl);
+#pragma unroll
+    for (int hn = 0; hn < HEAD_TILES; ++hn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = r0 + 8 * e;
+        if (r < rows)
+          *reinterpret_cast<float2*>(p.lpart + (part + r) * HEAD_PAD + 8 * hn + 2 * l.t) =
+              make_float2(pl[hn][2 * e], pl[hn][2 * e + 1]);
+      }
+  } else {
+    float pv[2];
+    value_partial(l, acc, w[4], H, n0, pv);
+    if (l.t == 0) {
+      if (r0 < rows) p.vpart[part + r0] = pv[0];
+      if (r0 + 8 < rows) p.vpart[part + r0 + 8] = pv[1];
+    }
+  }
+}
+
+// One layer of the wide route: a block per (pass, 64-row tile, head), grid
+// (passes, tiles, heads), so that the blocks running at once share a tile's
+// h1 and a head's weights in L2.  Layer 1's ring stages hold the pass's
+// weights of a k-step; layer 2's also the tile's h1 of that k-step, from
+// the scratch by TMA.
+template <int LAYER>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_c,
+                     const __grid_constant__ CUtensorMap map_h1, const WideParams p) {
+  constexpr int SB = LAYER == 1 ? STAGE_BYTES : WIDE_STAGE_BYTES, STAGES = 1 << WIDE_SHIFT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + ALIGN - 1) / ALIGN * ALIGN;
+  Smem sm;
+  sm.shift = WIDE_SHIFT;
+  sm.ring = base;
+  sm.ring_p = smem_raw + (base - smem_u32(smem_raw));
+  sm.full = base + STAGES * SB;
+  sm.h1 = nullptr;
+  sm.vpart = nullptr;
+  sm.any_legal = nullptr;
+  const int tid = threadIdx.x, q = blockIdx.x, row0 = blockIdx.y * M, head = blockIdx.z;
+  const int rows = min(M, p.B - row0);
+  const int32_t* x = p.obs + (size_t)row0 * OBS;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(sm, s), 1);
+      mbar_init(empty_bar(sm, s), CONSUMER_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  int big = 0;
+  if constexpr (LAYER == 1)
+    for (int i = tid; i < rows * OBS; i += THREADS) big |= fabsf((float)__ldg(x + i)) > TF32_EXACT;
+  const bool exact = !__syncthreads_or(big);
+
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+#ifndef PROBE_NO_LOADS
+    if (tid == CONSUMER_THREADS) {
+      const CUtensorMap* map = head == 0 ? &map_a : &map_c;
+      const int nk = LAYER == 1 ? K1P / KSTEP : pad16(p.H) / KSTEP;
+      int it = 0;
+      for (; it < nk; ++it) {
+        const int st = it & (STAGES - 1);
+        mbar_wait(empty_bar(sm, st), ((it >> WIDE_SHIFT) & 1) ^ 1);
+        mbar_expect_tx(full_bar(sm, st), SB);
+        tma_load(sm.ring + st * SB, map, KSTEP * it, NC * q, full_bar(sm, st));
+        if constexpr (LAYER == 2)
+          tma_load(sm.ring + st * SB + STAGE_BYTES, &map_h1, KSTEP * it, row0, full_bar(sm, st),
+                   head);
+      }
+      // Stay until the consumers have released every stage.
+      for (int i = 0; i < STAGES && i < nk; ++i, ++it)
+        mbar_wait(empty_bar(sm, it & (STAGES - 1)), ((it >> WIDE_SHIFT) & 1) ^ 1);
+    }
+#endif
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    if constexpr (LAYER == 1)
+      wide_layer1(sm, p, x, rows, row0, exact, head, q);
+    else
+      wide_layer2(sm, p, rows, row0, head, q);
+  }
+}
+
+// The wide route's outputs of a 64-row tile: every pass's partials in pass
+// order from zero, each consumer group's apart, then the two groups' sums,
+// then the bias, as the other modes add them; the masked-logits select.
+__global__ void wide_heads_kernel(const WideParams p) {
+  __shared__ int any_legal[M];
+  const int tid = threadIdx.x, row0 = blockIdx.x * M, rows = min(M, p.B - row0);
+  const int passes = (p.H + NC - 1) / NC;
+  if (tid < M) {
+    int any = 0;
+    if (tid < rows)
+      for (int j = 0; j < ACT; ++j) any |= p.mask[(size_t)(row0 + tid) * ACT + j];
+    any_legal[tid] = any;
+  }
+  __syncthreads();
+  const size_t group = (size_t)p.B;  // rows between a pass's two consumer groups
+  for (int i = tid; i < rows * ACT; i += blockDim.x) {
+    const int r = i / ACT, col = i - r * ACT;
+    const float* a = p.lpart + (size_t)(row0 + r) * HEAD_PAD + col;
+    float s0 = 0.f, s1 = 0.f;
+    for (int q = 0; q < passes; ++q) {
+      s0 += a[CONSUMERS * q * group * HEAD_PAD];
+      s1 += a[(CONSUMERS * q + 1) * group * HEAD_PAD];
+    }
+    const float s = s0 + s1 + __ldg(p.w[5] + col);
+    const size_t o = (size_t)row0 * ACT + i;
+    p.logits[o] = p.mask[o] || !any_legal[r] ? s : BIG_NEG;
+  }
+  if (p.value != nullptr)
+    for (int r = tid; r < rows; r += blockDim.x) {
+      const float* a = p.vpart + row0 + r;
+      float s0 = 0.f, s1 = 0.f;
+      for (int q = 0; q < passes; ++q) {
+        s0 += a[CONSUMERS * q * group];
+        s1 += a[(CONSUMERS * q + 1) * group];
+      }
+      p.value[row0 + r] = s0 + s1 + __ldg(p.w[11]);
+    }
+}
+
 // The split and transpose of aw0, aw1, cw0, cw1: dst[m] = [2][HP][KP_m] with
 // hi = cvt.rna(w) and lo = cvt.rna(w - hi), zeros past K and H.
 struct PrepParams {
@@ -1063,6 +1276,34 @@ size_t prepared_offset(int H, int m) {
   return (m >> 1) * (a + b) + (m & 1) * a;
 }
 
+// The wide route's map of h1 in the scratch, [heads][B][KH]: boxes of {8 k, 64 rows, 1}.
+int encode_h1(CUtensorMap* map, const float* base, int KH, int B, int heads) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)KH, (cuuint64_t)B, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)KH * 4, (cuuint64_t)B * KH * 4};
+  const cuuint32_t box[3] = {KSTEP, M, 1}, estride[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)base, dims, strides, box,
+                        estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Floats of the wide route's scratch for B rows (WideParams).
+size_t wide_scratch_floats(int B, int H, int heads) {
+  const size_t passes = (H + NC - 1) / NC;
+  return (size_t)B * (heads * (size_t)pad16(H) + passes * CONSUMERS * HEAD_PAD +
+                      (heads == 2 ? passes * CONSUMERS : 0));
+}
+
+// A wide-route layer's kernel, with its shared memory limit raised once.
+template <int LAYER>
+cudaError_t wide_ready() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fused_ac_wide_kernel<LAYER>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  return attr;
+}
+
 // The kernel of a mode, with its shared memory limit raised once.
 template <bool CL>
 cudaError_t kernel_ready() {
@@ -1098,7 +1339,7 @@ cudaLaunchConfig_t cluster_config(int tiles, int groups, int heads, size_t smem,
 // into `prepared`, laid out as `prepared_offset` says.  One launch.
 extern "C" int fused_actor_critic_wgmma_prepare(const void* const* weights, int H, int critic,
                                                 void* prepared, void* stream) {
-  if (H < 1 || H > MAX_HIDDEN) return (int)cudaErrorInvalidValue;
+  if (H < 1) return (int)cudaErrorInvalidValue;
   PrepParams p;
   const int src[4] = {0, 2, 6, 8};
   for (int m = 0; m < 4; ++m) {
@@ -1165,6 +1406,62 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
       cudaLaunchKernelExC(&cfg, (const void*)fused_ac_wgmma_kernel<true>, args);
   const cudaError_t last = cudaGetLastError();  // cleared: a refused launch is reported once
   return (int)(err != cudaSuccess ? err : last);
+}
+
+// The wide route (any H): obs, mask, weights, prepared and outputs as in
+// fused_actor_critic_wgmma_forward; `scratch` holds at least
+// `scratch_floats` floats, which must be wide_scratch_floats(B, H, heads).
+// Three launches on the stream, in order: layer 1, layer 2 with the
+// partial heads, the outputs.  Each reads what the one before wrote, so
+// the launch boundaries order the stores of h1 before layer 2's TMA reads
+// of it, and no fence or barrier across blocks is needed.
+extern "C" int fused_actor_critic_wide_forward(const void* obs, const void* mask, int B, int H,
+                                               const void* const* weights, const void* prepared,
+                                               void* scratch, long long scratch_floats,
+                                               void* logits, void* value, void* stream) {
+  if (B <= 0) return 0;
+  const int heads = value ? 2 : 1, KH = pad16(H), tiles = (B + M - 1) / M;
+  if (H < 1 || tiles > 65535) return (int)cudaErrorInvalidValue;
+  if (scratch_floats < (long long)wide_scratch_floats(B, H, heads))
+    return (int)cudaErrorInvalidValue;
+  const int HP = pad8(H), passes = (H + NC - 1) / NC;
+  CUtensorMap maps[4], map_h1;
+  for (int m = 0; m < 4; ++m) {
+    const int err = encode(&maps[m], (const float*)prepared + prepared_offset(H, m), HP,
+                           m & 1 ? KH : K1P);
+    if (err) return err;
+  }
+  WideParams p;
+  for (int i = 0; i < 12; ++i) p.w[i] = (const float*)weights[i];
+  p.obs = (const int32_t*)obs;
+  p.mask = (const uint8_t*)mask;
+  p.logits = (float*)logits;
+  p.value = (float*)value;
+  p.h1 = (float*)scratch;
+  p.lpart = p.h1 + (size_t)heads * B * KH;
+  p.vpart = p.lpart + (size_t)passes * CONSUMERS * B * HEAD_PAD;
+  p.B = B;
+  p.H = H;
+  const int err = encode_h1(&map_h1, p.h1, KH, B, heads);
+  if (err) return err;
+  cudaError_t attr = wide_ready<1>();
+  if (attr == cudaSuccess) attr = wide_ready<2>();
+  if (attr != cudaSuccess) return (int)attr;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(passes, tiles, heads);
+  const size_t smem1 = ALIGN + ((size_t)STAGE_BYTES << WIDE_SHIFT) + 2 * MAX_STAGES * 8;
+  size_t smem2 = ALIGN + ((size_t)WIDE_STAGE_BYTES << WIDE_SHIFT) + 2 * MAX_STAGES * 8;
+#ifdef PROBE_SMEM_EXTRA
+  smem2 += PROBE_SMEM_EXTRA;
+#endif
+  fused_ac_wide_kernel<1><<<grid, THREADS, smem1, st>>>(maps[0], maps[2], map_h1, p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  fused_ac_wide_kernel<2><<<grid, THREADS, smem2, st>>>(maps[1], maps[3], map_h1, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wide_heads_kernel<<<tiles, 256, 0, st>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // How many clusters of the cluster mode at hidden width H can be resident

@@ -4,14 +4,20 @@ Counterpart of the TPU kernel `splendax/ops/fused_actor_critic.py`: both MLPs
 (297 -> H -> H -> 45 actor, 297 -> H -> H -> 1 critic, tanh after the first
 two layers) and the masked-logits select in one pass.  On a CUDA tensor
 `fused_masked_forward` launches a hand-written kernel, chosen by the hidden
-width alone (`route`): up to 768 the `wgmma` route
-(`csrc/fused_actor_critic_wgmma.cu`: wgmma fed by TMA, after one launch of
-its weight preparation), above it the `mma_sync` route
-(`csrc/fused_actor_critic.cu`).  Both take 3xTF32 products on the tensor
-cores.  The `wgmma` route has two modes, chosen by `wgmma_mode(B, H)`: tile
-mode (a block per 64-row tile does every column) and, at small B, cluster
-mode (a cluster of blocks per tile and head splits the hidden columns).  A
-row's outputs are the same bits in both modes and at every B.  On a CPU
+width alone (`route`): up to 768 the `wgmma` route, above it the `wide`
+route, with no upper bound on the width.  Both live in
+`csrc/fused_actor_critic_wgmma.cu` (wgmma fed by TMA, 3xTF32 products on
+the tensor cores) and launch its weight preparation first.  The `wgmma`
+route keeps the first hidden layer of a 64-row tile in shared memory and
+has two modes, chosen by `wgmma_mode(B, H)`: tile mode (a block per 64-row
+tile does every column) and, at small B, cluster mode (a cluster of blocks
+per tile and head splits the hidden columns).  The `wide` route stores the
+first hidden layer to a scratch in device memory and streams it back by
+TMA, a block per (pass of 128 columns, tile, head) in each layer, B cut
+into calls of at most `WIDE_MAX_ROWS` rows.  All sum in one order, so a
+row's outputs are the same bits in every mode and at every B.  PR 2's
+`mma_sync` kernel (`csrc/fused_actor_critic.cu`) is on no path: it stays
+only to be timed beside them (`_launch("mma_sync", ...)`).  On a CPU
 tensor it runs `fused_masked_forward_plain`, the same function in plain
 PyTorch.  The kernels are held within rtol/atol 1e-5 of
 the plain version, which computes in the weights' dtype: on the committed
@@ -21,7 +27,7 @@ so float64 weights give the reference.
 Counters: `launches` counts forwards that launched a kernel (one each),
 `launches_by_route` splits them by route, `launches_by_mode` splits the
 `wgmma` route's by mode, and `prep_launches` counts the weight preparations
-of the `wgmma` route; `launch_counts()` reads them all.
+of the `wgmma` and `wide` routes; `launch_counts()` reads them all.
 
 `weights` is the list of the 12 weight and bias tensors in the JAX package's
 layout, [in, out]: aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2
@@ -40,7 +46,6 @@ from . import _build
 OBS_DIM = 297
 ACT_DIM = 45
 BIG_NEG = -1e9
-MAX_HIDDEN = 1024
 WGMMA_MAX_HIDDEN = 768  # the widest first hidden layer the wgmma kernel's 64-row tile holds
 K1_PAD = 304  # OBS_DIM padded to a multiple of 8
 ROWS = 64  # the wgmma kernel's row tile
@@ -50,9 +55,13 @@ PORTABLE_CLUSTER = 8  # the most blocks a cluster may have without opting out
 # where the split stops paying on an H100 at H = 768 (chip_smoke.py times
 # both modes at every B of the main path).
 CLUSTER_MAX_ROWS = 4096
+# The wide route's rows a launch: its scratch (`wide_scratch_floats`) is
+# sized for this many rows at most, whatever B.
+WIDE_MAX_ROWS = 32768
+WIDE_HEAD_PAD = 48  # the wide route's partial logits a row: 45 padded to six n-tiles of 8
 
 launches = 0
-launches_by_route = {"wgmma": 0, "mma_sync": 0}
+launches_by_route = {"wgmma": 0, "wide": 0, "mma_sync": 0}
 launches_by_mode = {"tile": 0, "cluster": 0}
 prep_launches = 0
 
@@ -60,8 +69,9 @@ prep_launches = 0
 def route(H: int) -> str:
     """The kernel a forward at hidden width H takes on the card: never a
     function of the batch, so a row's outputs do not depend on how the rows
-    are split into calls."""
-    return "wgmma" if H <= WGMMA_MAX_HIDDEN else "mma_sync"
+    are split into calls.  "wgmma" while a 64-row tile's first hidden layer
+    fits a block's shared memory, "wide" above, at any width."""
+    return "wgmma" if H <= WGMMA_MAX_HIDDEN else "wide"
 
 
 def wgmma_mode(B: int, H: int) -> str:
@@ -89,6 +99,30 @@ def launch_shape(B: int, H: int, with_value: bool, mode: str):
         return (tiles, 1, 1), (1, 1, 1)
     g = column_groups(H)
     return (tiles, g, 2 if with_value else 1), (1, g, 1)
+
+
+def wide_chunks(B: int) -> list[tuple[int, int]]:
+    """(first row, rows) of each launch of the wide route for B rows."""
+    return [(c, min(WIDE_MAX_ROWS, B - c)) for c in range(0, B, WIDE_MAX_ROWS)]
+
+
+def wide_scratch_floats(B: int, H: int, with_value: bool) -> int:
+    """Floats of the wide route's scratch for a launch of B rows, as the C
+    side lays it out: h1 [heads, B, pad16(H)] in f32, then the partial
+    logits [passes, 2 consumer groups, B, 48] and, with the value, the
+    partial values [passes, 2, B]."""
+    heads, passes = (2 if with_value else 1), column_groups(H)
+    return B * (heads * pad16(H) + passes * 2 * WIDE_HEAD_PAD + (passes * 2 if with_value else 0))
+
+
+def wide_launch_shape(B: int, H: int, with_value: bool) -> dict:
+    """The grids of a wide-route launch of B rows (one chunk): layer 1 and
+    layer 2 a block per (pass, 64-row tile, head), one pass a block, no
+    cluster; the outputs a block per tile."""
+    tiles = -(-B // ROWS)
+    layer = (column_groups(H), tiles, 2 if with_value else 1)
+    return {"layer1": layer, "layer2": layer, "heads": (tiles, 1, 1), "cluster": (1, 1, 1),
+            "passes_per_block": 1}
 
 
 def launch_counts() -> dict:
@@ -168,16 +202,19 @@ def fused_masked_forward_plain(weights, obs, mask, with_value: bool = True):
     return logits, (v @ cw2 + cb2)[:, 0]
 
 
-SOURCES = {"wgmma": "fused_actor_critic_wgmma", "mma_sync": "fused_actor_critic"}
+SOURCES = {"wgmma": "fused_actor_critic_wgmma", "wide": "fused_actor_critic_wgmma",
+           "mma_sync": "fused_actor_critic"}
 
 
 def bind(lib: ctypes.CDLL, r: str) -> ctypes.CDLL:
     """Declares the C interface of route `r`'s library `lib`, built from
     `csrc/<SOURCES[r]>.cu` (with any probe switches), and returns it."""
     p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
-    if r == "wgmma":
+    if SOURCES[r] == "fused_actor_critic_wgmma":
         fns = [(lib.fused_actor_critic_wgmma_prepare, [w, i, i, p, p]),
                (lib.fused_actor_critic_wgmma_forward, [p, p, i, i, w, p, p, p, i, p]),
+               (lib.fused_actor_critic_wide_forward,
+                [p, p, i, i, w, p, p, ctypes.c_longlong, p, p, p]),
                (lib.fused_actor_critic_wgmma_max_clusters, [i, ctypes.POINTER(i)])]
     else:
         fns = [(lib.fused_actor_critic_forward, [p, p, i, i, w, p, p, p])]
@@ -201,22 +238,20 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def prepare_weights(weights, with_value: bool = True, lib=None) -> torch.Tensor:
-    """The `wgmma` route's prepared weights: on a CUDA tensor one launch of
-    the preparation kernel (counted in `prep_launches`) from `lib` (the
-    library's own build unless given one), on a CPU tensor
-    `prepare_weights_plain`."""
+    """The prepared weights of the `wgmma` and `wide` routes, at any width:
+    on a CUDA tensor one launch of the preparation kernel (counted in
+    `prep_launches`) from `lib` (the library's own build unless given one),
+    on a CPU tensor `prepare_weights_plain`."""
     if weights[0].device.type == "cpu":
         return prepare_weights_plain(weights, with_value)
     global prep_launches
     H = weights[0].shape[1]
-    if route(H) != "wgmma":
-        raise ValueError(f"prepare_weights: hidden width {H} takes the mma_sync route")
     for i, w in enumerate(weights):
         if w.device != weights[0].device or w.dtype != torch.float32 or not w.is_contiguous():
             raise ValueError(f"prepare_weights: weights[{i}] must be contiguous float32 on "
                              f"{weights[0].device}")
     prepared = torch.empty(prepared_floats(H), dtype=torch.float32, device=weights[0].device)
-    lib = _route_lib("wgmma") if lib is None else lib
+    lib = _route_lib(route(H)) if lib is None else lib
     err = lib.fused_actor_critic_wgmma_prepare(
         _ptrs(weights), H, int(with_value), prepared.data_ptr(), _stream(prepared))
     if err != 0:
@@ -234,8 +269,8 @@ def _check(weights, obs, mask):
     if len(weights) != 12:
         raise ValueError("weights must hold 12 tensors")
     H = weights[0].shape[1]
-    if not 1 <= H <= MAX_HIDDEN:
-        raise ValueError(f"hidden width {H} outside [1, {MAX_HIDDEN}]")
+    if H < 1:
+        raise ValueError(f"hidden width {H} below 1")
     shapes = [(OBS_DIM, H), (H,), (H, H), (H,), (H, ACT_DIM), (ACT_DIM,),
               (OBS_DIM, H), (H,), (H, H), (H,), (H, 1), (1,)]
     for i, (w, s) in enumerate(zip(weights, shapes)):
@@ -270,13 +305,16 @@ def max_clusters(H: int) -> int:
     return n.value
 
 
-def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None, mode=None):
+def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None, mode=None,
+            scratch=None):
     """One forward on route `r` of checked CUDA inputs, from `lib` (a
     library of `bind`; the library's own build unless given one); the
-    `wgmma` route prepares the weights first unless given `prepared`, and
-    runs in `wgmma_mode(B, H)` unless given `mode`.  `route(H)` and
-    `wgmma_mode` name what the path runs; a measurement or a test may force
-    the other route or mode, or a probe's build."""
+    `wgmma` and `wide` routes prepare the weights first unless given
+    `prepared`; the `wgmma` route runs in `wgmma_mode(B, H)` unless given
+    `mode`; the `wide` route takes its scratch from `scratch` (at least
+    `wide_scratch_floats` of its largest chunk) or a new one.  `route(H)`
+    and `wgmma_mode` name what the path runs; a measurement or a test may
+    force another route or mode, or a probe's build."""
     global launches
     if r not in SOURCES:
         raise ValueError(f"unknown route {r!r}")
@@ -291,13 +329,26 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
         return logits, value
     value_ptr = value.data_ptr() if with_value else None
     lib = _route_lib(r) if lib is None else lib
+    if r != "mma_sync" and prepared is None:
+        prepared = prepare_weights(weights, with_value, lib)
     if r == "wgmma":
-        if prepared is None:
-            prepared = prepare_weights(weights, with_value, lib)
         groups = column_groups(H) if mode == "cluster" else 0
         err = lib.fused_actor_critic_wgmma_forward(
             obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), prepared.data_ptr(),
             logits.data_ptr(), value_ptr, groups, _stream(obs))
+    elif r == "wide":
+        if scratch is None:
+            scratch = torch.empty(wide_scratch_floats(min(B, WIDE_MAX_ROWS), H, with_value),
+                                  dtype=torch.float32, device=obs.device)
+        err = 0
+        for c0, n in wide_chunks(B):
+            err = lib.fused_actor_critic_wide_forward(
+                obs.data_ptr() + 4 * OBS_DIM * c0, mask.data_ptr() + ACT_DIM * c0, n, H,
+                _ptrs(weights), prepared.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                logits.data_ptr() + 4 * ACT_DIM * c0,
+                value_ptr + 4 * c0 if with_value else None, _stream(obs))
+            if err != 0:
+                break
     else:
         err = lib.fused_actor_critic_forward(obs.data_ptr(), mask.data_ptr(), B, H,
                                              _ptrs(weights), logits.data_ptr(), value_ptr,

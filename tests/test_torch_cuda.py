@@ -6,6 +6,8 @@ host without JAX it runs alone:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,8 @@ from splendax_torch.ops import fused_actor_critic as fac
 from splendax_torch.ops import ring_take as rt
 from splendax_torch.train import ppo
 from splendax_torch.train.config import PPOConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -52,16 +56,14 @@ def check_fused(w, obs, mask):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [37, 64, 100, 256, 768, 1024])
+@pytest.mark.parametrize("H", [37, 64, 100, 256, 768, 1024, 1280, 2048])
 @pytest.mark.parametrize("B", [1, 17, 31, 33, 257, 2048, 4096, 4097, 4127])
 def test_fused_kernel_matches_plain(cuda, H, B):
     """Kernel A against its plain version across the row-tile edges and
     ragged hidden widths (37: padding in K and N; 100: a part pass), with a
-    row that has no legal action.  H <= 768 takes the wgmma route (64-row
-    tiles: ragged at every B here but 2048 and 4096); H = 1024 the mma_sync
-    route, which on a 132-SM H100 takes 16-row tiles up to B = 2112 (ragged
-    at 1, 17, 31, 33, 257) and 32-row tiles from 4096 on (ragged at 4097,
-    4127)."""
+    row that has no legal action.  H <= 768 takes the wgmma route, wider
+    nets (1024, 1280, 2048) the wide route; both take 64-row tiles, ragged
+    at every B here but 2048 and 4096."""
     rng = np.random.RandomState(H + B)
     w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
     obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
@@ -339,12 +341,12 @@ def test_parity_mode_on_the_card_equals_the_cpu(cuda):
 def check_wgmma(w, obs, mask, route="wgmma"):
     """Kernel A with and without value within rtol/atol 1e-5 of the plain
     forward in float64; one launch a call, on `route`, and one weight
-    preparation a call on the wgmma route."""
+    preparation a call."""
     w64 = [t.double() for t in w]
     before = (dict(fac.launches_by_route), fac.prep_launches)
     outs = [fac.fused_masked_forward(w, obs, mask, with_value=v) for v in (True, False)]
     torch.cuda.synchronize()
-    n_prep = 2 if route == "wgmma" else 0
+    n_prep = 2
     assert fac.launches_by_route[route] == before[0][route] + 2
     assert fac.prep_launches == before[1] + n_prep
     for (lk, vk), v in zip(outs, (True, False)):
@@ -504,14 +506,106 @@ def test_refused_cluster_launch_raises(cuda, tmp_path):
     assert torch.equal(tile[0], fac._launch("wgmma", w, obs, mask, True, mode="cluster")[0])
 
 
+def wide_net(cuda, H, source):
+    """Kernel A's weights at width H: the committed h1024 net, or seeded
+    random ones."""
+    if source == "h1024":
+        path = os.path.join(ROOT, "runs/ppo_splendor_2b_h1024/ppo_splendor_params.npz")
+        return ac.kernel_weights(ac.import_params_npz(path, device=cuda))
+    return ac.kernel_weights(ac.params_from_jax(numpy_params(np.random.RandomState(H), H),
+                                                device=cuda))
+
+
 @pytest.mark.cuda
-def test_wide_net_takes_the_mma_sync_route(cuda):
-    """H = 1024 is past the wgmma route's 768: PR 2's mma_sync kernel, held
-    to the same float64 contract, with no weight preparation."""
-    rng = np.random.RandomState(1024)
-    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, 1024), device=cuda))
-    obs = torch.as_tensor(rng.randint(0, 8, size=(257, 297)).astype(np.int32), device=cuda)
-    mask = torch.as_tensor(rng.rand(257, 45) < 0.4, device=cuda)
-    check_wgmma(w, obs, mask, route="mma_sync")
-    with pytest.raises(ValueError):
-        fac.prepare_weights(w)
+@pytest.mark.parametrize("H, source", [(1024, "h1024"), (1024, "random"), (1280, "random")])
+def test_wide_net_takes_the_wide_route(cuda, H, source):
+    """Past the wgmma route's 768 the wide route takes every forward, held to
+    the same float64 contract, with one weight preparation a call: engine-
+    like obs around the row tile's edges, and obs of 4097 in the last tiles
+    (layer 1's third product)."""
+    w = wide_net(cuda, H, source)
+    assert w[0].shape[1] == H and fac.route(H) == "wide"
+    rng = np.random.RandomState(H)
+    for B in (1, 63, 65, 257, 4127):
+        obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+        obs[max(B - 100, 0)::9, 0] = 4097
+        mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+        mask[0] = False
+        lk = check_wgmma(w, obs, mask, route="wide")
+        assert (lk[0] > -1e8).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1024, 2048])
+def test_wide_route_back_to_back_on_one_scratch(cuda, H):
+    """Two launches in a row on one scratch, at many B, each within
+    rtol/atol 1e-5 of the float64 plain forward and bit-equal to the other:
+    the second launch's layer 1 overwrites h1 while nothing may still read
+    the first's, and each layer 2 must read the h1 its own layer 1 wrote
+    (a missing order between the stores and the TMA loads of h1 would show
+    as stale rows now and then).  The two launches differ in their obs."""
+    w = wide_net(cuda, H, "random")
+    w64 = [t.double() for t in w]
+    rng = np.random.RandomState(7)
+    scratch = torch.empty(fac.wide_scratch_floats(8192, H, True), dtype=torch.float32,
+                          device=cuda)
+    for B in (1, 64, 65, 1000, 2049, 8192):
+        for _ in range(3):
+            obs = [torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32),
+                                   device=cuda) for _ in range(2)]
+            mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+            outs = [fac._launch("wide", w, o, mask, True, scratch=scratch) for o in obs]
+            again = fac._launch("wide", w, obs[0], mask, True, scratch=scratch)
+            torch.cuda.synchronize()
+            for o, (lk, vk) in zip(obs, outs):
+                lr, vr = fac.fused_masked_forward_plain(w64, o, mask)
+                torch.testing.assert_close(lk.double(), lr, rtol=1e-5, atol=1e-5)
+                torch.testing.assert_close(vk.double(), vr, rtol=1e-5, atol=1e-5)
+            assert torch.equal(again[0], outs[0][0]) and torch.equal(again[1], outs[0][1])
+
+
+@pytest.mark.cuda
+def test_wide_rows_do_not_depend_on_b(cuda, monkeypatch):
+    """Rows split into calls (1 + 8191, 1000 + 7192, 4095 + 4097) and the
+    wrapper's chunks (WIDE_MAX_ROWS cut to 1000 and to 64) equal the B=8192
+    call bit for bit."""
+    H = 1280
+    w = wide_net(cuda, H, "random")
+    rng = np.random.RandomState(H)
+    obs = torch.as_tensor(rng.randint(0, 8, size=(8192, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(8192, 45) < 0.4, device=cuda)
+    whole = fac.fused_masked_forward(w, obs, mask)
+    for cut in (1, 1000, 4095):
+        parts = [fac.fused_masked_forward(w, obs[a:b].contiguous(), mask[a:b].contiguous())
+                 for a, b in ((0, cut), (cut, 8192))]
+        for j in (0, 1):
+            assert torch.equal(torch.cat([p[j] for p in parts]), whole[j])
+    for rows in (1000, 64):
+        monkeypatch.setattr(fac, "WIDE_MAX_ROWS", rows)
+        chunked = fac.fused_masked_forward(w, obs, mask)
+        assert torch.equal(chunked[0], whole[0]) and torch.equal(chunked[1], whole[1])
+
+
+@pytest.mark.cuda
+def test_refused_wide_launch_raises(cuda, tmp_path):
+    """A wide-route launch that the card refuses (a build whose layer 2
+    asks for more shared memory than a block may have) raises through the
+    wrapper, and nothing runs in its place: no counter moves."""
+    import ctypes
+
+    from splendax_torch.ops import _build
+
+    lib = tmp_path / "libwide_refused.so"
+    _build.compile_many({"refused": (_build.CSRC / "fused_actor_critic_wgmma.cu", lib,
+                                     ("-DPROBE_SMEM_EXTRA=131072",))})
+    refused = fac.bind(ctypes.CDLL(str(lib)), "wide")
+    w = wide_net(cuda, 1024, "random")
+    rng = np.random.RandomState(5)
+    obs = torch.as_tensor(rng.randint(0, 8, size=(256, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(256, 45) < 0.4, device=cuda)
+    prepared = fac.prepare_weights(w)
+    counts = fac.launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fac._launch("wide", w, obs, mask, True, prepared, lib=refused)
+    torch.cuda.synchronize()
+    assert fac.launch_counts() == counts

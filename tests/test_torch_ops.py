@@ -72,13 +72,14 @@ def test_fused_forward_plain_matches_pallas_kernel(batch, B):
     assert vo is None and torch.equal(lo, lp)
 
 
-@pytest.mark.parametrize("hidden", [100, 1024])
+@pytest.mark.parametrize("hidden", [100, 769, 1024, 1280, 2048])
 def test_cpu_forward_matches_pallas_kernel_and_launches_nothing(batch, hidden):
-    """At a width of each route (100: wgmma, 1024: mma_sync), a CPU tensor
-    takes the plain version: rtol/atol 1e-5 of the Pallas kernel in
-    interpret mode at B=33, and no launch counter, route count or weight
-    preparation moves (`prepare_weights` on the CPU is the plain version)."""
-    assert fac.route(hidden) == ("wgmma" if hidden <= 768 else "mma_sync")
+    """At widths of each route (100: wgmma; 769, 1024, 1280, 2048: wide, past
+    the 1024 that the port once capped), a CPU tensor takes the plain
+    version: rtol/atol 1e-5 of the Pallas kernel in interpret mode at B=33,
+    and no launch counter, route count or weight preparation moves
+    (`prepare_weights` on the CPU is the plain version)."""
+    assert fac.route(hidden) == ("wgmma" if hidden <= 768 else "wide")
     flat = numpy_params(np.random.RandomState(hidden), hidden)
     obs, mask = batch[0][:33], batch[1][:33]
     lj, vj = jax_fused(jax_params(flat), jnp.asarray(obs), jnp.asarray(mask), interpret=True)

@@ -1,5 +1,6 @@
 """The numeric design of kernel A (`splendax_torch/csrc/fused_actor_critic.cu`
-and the wgmma route's `fused_actor_critic_wgmma.cu`), emulated on the CPU.
+and the wgmma and wide routes' `fused_actor_critic_wgmma.cu`), emulated on the
+CPU.
 
 The kernel takes each f32 product on the tensor cores as three TF32
 products: with hi = tf32(a) and lo = tf32(a - hi), a b ~ hi hi + hi lo + lo hi,
@@ -26,6 +27,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NETS = {
     256: os.path.join(ROOT, "runs/ppo_splendor_2b/ppo_splendor_params.npz"),
     768: os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"),
+    1024: os.path.join(ROOT, "runs/ppo_splendor_2b_h1024/ppo_splendor_params.npz"),
 }
 TF32_EXACT = 2048
 
@@ -208,20 +210,24 @@ def mm_wgmma(a, b, chunk, a_exact=False):
     each an exact product of TF32 values added to the chunk's scratch sum
     with one rounding toward zero; the chunk's sum of `chunk` k-steps added
     to the f32 accumulator, rounded to nearest."""
-    K = a.shape[1]
-    kp = (K + 7) // 8 * 8
+    (B, K), N = a.shape, b.shape[1]
+    n = -(-K // (8 * chunk))  # chunks; a last one padded with k-steps of zeros adds exact zeros
+    kp = 8 * chunk * n
     a = torch.nn.functional.pad(a, (0, kp - K))
     b = torch.nn.functional.pad(b, (0, 0, 0, kp - K))
     ah, al = split(a)
     bh, bl = split(b)
     prods = [(ah, bl), (ah, bh)] if a_exact else [(al, bh), (ah, bl), (ah, bh)]
-    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
-    for c0 in range(0, kp, 8 * chunk):
-        s = torch.zeros(acc.shape, dtype=torch.float64)
-        for k0 in range(c0, min(c0 + 8 * chunk, kp), 8):
-            for x, y in prods:
-                s = round_toward_zero(s + x[:, k0:k0 + 8].double() @ y[k0:k0 + 8].double()).double()
-        acc = acc + s.float()
+    # Every chunk's scratch sum at once: [chunks, B, N], its k-steps in order.
+    s = torch.zeros(n, B, N, dtype=torch.float64)
+    for q in range(chunk):
+        for x, y in prods:
+            xq = x.double().view(B, n, chunk, 8)[:, :, q].transpose(0, 1)
+            yq = y.double().view(n, chunk, 8, N)[:, q]
+            s = round_toward_zero(s + xq @ yq).double()
+    acc = torch.zeros(B, N, dtype=torch.float32)
+    for c in range(n):
+        acc = acc + s[c].float()
     return acc
 
 
@@ -303,15 +309,25 @@ def emulated_wgmma_forward(weights, obs, mask, chunk):
     return logits, heads_tile(v, aw2, cw2, hidden)[1] + cb2[0]
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 4])
-@pytest.mark.parametrize("hidden", [256, 768])
+def net_weights(hidden):
+    """The committed net of that width, else seeded random weights (H=1280
+    has no committed net)."""
+    if hidden in NETS:
+        return ac.kernel_weights(ac.import_params_npz(NETS[hidden], device="cpu"))
+    return random_weights(hidden, seed=hidden)
+
+
+@pytest.mark.parametrize("hidden, chunk", [(256, 1), (256, 2), (256, 4), (768, 1), (768, 2),
+                                           (768, 4), (1024, 2), (1280, 2)])
 def test_wgmma_arithmetic_matches_float64(batch, hidden, chunk):
     """rtol/atol 1e-5 of the float64 plain forward: the committed nets on
-    engine obs (128 rows), with the wgmma route's arithmetic at the chunk
-    lengths tried on the card (2 is the route's; 8 missed the contract
-    there, at 1.13 of the tolerance on 8192 rows), its heads summed as both
-    modes sum them: per pass and consumer group from zero, in pass order."""
-    w = ac.kernel_weights(ac.import_params_npz(NETS[hidden], device="cpu"))
+    engine obs (128 rows; H=1280 on seeded random weights), with the wgmma
+    and wide routes' arithmetic at the chunk lengths tried on the card (2 is
+    the routes'; 8 missed the contract there, at 1.13 of the tolerance on
+    8192 rows), its heads summed as every mode sums them: per pass and
+    consumer group from zero, in pass order.  The wide route (H > 768) sums
+    layer 2 over pad16(H) / 16 chunks, held at the routes' chunk of two."""
+    w = net_weights(hidden)
     obs, mask = batch[0][:128], batch[1][:128]
     lr, vr = fac.fused_masked_forward_plain([t.double() for t in w], obs, mask)
     le, ve = emulated_wgmma_forward(w, obs, mask, chunk)
@@ -320,16 +336,31 @@ def test_wgmma_arithmetic_matches_float64(batch, hidden, chunk):
     assert (le[0] > -1e8).all()
 
 
-@pytest.mark.parametrize("hidden", [256, 768])
+@pytest.fixture(scope="module")
+def whole_forwards(batch):
+    """The 128-row forward through the routes' arithmetic, by width, each
+    computed once."""
+    cache = {}
+
+    def get(hidden):
+        if hidden not in cache:
+            cache[hidden] = emulated_wgmma_forward(net_weights(hidden), batch[0][:128],
+                                                   batch[1][:128], 2)
+        return cache[hidden]
+
+    return get
+
+
+@pytest.mark.parametrize("hidden", [256, 768, 1024, 1280])
 @pytest.mark.parametrize("B", [1, 17, 64])
-def test_wgmma_rows_match_float64_at_any_b(batch, hidden, B):
-    """The first B of 128 rows through the wgmma route's arithmetic (chunks
-    of two, the heads in the modes' order) equal the same rows of the
-    128-row forward bit for bit, and are within rtol/atol 1e-5 of the float64
-    plain forward."""
-    w = ac.kernel_weights(ac.import_params_npz(NETS[hidden], device="cpu"))
+def test_wgmma_rows_match_float64_at_any_b(batch, whole_forwards, hidden, B):
+    """The first B of 128 rows through the wgmma and wide routes' arithmetic
+    (chunks of two, the heads in the modes' order) equal the same rows of
+    the 128-row forward bit for bit, and are within rtol/atol 1e-5 of the
+    float64 plain forward."""
+    w = net_weights(hidden)
     obs, mask = batch[0][:128], batch[1][:128]
-    whole = emulated_wgmma_forward(w, obs, mask, 2)
+    whole = whole_forwards(hidden)
     part = emulated_wgmma_forward(w, obs[:B], mask[:B], 2)
     for got, want in zip(part, whole):
         assert torch.equal(got, want[:B])
@@ -388,11 +419,44 @@ def test_wgmma_mode_is_a_function_of_b_and_h(hidden):
 
 
 @pytest.mark.parametrize("hidden, want", [(1, "wgmma"), (256, "wgmma"), (768, "wgmma"),
-                                          (769, "mma_sync"), (1024, "mma_sync")])
+                                          (769, "wide"), (1024, "wide"), (1280, "wide"),
+                                          (2048, "wide")])
 def test_route_follows_the_hidden_width(hidden, want):
     """H <= 768 takes the wgmma route (its 64-row tile holds the first hidden
-    layer in shared memory), wider nets PR 2's mma_sync kernel."""
+    layer in shared memory), wider nets the wide route, at any width; no
+    path takes PR 2's mma_sync kernel."""
     assert fac.route(hidden) == want
+
+
+@pytest.mark.parametrize("hidden", [769, 1000, 1024, 1280, 2048, 2049, 4100])
+def test_wide_launch_shape(hidden):
+    """The wide route's launches: B cut into chunks of at most
+    WIDE_MAX_ROWS rows that cover it in order; per chunk, layer 1 and layer
+    2 a block per (pass of 128 columns, 64-row tile, head), one pass a
+    block and no cluster (so no cluster limit at any width), the outputs a
+    block per tile; a scratch of h1 in f32 for every row and head, plus the
+    per-(pass, consumer group) partial heads, sized by the chunk's rows and
+    H, never by B beyond the chunk."""
+    passes = -(-hidden // 128)
+    kh = (hidden + 15) // 16 * 16
+    for B in (1, 63, 64, 65, 1024, 8192, fac.WIDE_MAX_ROWS, fac.WIDE_MAX_ROWS + 1, 737280):
+        chunks = fac.wide_chunks(B)
+        assert chunks[0][0] == 0 and sum(n for _, n in chunks) == B
+        assert all(a + n == b for (a, n), (b, _) in zip(chunks, chunks[1:]))
+        assert all(0 < n <= fac.WIDE_MAX_ROWS for _, n in chunks)
+        assert len(chunks) == -(-B // fac.WIDE_MAX_ROWS)
+        for with_value in (True, False):
+            heads = 2 if with_value else 1
+            n = chunks[0][1]
+            shape = fac.wide_launch_shape(n, hidden, with_value)
+            tiles = -(-n // 64)
+            assert shape["layer1"] == shape["layer2"] == (passes, tiles, heads)
+            assert shape["heads"] == (tiles, 1, 1) and tiles <= 65535
+            assert shape["cluster"] == (1, 1, 1) and shape["passes_per_block"] == 1
+            floats = fac.wide_scratch_floats(n, hidden, with_value)
+            assert floats == n * (heads * kh + passes * 2 * 48 + (passes * 2 if with_value else 0))
+            # the scratch follows the chunk, so it stops growing past WIDE_MAX_ROWS
+            assert floats <= fac.wide_scratch_floats(fac.WIDE_MAX_ROWS, hidden, with_value)
 
 
 def test_route_takes_no_batch_size():

@@ -216,6 +216,27 @@ def test_league_slot_and_parity_flags_train(tmp_path, flags):
     assert saved["rng_mode"] == cfg.rng_mode and saved["search_opponent"] == cfg.search_opponent
 
 
+def test_hidden_past_1024_parses_and_rolls_out(tmp_path):
+    """`--hidden 1280` (wider than the 1024 the port's card path once
+    refused; JAX's `--hidden` has no bound) parses as in the JAX CLI, and
+    one self-play turn of 4 games runs at that width on the CPU: the agent's
+    values equal JAX's forward of the same params on the turn's obs within
+    rtol/atol 1e-5, and its log-probs are finite."""
+    argv = ["--hidden", "1280", "--num-envs", "4", "--num-steps", "1", "--pool-size", "2",
+            "--log-dir", str(tmp_path)]
+    cfg = train.parse_args(argv)
+    assert cfg.hidden == 1280 and dataclasses.asdict(cfg) == dataclasses.asdict(
+        jtrain.parse_args(argv))
+    ts = ppo.init_train_state(cfg, device="cpu")
+    assert ac.kernel_weights(ts.params)[2].shape == (1280, 1280)
+    _, traj = ppo.rollout(cfg, ts)
+    assert traj.value.shape == (1, 4) and torch.isfinite(traj.logp).all()
+    path = str(tmp_path / "params.npz")
+    ckpt_lib.export_params_npz(ts.params, path)
+    _, jvalue = jac.forward(jckpt.import_params_npz(path), jnp.asarray(traj.obs[0].numpy()))
+    np.testing.assert_allclose(traj.value[0].numpy(), np.asarray(jvalue), rtol=1e-5, atol=1e-5)
+
+
 def test_train_defaults_to_the_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
