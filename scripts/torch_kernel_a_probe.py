@@ -41,8 +41,8 @@ and no_loads_one variants, PR 2's mma_sync kernel (H <= 1024) and the addmm
 chain.
 
 --parent DIR: also builds DIR/splendax_torch/csrc/fused_actor_critic_wgmma.cu
-(another tree's wgmma kernel, with the C interface of a single mode: no
-`groups` argument) and times it on the same prepared weights, in turns with
+(another tree's wgmma kernel, with PR 10's C interface: a `groups`
+argument, 0 for tile mode) and times it on the same prepared weights, in turns with
 this tree's tile mode (parent, tile, tile, parent, parent, tile), at B =
 8192, 32768 and 737280 with value and at B = 2048 without.
 
@@ -161,7 +161,7 @@ def build(check: bool, parent: str | None = None, wide: bool = False) -> dict:
     if "parent" in libs:
         fn = libs["parent"].fused_actor_critic_wgmma_forward
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, ctypes.POINTER(p), p, p, p, p]
+        fn.argtypes = [p, p, i, i, ctypes.POINTER(p), p, p, p, i, p]
         fn.restype = i
     return {name: lib if name in ("mma_loop", "parent") else fac.bind(lib, route_of(name))
             for name, lib in libs.items()}
@@ -191,7 +191,7 @@ def parent_forward(lib, w, obs, mask, with_value, prepared):
     value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
     err = lib.fused_actor_critic_wgmma_forward(
         obs.data_ptr(), mask.data_ptr(), B, w[0].shape[1], fac._ptrs(w), prepared.data_ptr(),
-        logits.data_ptr(), value.data_ptr() if with_value else None, fac._stream(obs))
+        logits.data_ptr(), value.data_ptr() if with_value else None, 0, fac._stream(obs))
     assert err == 0, f"the parent's kernel failed: CUDA error {err}"
     return logits, value
 

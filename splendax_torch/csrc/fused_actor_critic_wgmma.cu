@@ -1,11 +1,12 @@
 // Fused masked actor-critic forward on Hopper's wgmma and TMA, at f32 accuracy.
 //
 // Replaces the TPU kernel `splendax/ops/fused_actor_critic.py:37` (`_kernel`,
-// `fused_masked_forward`) for hidden widths up to 768: the int32 -> f32
+// `fused_masked_forward`, `:60`) at every hidden width: the int32 -> f32
 // observation cast, the actor MLP 297 -> H -> H -> 45 and the critic MLP
 // 297 -> H -> H -> 1 with tanh after the first two layers of each, and the
 // masked-logits select (illegal -> -1e9; a row with no legal action stays
-// unmasked).  Wider nets (768 < H <= 1024) take `fused_actor_critic.cu`.
+// unmasked).  Up to H = 768 in the tile and cluster modes below; wider nets,
+// with no bound on H, in the wide route at the end of this file.
 //
 // Bound on an H100 SXM: operations.  At B = 8192, H = 768 with the critic the
 // six products are 2 B (2·297 H + 2 H² + 46 H) = 27.4 GFLOP; taken as three
@@ -100,6 +101,34 @@
 // wrapper picks the mode from B (`fused_actor_critic.wgmma_mode`); the bits
 // are the same in both.
 //
+// Wide route (H > 768, any H).  Both modes keep a tile's whole first hidden
+// layer in one block (64 x H x 4 bytes: 262,144 at H = 1024, past the
+// 232,448 a block may hold), so wider nets keep it in device memory instead,
+// and no block's shared memory grows with H.  Three launches a forward, in
+// stream order, so each reads what the one before wrote with no fence or
+// barrier across blocks: layer 1, a block per (pass, 128-row tile, head),
+// stores its pass's columns of h1 in f32 to a scratch; layer 2, a block per
+// (pass, tile, head), streams the tile's h1 back by TMA ({8 k, 128 rows}
+// boxes, 32-byte swizzle) through its ring beside the pass's weights (12 KB
+// stages, 16 of them), splits it in registers and writes each 64-column
+// group's partial head, from zero, to a second scratch; the third adds the
+// partials in pass order as the modes do, so a row's bits are those of the
+// emulated order at every width.  Each consumer group takes 64 rows and all
+// 128 columns of the pass (wgmma.m64n128k8), so a 128-row block streams
+// each weight stage for twice the rows of a tile-mode block and takes twice
+// the products per fence.  At H = 1024 with the critic a 128-row tile
+// streams ~33 MB of L2 (weights 2 x 10.9 MB, its h1 twice 4.2 MB, its obs
+// twice 1.2 MB), 8 passes x 2 heads = 16 blocks a layer.  Bound at H = 1024,
+// B = 8192 with the critic: operations, 125.4 TFLOP-equivalents of TF32
+// products (two for layer 1, three elsewhere), 0.2535 ms at 494.7 TFLOP/s.
+// Against PR 2's mma_sync kernel (fused_actor_critic.cu), which took these
+// widths up to 1024: the weights are split once a call by the prep kernel,
+// not by every 16- or 32-row block in registers; a block streams 1 / passes
+// of one head's weights, so B = 1024 gives 128 blocks a layer with the
+// critic, not 32-64; and the products are wgmma, not mma.sync.  The wrapper
+// cuts B into launches of at most 32,768 rows (`WIDE_MAX_ROWS`), which caps
+// the scratch; a row's outputs do not depend on the cut.
+//
 // Probe switches.  scripts/torch_kernel_a_probe.py builds variants of this
 // file with -D to see where the time goes; the library is built with none.
 // PROBE_NO_LOADS never copies a weight stage (wrong numbers: the compute
@@ -135,9 +164,13 @@ constexpr int PRODUCER_REGS = 40;                // setmaxnreg: the producer giv
 constexpr int CONSUMER_REGS = 232;               // registers to the consumers
 constexpr int KSTEP = 8;
 constexpr int STAGE_BYTES = 2 * NC * KSTEP * 4;  // hi and lo, NC outputs x 8 k
-// The wide route's layer 2: a stage also holds its A, 64 rows x 8 k of h1.
-constexpr int WIDE_STAGE_BYTES = STAGE_BYTES + M * KSTEP * 4;
+// The wide route: a block of WM rows, each consumer group 64 of them and
+// all NC columns of the pass; layer 2's stages also hold their A, WM rows
+// x 8 k of h1.
+constexpr int WM = M * CONSUMERS;
+constexpr int WIDE_STAGE_BYTES = STAGE_BYTES + WM * KSTEP * 4;
 constexpr int WIDE_SHIFT = 4;  // the wide route's ring: 16 stages
+constexpr int OUT_ROWS = 8, OUT_THREADS = 128;  // the wide route's output blocks
 constexpr int SMEM_MAX = 232448;
 constexpr int ALIGN = 256;                // 32-byte swizzle atoms repeat every 256 bytes
 constexpr int MAX_HIDDEN = 768;
@@ -247,7 +280,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 }
 
 // dst <- the box of `map` at (k, n, z): a weight map's {8 k, NC outputs, hi
-// and lo} at z = 0, or the wide route's h1 map's {8 k, 64 rows} of head z.
+// and lo} at z = 0, or the wide route's h1 map's {8 k, WM rows} of head z.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int n,
                                          uint32_t bar, int z = 0) {
   asm volatile(
@@ -370,6 +403,35 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4]
   }
 }
 
+#define KA_D64(c) c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31]), c(d[32]), c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]), c(d[41]), c(d[42]), c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]), c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]), c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define KA_WGMMA_N128                                                                          \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"                                             \
+  " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                                                                       \
+  "{%64, %65, %66, %67}, %68, p, 1, 1;\n}"
+
+// The same with n = 128 (the wide route: a consumer group takes every
+// column of the pass), d 64x128 f32.
+template <int ACC>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile(KA_WGMMA_N128
+                 : KA_D64("+f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile(KA_WGMMA_N128
+                 : KA_D64("=f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  }
+}
+
+// The wgmma of the accumulator's width: F = 32 floats a thread is n = 64,
+// F = 64 is n = 128.
+template <int ACC, int F>
+__device__ __forceinline__ void product(float (&d)[F], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (F == 64) wgmma_n128<ACC>(d, a, b); else wgmma_n64<ACC>(d, a, b);
+}
+
 // m16n8k8 mma.sync, as in fused_actor_critic.cu: d += a b, and d = a b.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
@@ -448,10 +510,10 @@ __device__ __forceinline__ void obs_frag(const int32_t* __restrict__ x, int rows
   }
 }
 
-// This thread's A fragment of k-step j, split: for layer 1 (L1) from the
-// obs prefetched in pa (pa <- pb <- the obs of k-step j + 2); with RA (the
-// wide route's layer 2) from the A box of the k-step's stage, once it is
-// full; else from h1.
+// This thread's A fragment of k-step j (rows 16 l.wl + g and + 8 of the
+// block), split: for layer 1 (L1) from the obs prefetched in pa (pa <- pb <-
+// the obs of k-step j + 2); for the wide route's layer 2 (RA) from the A box
+// of the k-step's stage, once it is full; else from h1.
 template <bool L1, bool EXACT, bool RA>
 __device__ __forceinline__ void load_a(const Smem& sm, uint32_t it0, const Lane& l, int j,
                                        const float* h1, int SH, const int32_t* __restrict__ x,
@@ -463,7 +525,7 @@ __device__ __forceinline__ void load_a(const Smem& sm, uint32_t it0, const Lane&
 #ifndef PROBE_NO_LOADS
     mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
 #endif
-    // [64 rows][8 k] with 32-byte swizzle: the 16-byte half of row r that
+    // [WM rows][8 k] with 32-byte swizzle: the 16-byte half of row r that
     // holds k < 4 is half (r >> 2) & 1.
     const float* a =
         reinterpret_cast<const float*>(sm.ring_p + st * WIDE_STAGE_BYTES + STAGE_BYTES);
@@ -506,19 +568,23 @@ __device__ __forceinline__ void release_kstep(const Smem& sm, uint32_t it0, int 
 #endif
 }
 
-__device__ __forceinline__ void add32(float (&acc)[32], float (&s)[32]) {
+template <int N>
+__device__ __forceinline__ void add_acc(float (&acc)[N], float (&s)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] += s[i];
+  for (int i = 0; i < N; ++i) acc[i] += s[i];
 }
 
 // Issue chunk j / CHUNK of a pass into the scratch accumulator s, from
 // zero: a wait for its stages, one fence, then for each k-step lo·hi
 // (unless A is exact), hi·lo and hi·hi, and one commit.  ah / al hold the
 // chunk's A fragments, loaded before.
-template <bool L1, bool EXACT, bool RA>
+// WIDE: the wide route's n = 128 products, from a stage of WIDE_STAGE_BYTES
+// in layer 2 (else STAGE_BYTES); else this group's 64 columns.
+template <bool L1, bool EXACT, bool WIDE>
 __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint32_t it0, int j,
                                             uint32_t (&ah)[CHUNK][4], uint32_t (&al)[CHUNK][4],
-                                            float (&s)[32]) {
+                                            float (&s)[WIDE ? 64 : 32]) {
+  constexpr int SB = WIDE && !L1 ? WIDE_STAGE_BYTES : STAGE_BYTES;
   uint64_t dh[CHUNK], dl[CHUNK];
 #pragma unroll
   for (int q = 0; q < CHUNK; ++q) {
@@ -527,8 +593,7 @@ __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint3
 #ifndef PROBE_NO_LOADS
     mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
 #endif
-    const uint32_t bh =
-        sm.ring + st * (RA ? WIDE_STAGE_BYTES : STAGE_BYTES) + l.c * WG_N * KSTEP * 4;
+    const uint32_t bh = sm.ring + st * SB + (WIDE ? 0 : l.c * WG_N * KSTEP * 4);
     dh[q] = desc_sw32(bh);
     dl[q] = desc_sw32(bh + NC * KSTEP * 4);
   }
@@ -538,15 +603,15 @@ __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint3
   for (int q = 0; q < CHUNK; ++q) {
 #ifdef PROBE_ONE_PRODUCT
     (void)dl;
-    if (q == 0) wgmma_n64<0>(s, ah[q], dh[q]); else wgmma_n64<1>(s, ah[q], dh[q]);
+    if (q == 0) product<0>(s, ah[q], dh[q]); else product<1>(s, ah[q], dh[q]);
 #else
     if constexpr (L1 && EXACT) {
-      if (q == 0) wgmma_n64<0>(s, ah[q], dl[q]); else wgmma_n64<1>(s, ah[q], dl[q]);
+      if (q == 0) product<0>(s, ah[q], dl[q]); else product<1>(s, ah[q], dl[q]);
     } else {
-      if (q == 0) wgmma_n64<0>(s, al[q], dh[q]); else wgmma_n64<1>(s, al[q], dh[q]);
-      wgmma_n64<1>(s, ah[q], dl[q]);
+      if (q == 0) product<0>(s, al[q], dh[q]); else product<1>(s, al[q], dh[q]);
+      product<1>(s, ah[q], dl[q]);
     }
-    wgmma_n64<1>(s, ah[q], dh[q]);
+    product<1>(s, ah[q], dh[q]);
 #endif
   }
   wgmma_commit();
@@ -569,13 +634,14 @@ __device__ __forceinline__ void load_chunk(const Smem& sm, uint32_t it0, const L
 
 // The end of a chunk: wait for its products, release its stages, add its
 // sum to acc in f32.
+template <int N>
 __device__ __forceinline__ void finish_chunk(const Smem& sm, uint32_t it0, int j,
-                                             float (&acc)[32], float (&s)[32]) {
+                                             float (&acc)[N], float (&s)[N]) {
   wgmma_wait<0>();
   fence_regs(s);
 #pragma unroll
   for (int q = 0; q < CHUNK; ++q) release_kstep(sm, it0, j + q);
-  add32(acc, s);
+  add_acc(acc, s);
 }
 
 // acc += A W[:, this group's 64 columns of the pass] over k-steps j0 ... j1
@@ -585,41 +651,48 @@ __device__ __forceinline__ void finish_chunk(const Smem& sm, uint32_t it0, int j
 // the wait for it is the only one, so the chunk's products run back to
 // back.  The hardware reads a wgmma's A registers while it runs, so the two
 // sets of A registers alternate: the next chunk's fragments are loaded
-// while this chunk runs, into the set the chunk before read.  RA: A comes
-// from the ring's stages (the wide route's layer 2), else from the obs
-// (L1) or h1.
-template <bool L1, bool EXACT, bool RA = false>
+// while this chunk runs, into the set the chunk before read.  WIDE: the
+// wide route's block of WM rows, this group's 64 of them and all NC columns
+// (n = 128), A from the obs (L1) or the ring's stages; else this group's 64
+// columns of the block's 64 rows, A from the obs (L1) or h1.
+template <bool L1, bool EXACT, bool WIDE = false>
 __device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_t it0, int j0,
                                           int j1, const float* h1, int SH,
                                           const int32_t* __restrict__ x, int rows,
-                                          float (&acc)[32]) {
-  float s[32];
+                                          float (&acc)[WIDE ? 64 : 32]) {
+  constexpr int N = WIDE ? 64 : 32;
+  constexpr bool RA = WIDE && !L1;
+  // The lane of the A fragments: in the wide route group c's rows are 64 c
+  // + 16 wl + g (+ 8).
+  const Lane la = WIDE ? Lane{l.c, 4 * l.c + l.wl, l.g, l.t} : l;
+  float s[N];
   int pa[4], pb[4];
   uint32_t ah0[CHUNK][4], al0[CHUNK][4], ah1[CHUNK][4], al1[CHUNK][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  for (int i = 0; i < N; ++i) s[i] = 0.f;
   if constexpr (L1) {
-    obs_frag(x, rows, l, j0, pa);
-    obs_frag(x, rows, l, j0 + 1, pb);
+    obs_frag(x, rows, la, j0, pa);
+    obs_frag(x, rows, la, j0 + 1, pb);
   }
-  load_chunk<L1, EXACT, RA>(sm, it0, l, j0, h1, SH, x, rows, pa, pb, ah0, al0);
+  load_chunk<L1, EXACT, RA>(sm, it0, la, j0, h1, SH, x, rows, pa, pb, ah0, al0);
   for (int j = j0;; j += 2 * CHUNK) {
-    issue_chunk<L1, EXACT, RA>(sm, l, it0, j, ah0, al0, s);
+    issue_chunk<L1, EXACT, WIDE>(sm, l, it0, j, ah0, al0, s);
     if (j + CHUNK < j1)
-      load_chunk<L1, EXACT, RA>(sm, it0, l, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
+      load_chunk<L1, EXACT, RA>(sm, it0, la, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
     finish_chunk(sm, it0, j, acc, s);
     if (j + CHUNK == j1) return;
-    issue_chunk<L1, EXACT, RA>(sm, l, it0, j + CHUNK, ah1, al1, s);
+    issue_chunk<L1, EXACT, WIDE>(sm, l, it0, j + CHUNK, ah1, al1, s);
     if (j + 2 * CHUNK < j1)
-      load_chunk<L1, EXACT, RA>(sm, it0, l, j + 2 * CHUNK, h1, SH, x, rows, pa, pb, ah0, al0);
+      load_chunk<L1, EXACT, RA>(sm, it0, la, j + 2 * CHUNK, h1, SH, x, rows, pa, pb, ah0, al0);
     finish_chunk(sm, it0, j + CHUNK, acc, s);
     if (j + 2 * CHUNK == j1) return;
   }
 }
 
-__device__ __forceinline__ void zero32(float (&acc)[32]) {
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
 }
 
 // Layer 1 of one pass: acc = x W0[:, this group's columns], whichever
@@ -627,7 +700,7 @@ __device__ __forceinline__ void zero32(float (&acc)[32]) {
 __device__ __forceinline__ void layer1_pass(const Smem& sm, const Lane& l, uint32_t it0,
                                             const int32_t* __restrict__ x, int rows, bool exact,
                                             float (&acc)[32]) {
-  zero32(acc);
+  zero_acc(acc);
   if (exact)
     gemm_pass<true, true>(sm, l, it0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
   else
@@ -758,7 +831,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
     // partial added to the running sums in pass order.
     float lg[HEAD_TILES][4] = {}, v[2] = {0.f, 0.f};
     for (int q = 0; q < passes; ++q, it += nk2) {
-      zero32(acc);
+      zero_acc(acc);
       gemm_pass<false, false>(sm, l, it, 0, nk2, sm.h1, SH, x, rows, acc);
       bias_tanh(l, acc, w[3], H, NC * q);
       if (head == 0) {
@@ -847,7 +920,7 @@ __device__ __forceinline__ void consume_cluster(const Smem& sm, const Params& p,
   KA_STAMP(clk, 5);
   // Layer 2 in the k order of tile mode, each pass's k-steps once its
   // columns are in: the copies still coming overlap the products.
-  zero32(acc);
+  zero_acc(acc);
   constexpr int STEPS = NC / KSTEP;
   for (int r = 0; r < P; ++r) {
     mbar_wait_cluster(cluster_bar(sm, COLUMNS_IN + r), 0);
@@ -1038,49 +1111,68 @@ struct WideParams {
   int B, H;
 };
 
+// Group cg's half of a wide accumulator: the 32 floats of its columns 64 cg
+// ... 64 cg + 63 of the pass, laid out as an n = 64 accumulator's.
+template <int CG>
+__device__ __forceinline__ float (&half_acc(float (&acc)[64]))[32] {
+  return *reinterpret_cast<float(*)[32]>(acc + 32 * CG);
+}
+
+// The lane that addresses column group cg of the pass (acc_col, bias_tanh,
+// the heads) for this thread's rows.
+__device__ __forceinline__ Lane column_lane(const Lane& l, int cg) { return {cg, l.wl, l.g, l.t}; }
+
+// h1 rows 64 c + 16 wl + g (+ 8) of the tile, columns of group CG below
+// pad16(H), to the scratch.
+template <int CG>
+__device__ __forceinline__ void wide_store_h1(const Lane& l, float (&acc)[64], float* h1, int KH,
+                                              int rows, int n0) {
+  const int r0 = 64 * l.c + 16 * l.wl + l.g;
+  float(&a)[32] = half_acc<CG>(acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = acc_col(column_lane(l, CG), n0, i, 0);
+    if (col >= KH) continue;
+    if (r0 < rows)
+      *reinterpret_cast<float2*>(h1 + (size_t)r0 * KH + col) = make_float2(a[4 * i], a[4 * i + 1]);
+    if (r0 + 8 < rows)
+      *reinterpret_cast<float2*>(h1 + (size_t)(r0 + 8) * KH + col) =
+          make_float2(a[4 * i + 2], a[4 * i + 3]);
+  }
+}
+
 // Layer 1 of a (pass, tile, head) block: its pass's columns of h1 for the
-// tile's rows, bias and tanh, stored to the scratch in f32.
+// tile's WM rows, bias and tanh, stored to the scratch in f32.
 __device__ __forceinline__ void wide_layer1(const Smem& sm, const WideParams& p,
                                             const int32_t* __restrict__ x, int rows, int row0,
                                             bool exact, int head, int q) {
   const int tid = threadIdx.x, H = p.H, KH = pad16(H), n0 = NC * q;
   const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
-  const int r0 = 16 * l.wl + l.g;
-  float acc[32];
-  layer1_pass(sm, l, 0, x, rows, exact, acc);
-  bias_tanh(l, acc, p.w[6 * head + 1], H, n0);
+  float acc[64];
+  zero_acc(acc);
+  if (exact)
+    gemm_pass<true, true, true>(sm, l, 0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
+  else
+    gemm_pass<true, false, true>(sm, l, 0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
+  const float* b = p.w[6 * head + 1];
+  bias_tanh(column_lane(l, 0), half_acc<0>(acc), b, H, n0);
+  bias_tanh(column_lane(l, 1), half_acc<1>(acc), b, H, n0);
   float* h1 = p.h1 + ((size_t)head * p.B + row0) * KH;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int col = acc_col(l, n0, i, 0);
-    if (col >= KH) continue;
-    if (r0 < rows)
-      *reinterpret_cast<float2*>(h1 + (size_t)r0 * KH + col) =
-          make_float2(acc[4 * i], acc[4 * i + 1]);
-    if (r0 + 8 < rows)
-      *reinterpret_cast<float2*>(h1 + (size_t)(r0 + 8) * KH + col) =
-          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
-  }
+  wide_store_h1<0>(l, acc, h1, KH, rows, n0);
+  wide_store_h1<1>(l, acc, h1, KH, rows, n0);
 }
 
-// Layer 2 of a (pass, tile, head) block: its pass's columns over all of K,
-// A from the ring, in tile mode's k order; bias and tanh; its consumer
-// groups' partial head over the pass's columns, each from zero, stored to
-// the scratch.
-__device__ __forceinline__ void wide_layer2(const Smem& sm, const WideParams& p, int rows,
-                                            int row0, int head, int q) {
-  const int tid = threadIdx.x, H = p.H, n0 = NC * q;
-  const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
-  const float* const* w = p.w + 6 * head;
-  const int r0 = 16 * l.wl + l.g;
-  float acc[32];
-  zero32(acc);
-  gemm_pass<false, false, true>(sm, l, 0, 0, pad16(H) / KSTEP, nullptr, 0, nullptr, rows, acc);
-  bias_tanh(l, acc, w[3], H, n0);
-  const size_t part = ((size_t)q * CONSUMERS + l.c) * p.B + row0;  // this group's first row
+// Column group CG's partial head over its 64 columns of the pass, from zero,
+// for this thread's rows, stored to the scratch ([passes][2][B]...).
+template <int CG>
+__device__ __forceinline__ void wide_head(const Lane& l, const WideParams& p, float (&acc)[64],
+                                          const float* const* w, int head, int rows, int row0,
+                                          int q) {
+  const int r0 = 64 * l.c + 16 * l.wl + l.g, n0 = NC * q;
+  const size_t part = ((size_t)q * CONSUMERS + CG) * p.B + row0;  // the group's first row
   if (head == 0) {
     float pl[HEAD_TILES][4];
-    logit_partial(l, acc, w[4], H, n0, pl);
+    logit_partial(column_lane(l, CG), half_acc<CG>(acc), w[4], p.H, n0, pl);
 #pragma unroll
     for (int hn = 0; hn < HEAD_TILES; ++hn)
 #pragma unroll
@@ -1092,7 +1184,7 @@ __device__ __forceinline__ void wide_layer2(const Smem& sm, const WideParams& p,
       }
   } else {
     float pv[2];
-    value_partial(l, acc, w[4], H, n0, pv);
+    value_partial(column_lane(l, CG), half_acc<CG>(acc), w[4], p.H, n0, pv);
     if (l.t == 0) {
       if (r0 < rows) p.vpart[part + r0] = pv[0];
       if (r0 + 8 < rows) p.vpart[part + r0 + 8] = pv[1];
@@ -1100,7 +1192,24 @@ __device__ __forceinline__ void wide_layer2(const Smem& sm, const WideParams& p,
   }
 }
 
-// One layer of the wide route: a block per (pass, 64-row tile, head), grid
+// Layer 2 of a (pass, tile, head) block: its pass's columns over all of K,
+// A from the ring, in tile mode's k order; bias and tanh; each column
+// group's partial head over its 64 columns, from zero, to the scratch.
+__device__ __forceinline__ void wide_layer2(const Smem& sm, const WideParams& p, int rows,
+                                            int row0, int head, int q) {
+  const int tid = threadIdx.x, H = p.H, n0 = NC * q;
+  const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
+  const float* const* w = p.w + 6 * head;
+  float acc[64];
+  zero_acc(acc);
+  gemm_pass<false, false, true>(sm, l, 0, 0, pad16(H) / KSTEP, nullptr, 0, nullptr, rows, acc);
+  bias_tanh(column_lane(l, 0), half_acc<0>(acc), w[3], H, n0);
+  bias_tanh(column_lane(l, 1), half_acc<1>(acc), w[3], H, n0);
+  wide_head<0>(l, p, acc, w, head, rows, row0, q);
+  wide_head<1>(l, p, acc, w, head, rows, row0, q);
+}
+
+// One layer of the wide route: a block per (pass, WM-row tile, head), grid
 // (passes, tiles, heads), so that the blocks running at once share a tile's
 // h1 and a head's weights in L2.  Layer 1's ring stages hold the pass's
 // weights of a k-step; layer 2's also the tile's h1 of that k-step, from
@@ -1121,8 +1230,8 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
   sm.h1 = nullptr;
   sm.vpart = nullptr;
   sm.any_legal = nullptr;
-  const int tid = threadIdx.x, q = blockIdx.x, row0 = blockIdx.y * M, head = blockIdx.z;
-  const int rows = min(M, p.B - row0);
+  const int tid = threadIdx.x, q = blockIdx.x, row0 = blockIdx.y * WM, head = blockIdx.z;
+  const int rows = min(WM, p.B - row0);
   const int32_t* x = p.obs + (size_t)row0 * OBS;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -1167,14 +1276,16 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// The wide route's outputs of a 64-row tile: every pass's partials in pass
-// order from zero, each consumer group's apart, then the two groups' sums,
+// The wide route's outputs of OUT_ROWS rows: every pass's partials in pass
+// order from zero, each column group's apart, then the two groups' sums,
 // then the bias, as the other modes add them; the masked-logits select.
-__global__ void wide_heads_kernel(const WideParams p) {
-  __shared__ int any_legal[M];
-  const int tid = threadIdx.x, row0 = blockIdx.x * M, rows = min(M, p.B - row0);
+// Small blocks, so that a small B still spreads over the SMs: the partials'
+// loads, not their adds, take the time.
+__global__ void __launch_bounds__(OUT_THREADS) wide_heads_kernel(const WideParams p) {
+  __shared__ int any_legal[OUT_ROWS];
+  const int tid = threadIdx.x, row0 = blockIdx.x * OUT_ROWS, rows = min(OUT_ROWS, p.B - row0);
   const int passes = (p.H + NC - 1) / NC;
-  if (tid < M) {
+  if (tid < OUT_ROWS) {
     int any = 0;
     if (tid < rows)
       for (int j = 0; j < ACT; ++j) any |= p.mask[(size_t)(row0 + tid) * ACT + j];
@@ -1276,13 +1387,13 @@ size_t prepared_offset(int H, int m) {
   return (m >> 1) * (a + b) + (m & 1) * a;
 }
 
-// The wide route's map of h1 in the scratch, [heads][B][KH]: boxes of {8 k, 64 rows, 1}.
+// The wide route's map of h1 in the scratch, [heads][B][KH]: boxes of {8 k, WM rows, 1}.
 int encode_h1(CUtensorMap* map, const float* base, int KH, int B, int heads) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[3] = {(cuuint64_t)KH, (cuuint64_t)B, (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)KH * 4, (cuuint64_t)B * KH * 4};
-  const cuuint32_t box[3] = {KSTEP, M, 1}, estride[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {KSTEP, WM, 1}, estride[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)base, dims, strides, box,
                         estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1420,7 +1531,7 @@ extern "C" int fused_actor_critic_wide_forward(const void* obs, const void* mask
                                                void* scratch, long long scratch_floats,
                                                void* logits, void* value, void* stream) {
   if (B <= 0) return 0;
-  const int heads = value ? 2 : 1, KH = pad16(H), tiles = (B + M - 1) / M;
+  const int heads = value ? 2 : 1, KH = pad16(H), tiles = (B + WM - 1) / WM;
   if (H < 1 || tiles > 65535) return (int)cudaErrorInvalidValue;
   if (scratch_floats < (long long)wide_scratch_floats(B, H, heads))
     return (int)cudaErrorInvalidValue;
@@ -1460,7 +1571,7 @@ extern "C" int fused_actor_critic_wide_forward(const void* obs, const void* mask
   fused_ac_wide_kernel<2><<<grid, THREADS, smem2, st>>>(maps[1], maps[3], map_h1, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  wide_heads_kernel<<<tiles, 256, 0, st>>>(p);
+  wide_heads_kernel<<<(B + OUT_ROWS - 1) / OUT_ROWS, OUT_THREADS, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 

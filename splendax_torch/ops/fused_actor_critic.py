@@ -13,8 +13,8 @@ has two modes, chosen by `wgmma_mode(B, H)`: tile mode (a block per 64-row
 tile does every column) and, at small B, cluster mode (a cluster of blocks
 per tile and head splits the hidden columns).  The `wide` route stores the
 first hidden layer to a scratch in device memory and streams it back by
-TMA, a block per (pass of 128 columns, tile, head) in each layer, B cut
-into calls of at most `WIDE_MAX_ROWS` rows.  All sum in one order, so a
+TMA, a block per (pass of 128 columns, 128-row tile, head) in each layer, B
+cut into calls of at most `WIDE_MAX_ROWS` rows.  All sum in one order, so a
 row's outputs are the same bits in every mode and at every B.  PR 2's
 `mma_sync` kernel (`csrc/fused_actor_critic.cu`) is on no path: it stays
 only to be timed beside them (`_launch("mma_sync", ...)`).  On a CPU
@@ -58,6 +58,8 @@ CLUSTER_MAX_ROWS = 4096
 # The wide route's rows a launch: its scratch (`wide_scratch_floats`) is
 # sized for this many rows at most, whatever B.
 WIDE_MAX_ROWS = 32768
+WIDE_ROWS = 128  # the wide route's row tile: two consumer groups of 64 rows
+WIDE_OUT_ROWS = 8  # rows of a block of the wide route's output kernel
 WIDE_HEAD_PAD = 48  # the wide route's partial logits a row: 45 padded to six n-tiles of 8
 
 launches = 0
@@ -117,12 +119,11 @@ def wide_scratch_floats(B: int, H: int, with_value: bool) -> int:
 
 def wide_launch_shape(B: int, H: int, with_value: bool) -> dict:
     """The grids of a wide-route launch of B rows (one chunk): layer 1 and
-    layer 2 a block per (pass, 64-row tile, head), one pass a block, no
-    cluster; the outputs a block per tile."""
-    tiles = -(-B // ROWS)
-    layer = (column_groups(H), tiles, 2 if with_value else 1)
-    return {"layer1": layer, "layer2": layer, "heads": (tiles, 1, 1), "cluster": (1, 1, 1),
-            "passes_per_block": 1}
+    layer 2 a block per (pass, 128-row tile, head), one pass a block, no
+    cluster; the outputs a block per WIDE_OUT_ROWS rows."""
+    layer = (column_groups(H), -(-B // WIDE_ROWS), 2 if with_value else 1)
+    return {"layer1": layer, "layer2": layer, "heads": (-(-B // WIDE_OUT_ROWS), 1, 1),
+            "cluster": (1, 1, 1), "passes_per_block": 1}
 
 
 def launch_counts() -> dict:

@@ -432,11 +432,11 @@ def test_route_follows_the_hidden_width(hidden, want):
 def test_wide_launch_shape(hidden):
     """The wide route's launches: B cut into chunks of at most
     WIDE_MAX_ROWS rows that cover it in order; per chunk, layer 1 and layer
-    2 a block per (pass of 128 columns, 64-row tile, head), one pass a
+    2 a block per (pass of 128 columns, 128-row tile, head), one pass a
     block and no cluster (so no cluster limit at any width), the outputs a
-    block per tile; a scratch of h1 in f32 for every row and head, plus the
-    per-(pass, consumer group) partial heads, sized by the chunk's rows and
-    H, never by B beyond the chunk."""
+    block per 8 rows; a scratch of h1 in f32 for every row and head,
+    plus the per-(pass, column group) partial heads, sized by the chunk's
+    rows and H, never by B beyond the chunk."""
     passes = -(-hidden // 128)
     kh = (hidden + 15) // 16 * 16
     for B in (1, 63, 64, 65, 1024, 8192, fac.WIDE_MAX_ROWS, fac.WIDE_MAX_ROWS + 1, 737280):
@@ -449,9 +449,9 @@ def test_wide_launch_shape(hidden):
             heads = 2 if with_value else 1
             n = chunks[0][1]
             shape = fac.wide_launch_shape(n, hidden, with_value)
-            tiles = -(-n // 64)
-            assert shape["layer1"] == shape["layer2"] == (passes, tiles, heads)
-            assert shape["heads"] == (tiles, 1, 1) and tiles <= 65535
+            assert shape["layer1"] == shape["layer2"] == (passes, -(-n // 128), heads)
+            assert shape["heads"] == (-(-n // 8), 1, 1)
+            assert shape["layer1"][1] <= 65535  # the grid's y
             assert shape["cluster"] == (1, 1, 1) and shape["passes_per_block"] == 1
             floats = fac.wide_scratch_floats(n, hidden, with_value)
             assert floats == n * (heads * kh + passes * 2 * 48 + (passes * 2 if with_value else 0))
