@@ -331,7 +331,9 @@ def wide_probe(libs, cs, dev) -> None:
 
         out["addmm chain"] = cs.device_ms(addmm_chain, 20)[0]
         bound = cs.bound_a(B, H, with_value, 2)[0]
-        print(f"wide route B={B} H={H} value={with_value} (bound {bound:.4f} ms): "
+        grids = fac.wide_launch_shape(B, H, with_value)
+        print(f"wide route B={B} H={H} value={with_value} (bound {bound:.4f} ms; grids: layers "
+              f"{grids['layer1']}, outputs {grids['heads']}): "
               + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + " ms; by launch: "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms", flush=True)
 

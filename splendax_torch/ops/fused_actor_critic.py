@@ -111,7 +111,7 @@ def wide_chunks(B: int) -> list[tuple[int, int]]:
 def wide_scratch_floats(B: int, H: int, with_value: bool) -> int:
     """Floats of the wide route's scratch for a launch of B rows, as the C
     side lays it out: h1 [heads, B, pad16(H)] in f32, then the partial
-    logits [passes, 2 consumer groups, B, 48] and, with the value, the
+    logits [passes, 2 groups of 64 columns, B, 48] and, with the value, the
     partial values [passes, 2, B]."""
     heads, passes = (2 if with_value else 1), column_groups(H)
     return B * (heads * pad16(H) + passes * 2 * WIDE_HEAD_PAD + (passes * 2 if with_value else 0))
