@@ -410,11 +410,12 @@ def test_wgmma_route_zero_weights(cuda, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_value", [True, False])
-@pytest.mark.parametrize("H", [37, 100, 256, 768])
+@pytest.mark.parametrize("H", [37, 100, 256, 768, 1024, 1280])
 def test_prep_kernel_equals_plain_bit_for_bit(cuda, H, with_value):
     """The prep kernel's split and transpose equals `prepare_weights_plain`
     bit for bit (without the critic, on the actor's half, which is all the
-    kernel writes then); one launch a call."""
+    kernel writes then), at the wgmma route's widths and the wide route's;
+    one launch a call."""
     w = ac.kernel_weights(ac.params_from_jax(numpy_params(np.random.RandomState(H), H),
                                              device=cuda))
     before = fac.prep_launches
