@@ -32,7 +32,7 @@ Phases, in order; any failure exits non-zero:
      against each other) and its wide route above (held at H = 1024, 1280
      and 2048 on random weights, B = 1 to 8192, obs of 4097); at each
      main-path shape both modes of the wgmma kernel, alone and with their
-     prep, PR 2's mma_sync kernel on the same rows, the plain forward and the
+     prep, the mma_sync kernel on the same rows, the plain forward and the
      addmm chain are timed, and so is the wide route at the wide paths'
      shapes (H = 1024, B = 1024 and 8192; H = 1280, B = 8192) beside the
      same yardsticks;
@@ -521,8 +521,9 @@ def phase_kernels(device) -> dict:
     # The wide route at the wide paths' shapes: H = 1024, B = 1024 with value
     # (the train path's agent forward and bootstrap) and without (its pool
     # slot), B = 8192 with value; H = 1280, B = 8192 with value.  Beside it,
-    # in the same call: the route alone (weights prepared once), PR 2's
-    # mma_sync kernel on the same rows (H <= 1024 only), the plain forward
+    # in the same call: the route alone (weights prepared once), the
+    # mma_sync kernel (`csrc/fused_actor_critic.cu`, H <= 1024 only) on the
+    # same rows, the plain forward
     # and the addmm chain.
     wides = []
     for H, B, with_value in ((1024, 1024, True), (1024, 1024, False), (1024, 8192, True),
@@ -553,7 +554,7 @@ def phase_kernels(device) -> dict:
                           bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                           host_ms=host_ms))
         print(f"kernel A wide route B={B} H={H} value={with_value}: {ms:.4f} ms alone, "
-              f"{route_ms:.4f} ms with its prep (the path); mma_sync (PR 2) "
+              f"{route_ms:.4f} ms with its prep (the path); mma_sync kernel "
               + (f"{mma_sync_ms:.4f} ms" if mma_sync_ms is not None else "- (H > 1024)")
               + f", plain {plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); "
               f"bound {bound_ms:.4f} ms by {bound_by} (3xTF32, layer 1 in {l1_products} "

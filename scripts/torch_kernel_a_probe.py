@@ -37,12 +37,12 @@ without value); then at H = 1024, B = 1024 with and without value and B =
 8192 with value, and H = 1280, B = 8192 with value, the route's split: the
 kernel alone, each of its three launches (layer 1, layer 2 with the partial
 heads, the outputs: device-clock sums by kernel), its one_product, no_loads
-and no_loads_one variants, PR 2's mma_sync kernel (H <= 1024) and the addmm
+and no_loads_one variants, the mma_sync kernel (H <= 1024) and the addmm
 chain.
 
 --parent DIR: also builds DIR/splendax_torch/csrc/fused_actor_critic_wgmma.cu
-(another tree's wgmma kernel, with PR 10's C interface: a `groups`
-argument, 0 for tile mode) and times it on the same prepared weights, in turns with
+(another tree's wgmma kernel, with this tree's C interface for its tile
+and cluster modes: a `groups` argument, 0 for tile mode) and times it on the same prepared weights, in turns with
 this tree's tile mode (parent, tile, tile, parent, parent, tile), at B =
 8192, 32768 and 737280 with value and at B = 2048 without.
 
@@ -124,7 +124,7 @@ extern "C" int run(int blocks, int iters, float* out) {
 
 def build(check: bool, parent: str | None = None, wide: bool = False) -> dict:
     """{name: loaded library} for every variant (with --check only the
-    wgmma kernel, its no_loads variants and PR 2's kernel; with --wide
+    wgmma kernel, its no_loads variants and the mma_sync kernel; with --wide
     those and one_product), each bound by the wrapper, and the mma loop;
     prints the wgmma variants' ptxas reports."""
     from splendax_torch.ops import _build
@@ -319,7 +319,7 @@ def wide_probe(libs, cs, dev) -> None:
                   if "<1>" in e.key or "Li1E" in e.key else "layer 2"):
                  e.self_device_time_total / 1e3 / 20 for e in kernels}
         if H <= 1024:
-            out["mma_sync (PR 2)"] = cs.device_ms(
+            out["mma_sync kernel"] = cs.device_ms(
                 lambda: fac._launch("mma_sync", w, obs, mask, with_value, lib=libs["kernel"]),
                 20)[0]
 

@@ -121,7 +121,7 @@
 // twice 1.2 MB), 8 passes x 2 heads = 16 blocks a layer.  Bound at H = 1024,
 // B = 8192 with the critic: operations, 125.3 GFLOP of TF32 products (two
 // for each f32 one of layer 1, three elsewhere), 0.2535 ms at 494.7 TFLOP/s.
-// Against PR 2's mma_sync kernel (fused_actor_critic.cu), which took these
+// Against the mma_sync kernel (fused_actor_critic.cu), which took these
 // widths up to 1024: the weights are split once a call by the prep kernel,
 // not by every 16- or 32-row block in registers; a block streams 1 / passes
 // of one head's weights, so B = 1024 gives 128 blocks a layer with the

@@ -15,7 +15,7 @@ per tile and head splits the hidden columns).  The `wide` route stores the
 first hidden layer to a scratch in device memory and streams it back by
 TMA, a block per (pass of 128 columns, 128-row tile, head) in each layer, B
 cut into calls of at most `WIDE_MAX_ROWS` rows.  All sum in one order, so a
-row's outputs are the same bits in every mode and at every B.  PR 2's
+row's outputs are the same bits in every mode and at every B.  The older
 `mma_sync` kernel (`csrc/fused_actor_critic.cu`) is on no path: it stays
 only to be timed beside them (`_launch("mma_sync", ...)`).  On a CPU
 tensor it runs `fused_masked_forward_plain`, the same function in plain

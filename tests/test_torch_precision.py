@@ -424,7 +424,7 @@ def test_wgmma_mode_is_a_function_of_b_and_h(hidden):
 def test_route_follows_the_hidden_width(hidden, want):
     """H <= 768 takes the wgmma route (its 64-row tile holds the first hidden
     layer in shared memory), wider nets the wide route, at any width; no
-    path takes PR 2's mma_sync kernel."""
+    path takes the mma_sync kernel."""
     assert fac.route(hidden) == want
 
 
