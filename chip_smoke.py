@@ -30,12 +30,13 @@ Phases, in order; any failure exits non-zero:
      route at H <= 768 (held at H = 256 and 768, its prep kernel bit for bit
      against the plain preparation, its tile and cluster modes bit for bit
      against each other) and its wide route above (held at H = 1024, 1280
-     and 2048 on random weights, B = 1 to 8192, obs of 4097); at each
-     main-path shape both modes of the wgmma kernel, alone and with their
-     prep, the mma_sync kernel on the same rows, the plain forward and the
-     addmm chain are timed, and so is the wide route at the wide paths'
-     shapes (H = 1024, B = 1024 and 8192; H = 1280, B = 8192) beside the
-     same yardsticks;
+     and 2048 on random weights, B = 1 to 8192 with the wide paths' 16, 512
+     and 1024, obs of 4097, its pass and half modes bit for bit against each
+     other); at each main-path shape both modes of the wgmma kernel, alone
+     and with their prep, the mma_sync kernel on the same rows, the plain
+     forward and the addmm chain are timed, and so are both modes of the
+     wide route at the wide paths' shapes (H = 1024, B = 16, 256, 1024 and
+     8192; H = 1280, B = 512 and 8192) beside the same yardsticks;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
   9. the searches: without a network, `determinize`, the Gumbel search
@@ -84,16 +85,18 @@ Phases, in order; any failure exits non-zero:
      bit for bit;
  17. `train.train` at hidden 1024 (one update of 1024 x 8 with an eval at
      step 0) and at hidden 1280 (one update of 512 x 8): kernel A's wide
-     route on a driven path;
+     route on a driven path, in both its modes;
  18. the committed h1024 net (`runs/ppo_splendor_2b_h1024`) greedy against
-     the basic heuristic over 256 games, through the wide route.
+     the basic heuristic over 256 games, through the wide route; every
+     forward it made is then held against the float64 and float32 plain
+     forwards on the rows it was given, and its other mode bit for bit.
 
 Every driven path at H <= 768 (4 to 16) must launch kernel A on its wgmma
 route only, each forward with one weight preparation and in the mode its B
 derives (`wgmma_mode`: cluster mode up to CLUSTER_MAX_ROWS rows, tile mode
 above), the cluster mode on the pool slots, the eval suite, the root prior
 and the host policies; paths 17 and 18 on the wide route only, each forward
-with one weight preparation.
+with one weight preparation and in the mode its B derives (`wide_mode`).
 
 Phases 9 to 16 run after phase 6 and before phase 7, so the host-clock
 rates (phases 3 to 6 and 9 to 16) are taken before the first
@@ -365,8 +368,10 @@ def phase_kernels(device) -> dict:
               f"and B in (1, 8192) with obs of 4097; wgmma route, its modes {modes} bit-equal "
               f"on every row; the prep kernel equals its plain version bit for bit)", flush=True)
     # The wide route (every H > 768), at H = 1024, 1280 and 2048 on seeded
-    # random weights and engine obs, held the same way; the last case puts
-    # obs of 4097 (not exact in TF32) into some of B = 8192's tiles.
+    # random weights and engine obs, held the same way, its two modes bit
+    # for bit; the last case puts obs of 4097 (not exact in TF32) into some
+    # of B = 8192's tiles.  B = 16 is the wide trains' eval, 512 the H=1280
+    # train's rollout and bootstrap, 1024 the H=1024 train's.
     def random_weights(H):
         rng = np.random.RandomState(H)
         out = []
@@ -378,7 +383,19 @@ def phase_kernels(device) -> dict:
                         device=device))
         return out
 
-    wide_b = (1, 256, 257, 1024, 4096, 4097, 8192)
+    wide_modes_ = tuple(fac.launches_by_wide_mode)
+
+    def wide_modes(w, obs, mask, with_value, where):
+        """The wide forward as the path runs it, after checking that each
+        mode, forced on the same rows, gives it bit for bit."""
+        got = fac.fused_masked_forward(w, obs, mask, with_value=with_value)
+        for m in wide_modes_:
+            forced = fac._launch("wide", w, obs, mask, with_value, mode=m)
+            check(all(a is None or torch.equal(a, b) for a, b in zip(got, forced)),
+                  f"kernel A's wide {m} mode differs from the path's forward at {where}")
+        return got
+
+    wide_b = (1, 16, 256, 257, 512, 1024, 4096, 4097, 8192)
     wide_cases = [(B, False) for B in wide_b] + [(8192, True)]
     err_wide, share_wide, share_wide32, n_wide = 0.0, 0.0, 0.0, 0
     before = dict(fac.launches_by_route)
@@ -391,12 +408,12 @@ def phase_kernels(device) -> dict:
                 obs[B - 100::9, 0] = 4097
                 obs[0, 5] = 4097
             for with_value in (True, False):
-                outs = [fac.fused_masked_forward(w_h, obs, mask, with_value),
+                where = f"H={H} B={B} value={with_value}" + (" obs of 4097" if big else "")
+                outs = [wide_modes(w_h, obs, mask, with_value, where),
                         fac.fused_masked_forward_plain(w_h, obs, mask, with_value),
                         fac.fused_masked_forward_plain(w64_h, obs, mask, with_value)]
-                n_wide += 1
+                n_wide += 1 + len(wide_modes_)
                 torch.cuda.synchronize()
-                where = f"H={H} B={B} value={with_value}" + (" obs of 4097" if big else "")
                 for got, f32, ref in zip(*outs):
                     if got is None:
                         continue
@@ -417,7 +434,8 @@ def phase_kernels(device) -> dict:
     print(f"kernel A H=1024, 1280, 2048 (wide route, random weights): max abs err {err_wide:.3g} "
           f"vs the float64 plain version, {share_wide:.3f} of the tolerance; kernel vs float32 "
           f"plain {share_wide32:.3f} (at most {F32_PLAIN_SLACK}); B in {wide_b} and 8192 with obs "
-          f"of 4097, with and without value", flush=True)
+          f"of 4097, with and without value; modes {wide_modes_} bit-equal on every row",
+          flush=True)
     # Times at H = 768: the agent forward and the bootstrap value (B = 8192,
     # with value), the pool slots' forwards (B = 2048, 3072, no value; 512, a
     # full pool's snapshot slot) and the eval suite's greedy forward (B = 256,
@@ -519,14 +537,17 @@ def phase_kernels(device) -> dict:
         by_shape=preps)
 
     # The wide route at the wide paths' shapes: H = 1024, B = 1024 with value
-    # (the train path's agent forward and bootstrap) and without (its pool
-    # slot), B = 8192 with value; H = 1280, B = 8192 with value.  Beside it,
-    # in the same call: the route alone (weights prepared once), the
-    # mma_sync kernel (`csrc/fused_actor_critic.cu`, H <= 1024 only) on the
-    # same rows, the plain forward
-    # and the addmm chain.
+    # (the H=1024 train's agent forward and bootstrap) and without (its pool
+    # slot), B = 256 without (the h1024 eval's forward), B = 16 without (the
+    # trains' eval), B = 8192 with value; H = 1280, B = 512 with value (its
+    # train's rollout) and B = 8192 with value.  Beside the route as the
+    # path runs it (prep + kernel, in the mode B derives), in the same call:
+    # each mode alone (weights prepared once) and the other mode with its
+    # prep, the mma_sync kernel (`csrc/fused_actor_critic.cu`, H <= 1024
+    # only) on the same rows, the plain forward and the addmm chain.
     wides = []
-    for H, B, with_value in ((1024, 1024, True), (1024, 1024, False), (1024, 8192, True),
+    for H, B, with_value in ((1024, 1024, True), (1024, 1024, False), (1024, 256, False),
+                             (1024, 16, False), (1024, 8192, True), (1280, 512, True),
                              (1280, 8192, True)):
         w_h = random_weights(H)
         obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
@@ -539,33 +560,50 @@ def phase_kernels(device) -> dict:
                 torch.addmm(w_h[o + 5], h, w_h[o + 4])
 
         prepared = fac.prepare_weights(w_h, with_value)
+        mode = fac.wide_mode(B, H, with_value)
         route_ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w_h, obs, mask, with_value),
                                       20, per_call=4)
-        ms = device_ms(lambda: fac._launch("wide", w_h, obs, mask, with_value, prepared), 20,
-                       per_call=3)[0]
+        mode_ms = {m: device_ms(lambda: fac._launch("wide", w_h, obs, mask, with_value, prepared,
+                                                    mode=m), 20, per_call=3)[0]
+                   for m in wide_modes_}
+        prep_ms = {m: route_ms if m == mode else device_ms(
+            lambda: fac._launch("wide", w_h, obs, mask, with_value, mode=m), 20, per_call=4)[0]
+            for m in wide_modes_}
         mma_sync_ms = (device_ms(lambda: fac._launch("mma_sync", w_h, obs, mask, with_value),
                                  20)[0] if H <= 1024 else None)
         plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w_h, obs, mask,
                                                                     with_value), 20)[0]
         library_ms = device_ms(addmm_wide, 20)[0]
         bound_ms, bound_by, bound_f32_ms = bound_a(B, H, with_value, l1_products)
-        wides.append(dict(B=B, H=H, with_value=with_value, ms=ms, route_ms=route_ms,
+        wides.append(dict(B=B, H=H, with_value=with_value, mode=mode, ms=mode_ms[mode],
+                          route_ms=route_ms, mode_ms=mode_ms, mode_prep_ms=prep_ms,
                           mma_sync_ms=mma_sync_ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                           host_ms=host_ms))
-        print(f"kernel A wide route B={B} H={H} value={with_value}: {ms:.4f} ms alone, "
-              f"{route_ms:.4f} ms with its prep (the path); mma_sync kernel "
+        print(f"kernel A wide route B={B} H={H} value={with_value}: "
+              + ", ".join(f"{m} {t:.4f}" for m, t in mode_ms.items()) + " ms alone; with its "
+              "prep " + ", ".join(f"{m} {t:.4f}" for m, t in prep_ms.items()) + f" ms (the path: "
+              f"{mode}); mma_sync kernel "
               + (f"{mma_sync_ms:.4f} ms" if mma_sync_ms is not None else "- (H > 1024)")
               + f", plain {plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); "
               f"bound {bound_ms:.4f} ms by {bound_by} (3xTF32, layer 1 in {l1_products} "
               f"products), {bound_f32_ms:.4f} ms on f32 CUDA cores; host {host_ms:.4f} ms per "
               f"call", flush=True)
-    results["fused_actor_critic_wide"] = dict(
-        max_abs_err=err_wide, shape=dict(B=wides[0]["B"], H=wides[0]["H"], with_value=True),
-        **{k: wides[0][k] for k in ("ms", "route_ms", "mma_sync_ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "bound_f32_ms", "host_ms")},
-        bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
-        checked_against="plain version in float64, rtol/atol 1e-5", by_shape=wides)
+    # Each wide mode's row at a shape that the path runs in it: B = 8192 at
+    # H = 1024 with value in pass mode, the pool slot (B = 1024, no value)
+    # in half mode, unless their B derive the other mode.
+    for m, B0, v0 in (("pass", 8192, True), ("half", 1024, False)):
+        row = next((r for r in wides if r["mode"] == m and r["B"] == B0 and r["H"] == 1024
+                    and r["with_value"] == v0), None) or next(r for r in wides if r["mode"] == m)
+        results["fused_actor_critic_wide_" + m] = dict(
+            mode=m, max_abs_err=err_wide,
+            shape=dict(B=row["B"], H=row["H"], with_value=row["with_value"]),
+            ms=row["mode_ms"][m], route_ms=row["mode_prep_ms"][m],
+            **{k: row[k] for k in ("mma_sync_ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "bound_f32_ms", "host_ms")},
+            bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
+            checked_against="plain version in float64, rtol/atol 1e-5; the other mode bit for bit",
+            by_shape=wides if m == "pass" else "as fused_actor_critic_wide_pass")
 
     # Kernel B: ring row take, at W = 8192 (the league rollout's window) and
     # at B = W = 1024 (the train phase's).
@@ -730,27 +768,30 @@ def flagship_state(cfg, device):
     return ts
 
 
-# The wgmma route's mode each forward of this process should take, derived
-# from its B (`derive_modes`): "derived_tile" and "derived_cluster" beside
-# the counters that `read_launches` returns.
-DERIVED = {"tile": 0, "cluster": 0}
+# The mode each wgmma or wide forward of this process should take, derived
+# from its B (`derive_modes`): "derived_tile", "derived_cluster",
+# "derived_wide_pass" and "derived_wide_half" beside the counters that
+# `read_launches` returns.
+DERIVED = {"tile": 0, "cluster": 0, "wide_pass": 0, "wide_half": 0}
 
 
 def derive_modes() -> None:
-    """From here on each wgmma forward of this process whose mode the
-    wrapper picks adds the mode its B gives (`wgmma_mode`) to DERIVED.  A
-    launch that names its mode (the kernel phase's) adds nothing."""
+    """From here on each wgmma or wide forward of this process whose mode
+    the wrapper picks adds the mode its B gives (`wgmma_mode`, `wide_mode`)
+    to DERIVED.  A launch that names its mode (the kernel phase's) adds
+    nothing."""
     from splendax_torch.ops import fused_actor_critic as fac
 
     launch = fac._launch
     if getattr(launch, "derives", False):
         return
 
-    def derived(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None,
-                scratch=None):
+    def derived(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None):
         if r == "wgmma" and mode is None:
             DERIVED[fac.wgmma_mode(obs.shape[0], weights[0].shape[1])] += 1
-        return launch(r, weights, obs, mask, with_value, prepared, lib, mode, scratch)
+        elif r == "wide" and mode is None:
+            DERIVED["wide_" + fac.wide_mode(obs.shape[0], weights[0].shape[1], with_value)] += 1
+        return launch(r, weights, obs, mask, with_value, prepared, lib, mode)
 
     derived.derives = True
     fac._launch = derived
@@ -758,8 +799,8 @@ def derive_modes() -> None:
 
 def read_launches() -> dict:
     """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
-    by route and by the wgmma route's mode, its weight preparations, and
-    kernel B; and the modes derived from the forwards' B."""
+    by route and by the wgmma and wide routes' modes, its weight
+    preparations, and kernel B; and the modes derived from the forwards' B."""
     from splendax_torch.ops import fused_actor_critic as fac
     from splendax_torch.ops import ring_take as rt
 
@@ -772,7 +813,8 @@ def zero_launches() -> None:
     from splendax_torch.ops import ring_take as rt
 
     fac.launches = 0
-    for counts in (fac.launches_by_route, fac.launches_by_mode, DERIVED):
+    for counts in (fac.launches_by_route, fac.launches_by_mode, fac.launches_by_wide_mode,
+                   DERIVED):
         for k in counts:
             counts[k] = 0
     fac.prep_launches = 0
@@ -782,7 +824,7 @@ def zero_launches() -> None:
 def check_route(path: str, n: dict, route: str = "wgmma") -> None:
     """Every kernel A launch of the path took `route` (the hidden width's),
     none another route, each forward prepared its weights once, and the
-    wgmma forwards took the modes their B derive."""
+    wgmma and wide forwards took the modes their B derive."""
     from splendax_torch.ops import fused_actor_critic as fac
 
     others = [r for r in fac.launches_by_route if r != route]
@@ -790,10 +832,11 @@ def check_route(path: str, n: dict, route: str = "wgmma") -> None:
           and all(n["fused_actor_critic_" + r] == 0 for r in others)
           and n["fused_actor_critic_prep"] == n["fused_actor_critic"],
           f"{path}: kernel A's launches did not all take the {route} route: {n}")
-    modes = {m: n["fused_actor_critic_" + m] for m in ("tile", "cluster")}
-    check(sum(modes.values()) == n["fused_actor_critic_wgmma"]
-          and all(modes[m] == n["derived_" + m] for m in modes),
-          f"{path}: kernel A's modes {modes} are not those its B derive: {n}")
+    for r, names in (("wgmma", ("tile", "cluster")), ("wide", ("wide_pass", "wide_half"))):
+        modes = {m: n["fused_actor_critic_" + m] for m in names}
+        check(sum(modes.values()) == n["fused_actor_critic_" + r]
+              and all(modes[m] == n["derived_" + m] for m in modes),
+              f"{path}: kernel A's {r} modes {modes} are not those its B derive: {n}")
 
 
 def phase_rollout(device):
@@ -1586,8 +1629,9 @@ def phase_wide(device) -> dict:
     """`train.train` past the wgmma route's 768, on kernel A's wide route:
     at hidden 1024 one update of 1024 games x 8 turns from random weights,
     with the eval suite at step 0; at hidden 1280 (wider than the 1024 the
-    port once refused) one update of 512 x 8.  The counters are zeroed
-    before each run and read after it; returns their sums."""
+    port once refused) one update of 512 x 8.  The agent forwards and the
+    bootstraps take pass mode, the evals' 16 rows half mode.  The counters are zeroed before each
+    run and read after it; returns their sums."""
     import torch
 
     from splendax_torch.train import train
@@ -1613,6 +1657,8 @@ def phase_wide(device) -> dict:
         print(f"train H={H}: 1 update of {cfg.num_envs} x {cfg.num_steps} with an eval of "
               f"4 x {cfg.eval_games} games in {dt:.3f} s; launches {launches}", flush=True)
         total = {k: total.get(k, 0) + n for k, n in launches.items()}
+    check(all(total["fused_actor_critic_wide_" + m] > 0 for m in ("pass", "half")),
+          f"the wide trains did not launch both wide modes: {total}")
     return total
 
 
@@ -1620,25 +1666,68 @@ def phase_eval_h1024(device) -> dict:
     """The committed h1024 net (`runs/ppo_splendor_2b_h1024`, full width)
     greedy against the basic heuristic over 256 games on the card, every
     forward through kernel A's wide route; its win rate beside the one the
-    JAX run recorded over 400 games (`final_eval.json`)."""
+    JAX run recorded over 400 games (`final_eval.json`).  Each forward's
+    rows and outputs are kept, and after the counters are read every one is
+    held within rtol/atol 1e-5 of the float64 plain forward and within
+    F32_PLAIN_SLACK of the float32 one on the committed weights, and the
+    wide route's other mode gives it bit for bit."""
     import torch
 
     from splendax_torch.eval import suite
     from splendax_torch.models import actor_critic as ac
+    from splendax_torch.ops import fused_actor_critic as fac
 
     run = os.path.join(ROOT, "runs", "ppo_splendor_2b_h1024")
     params = ac.import_params_npz(os.path.join(run, "ppo_splendor_params.npz"), device=device)
     check(params.hidden == 1024, f"h1024 net has hidden {params.hidden}")
     with open(os.path.join(run, "final_eval.json")) as f:
         recorded = json.load(f)["basic"]
+    seen = []
+    launch = fac._launch
+
+    def kept(r, weights, obs, mask, with_value, *args, **kwargs):
+        out = launch(r, weights, obs, mask, with_value, *args, **kwargs)
+        seen.append((obs.clone(), mask.clone(), with_value, out))
+        return out
+
     zero_launches()
-    t0 = time.perf_counter()
-    r = suite.run_evaluation_suite(params, 256, seed=0, opponents=["basic"],
-                                   device=device)["basic"]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    fac._launch = kept
+    try:
+        t0 = time.perf_counter()
+        r = suite.run_evaluation_suite(params, 256, seed=0, opponents=["basic"],
+                                       device=device)["basic"]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        fac._launch = launch
     launches = read_launches()
     check_route("eval h1024", launches, route="wide")
+    check(len(seen) == launches["fused_actor_critic"], f"eval h1024: kept {len(seen)} forwards")
+    w = ac.kernel_weights(params)
+    w64 = [t.double() for t in w]
+    worst, worst32, sizes = 0.0, 0.0, set()
+    for obs, mask, with_value, got in seen:
+        where = f"eval h1024, B={obs.shape[0]} value={with_value}"
+        sizes.add(obs.shape[0])
+        refs = (fac.fused_masked_forward_plain(w64, obs, mask, with_value),
+                fac.fused_masked_forward_plain(w, obs, mask, with_value))
+        for g, ref, f32 in zip(got, *refs):
+            if g is None:
+                continue
+            e64 = ((g.double() - ref).abs() / (1e-5 + 1e-5 * ref.abs())).max().item()
+            e32 = ((g.double() - f32.double()).abs() / (1e-5 + 1e-5 * f32.double().abs())).max().item()
+            check(torch.isfinite(g).all().item() and e64 <= 1.0 and e32 <= F32_PLAIN_SLACK,
+                  f"{where}: the wide route is {e64:.3f} of the tolerance from float64, "
+                  f"{e32:.3f} from float32")
+            worst, worst32 = max(worst, e64), max(worst32, e32)
+        for m in fac.launches_by_wide_mode:
+            forced = fac._launch("wide", w, obs, mask, with_value, mode=m)
+            check(all(a is None or torch.equal(a, b) for a, b in zip(got, forced)),
+                  f"{where}: the wide route's {m} mode differs from the path's forward")
+    print(f"eval h1024: its {len(seen)} forwards (B in {sorted(sizes)}) on the committed "
+          f"weights: {worst:.3f} of the rtol/atol 1e-5 tolerance vs the float64 plain forward, "
+          f"{worst32:.3f} vs float32 (at most {F32_PLAIN_SLACK}); both wide modes bit-equal",
+          flush=True)
     check(r["n"] == 256 and r["illegal_action_rate"] == 0, f"eval h1024: {r}")
     # The recorded rate is 0.9675 +- 0.0174 over 400 games; 0.9 is far below
     # any 256-game sample of it, and far above what a broken forward plays.
@@ -2246,7 +2335,8 @@ def main() -> int:
         "fused_actor_critic_tile": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_cluster": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_prep": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
-        "fused_actor_critic_wide": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
+        "fused_actor_critic_wide_pass": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
+        "fused_actor_critic_wide_half": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "ring_take": ("splendax_torch/csrc/ring_take.cu", "splendax/ops/ring_take.py:38"),
     }
     rows = []

@@ -31,14 +31,17 @@ beside them at 8192.  Every variant is called through the wrapper
 (`fused_actor_critic._launch` with the variant's library and a forced mode),
 as the path calls the library's own build.
 
---wide: only the wide route (H > 768, the same source): checked against the
-float64 plain forward at H = 1024, 1280 and 2048 (B = 1, 65, 8192, with and
-without value); then at H = 1024, B = 1024 with and without value and B =
-8192 with value, and H = 1280, B = 8192 with value, the route's split: the
-kernel alone, each of its three launches (layer 1, layer 2 with the partial
-heads, the outputs: device-clock sums by kernel), its one_product, no_loads
-and no_loads_one variants, the mma_sync kernel (H <= 1024) and the addmm
-chain.
+--wide: only the wide route (H > 768, the same source): both its modes
+checked against the float64 plain forward and against each other bit for
+bit at H = 1024, 1280 and 2048 (B = 1, 65, 8192, with and without value);
+both modes alone beside the addmm chain at H = 1024 and 1280, B = 16, 256,
+512, 1024, 2048 and 4096, with and without value (where half mode stops
+paying: `WIDE_HALF_MAX_BLOCKS`); then at H = 1024, B = 1024 with and without
+value and B = 8192 with value, and H = 1280, B = 8192 with value, the
+route's split in the mode B derives: the kernel alone, each of its three
+launches (layer 1, layer 2 with the partial heads, the outputs:
+device-clock sums by kernel), its one_product, no_loads and no_loads_one
+variants, the mma_sync kernel (H <= 1024) and the addmm chain.
 
 --parent DIR: also builds DIR/splendax_torch/csrc/fused_actor_critic_wgmma.cu
 (another tree's wgmma kernel, with this tree's C interface for its tile
@@ -290,15 +293,41 @@ def wide_probe(libs, cs, dev) -> None:
         for B in (1, 65, 8192):
             obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
             for with_value in (True, False):
-                got = fac._launch("wide", w, obs, mask, with_value, lib=libs["wgmma"])
+                got = {m: fac._launch("wide", w, obs, mask, with_value, lib=libs["wgmma"], mode=m)
+                       for m in fac.launches_by_wide_mode}
                 ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
-                for g, r in zip(got, ref):
+                assert all(a is None or torch.equal(a, b)
+                           for a, b in zip(got["pass"], got["half"])), \
+                    f"wide modes differ at H={H} B={B}"
+                for g, r in zip(got["pass"], ref):
                     if g is not None:
                         assert torch.isfinite(g).all(), f"wide non-finite at H={H} B={B}"
                         worst = max(worst, share(g, r))
         assert worst <= 1.0, f"wide route at H={H}: {worst:.3f} of the tolerance"
         print(f"wide route H={H}: {worst:.3f} of rtol/atol 1e-5 vs float64 (B in 1, 65, 8192, "
-              f"with and without value)", flush=True)
+              f"with and without value; both modes, bit-equal)", flush=True)
+    for H in (1024, 1280):
+        w = random_weights(H, H, dev)
+        for with_value in (True, False):
+            for B in (16, 256, 512, 1024, 2048, 4096):
+                obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+                x32 = obs.float()
+                prepared = fac.prepare_weights(w, with_value, libs["wgmma"])
+                out = {m: cs.device_ms(lambda: fac._launch("wide", w, obs, mask, with_value,
+                                                           prepared, lib=libs["wgmma"], mode=m),
+                                       20, per_call=3)[0]
+                       for m in fac.launches_by_wide_mode}
+
+                def addmm_chain():
+                    for o in ((0, 6) if with_value else (0,)):
+                        h = torch.tanh(torch.addmm(w[o + 1], x32, w[o]))
+                        h = torch.tanh(torch.addmm(w[o + 3], h, w[o + 2]))
+                        torch.addmm(w[o + 5], h, w[o + 4])
+
+                out["addmm chain"] = cs.device_ms(addmm_chain, 20)[0]
+                print(f"wide modes B={B} H={H} value={with_value} (the path's: "
+                      f"{fac.wide_mode(B, H, with_value)}): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+                      + " ms", flush=True)
     names = ("wgmma", "wgmma_one_product") + WGMMA_SPLIT
     for H, B, with_value in ((1024, 1024, True), (1024, 1024, False), (1024, 8192, True),
                              (1280, 8192, True)):
@@ -316,7 +345,7 @@ def wide_probe(libs, cs, dev) -> None:
                                                            prepared, lib=libs["wgmma"])
                                                for _ in range(20)], min_launches=60)
         parts = {("outputs" if "wide_heads" in e.key else "layer 1"
-                  if "<1>" in e.key or "Li1E" in e.key else "layer 2"):
+                  if "<1," in e.key or "Li1E" in e.key else "layer 2"):
                  e.self_device_time_total / 1e3 / 20 for e in kernels}
         if H <= 1024:
             out["mma_sync kernel"] = cs.device_ms(
@@ -331,9 +360,10 @@ def wide_probe(libs, cs, dev) -> None:
 
         out["addmm chain"] = cs.device_ms(addmm_chain, 20)[0]
         bound = cs.bound_a(B, H, with_value, 2)[0]
-        grids = fac.wide_launch_shape(B, H, with_value)
-        print(f"wide route B={B} H={H} value={with_value} (bound {bound:.4f} ms; grids: layers "
-              f"{grids['layer1']}, outputs {grids['heads']}): "
+        mode = fac.wide_mode(B, H, with_value)
+        grids = fac.wide_launch_shape(B, H, with_value, mode)
+        print(f"wide route B={B} H={H} value={with_value} (bound {bound:.4f} ms; {mode} "
+              f"mode, grids: layers {grids['layers']}, outputs {grids['heads']}): "
               + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + " ms; by launch: "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms", flush=True)
 

@@ -101,10 +101,10 @@
 // wrapper picks the mode from B (`fused_actor_critic.wgmma_mode`); the bits
 // are the same in both.
 //
-// Wide route (H > 768, any H).  Both modes keep a tile's whole first hidden
-// layer in one block (64 x H x 4 bytes: 262,144 at H = 1024, past the
-// 232,448 a block may hold), so wider nets keep it in device memory instead,
-// and no block's shared memory grows with H.  Three launches a forward, in
+// Wide route (H > 768, any H).  Tile and cluster mode keep a tile's whole
+// first hidden layer in one block (64 x H x 4 bytes: 262,144 at H = 1024,
+// past the 232,448 a block may hold), so wider nets keep it in device memory
+// instead, and no block's shared memory grows with H.  Three launches a forward, in
 // stream order, so each reads what the one before wrote with no fence or
 // barrier across blocks: layer 1, a block per (pass, 128-row tile, head),
 // stores its pass's columns of h1 in f32 to a scratch; layer 2, a block per
@@ -127,7 +127,12 @@
 // of one head's weights, so B = 1024 gives 128 blocks a layer with the
 // critic, not 32-64; and the products are wgmma, not mma.sync.  The wrapper
 // cuts B into launches of at most 32,768 rows (`WIDE_MAX_ROWS`), which caps
-// the scratch; a row's outputs do not depend on the cut.
+// the scratch; a row's outputs do not depend on the cut.  Half mode: where
+// a block per pass would leave half the SMs idle (`wide_mode`: at most 66
+// blocks a layer, e.g. H = 1024, B = 1024 without the critic), a block
+// takes 64 columns (BN = 64, wgmma.m64n64k8, 8 KB stages in layer 2): twice
+// the blocks, each streaming half the weights and all of its tile's h1, in
+// the same sums, so the bits are those of pass mode (BN = 128).
 //
 // Probe switches.  scripts/torch_kernel_a_probe.py builds variants of this
 // file with -D to see where the time goes; the library is built with none.
@@ -164,11 +169,15 @@ constexpr int PRODUCER_REGS = 40;                // setmaxnreg: the producer giv
 constexpr int CONSUMER_REGS = 232;               // registers to the consumers
 constexpr int KSTEP = 8;
 constexpr int STAGE_BYTES = 2 * NC * KSTEP * 4;  // hi and lo, NC outputs x 8 k
-// The wide route: a block of WM rows, each consumer group 64 of them and
-// all NC columns of the pass; layer 2's stages also hold their A, WM rows
-// x 8 k of h1.
+// The wide route: a block of WM rows and BN columns, each consumer group
+// 64 of the rows and all BN columns: BN = NC (a pass) or WG_N (half a
+// pass, where blocks of a pass would leave SMs idle).  A stage holds the BN columns' hi and lo of a k-step
+// and, in layer 2, its A: WM rows x 8 k of h1.
 constexpr int WM = M * CONSUMERS;
-constexpr int WIDE_STAGE_BYTES = STAGE_BYTES + WM * KSTEP * 4;
+__host__ __device__ constexpr int wide_weight_bytes(int BN) { return 2 * BN * KSTEP * 4; }
+__host__ __device__ constexpr int wide_stage_bytes(int BN, int layer) {
+  return wide_weight_bytes(BN) + (layer == 2 ? WM * KSTEP * 4 : 0);
+}
 constexpr int WIDE_SHIFT = 4;  // the wide route's ring: 16 stages
 constexpr int OUT_ROWS = 8, OUT_THREADS = 128;  // the wide route's output blocks
 constexpr int SMEM_MAX = 232448;
@@ -512,14 +521,15 @@ __device__ __forceinline__ void obs_frag(const int32_t* __restrict__ x, int rows
 
 // This thread's A fragment of k-step j (rows 16 l.wl + g and + 8 of the
 // block), split: for layer 1 (L1) from the obs prefetched in pa (pa <- pb <-
-// the obs of k-step j + 2); for the wide route's layer 2 (RA) from the A box
-// of the k-step's stage, once it is full; else from h1.
-template <bool L1, bool EXACT, bool RA>
+// the obs of k-step j + 2); for the wide route's layer 2 (BN > 0, a block of
+// BN columns) from the A box of the k-step's stage, once it is full; else
+// from h1.
+template <bool L1, bool EXACT, int BN>
 __device__ __forceinline__ void load_a(const Smem& sm, uint32_t it0, const Lane& l, int j,
                                        const float* h1, int SH, const int32_t* __restrict__ x,
                                        int rows, int (&pa)[4], int (&pb)[4], uint32_t (&ah)[4],
                                        uint32_t (&al)[4]) {
-  if constexpr (RA) {
+  if constexpr (BN > 0 && !L1) {
     const uint32_t it = it0 + j;
     const int st = it & ((1 << sm.shift) - 1);
 #ifndef PROBE_NO_LOADS
@@ -527,8 +537,8 @@ __device__ __forceinline__ void load_a(const Smem& sm, uint32_t it0, const Lane&
 #endif
     // [WM rows][8 k] with 32-byte swizzle: the 16-byte half of row r that
     // holds k < 4 is half (r >> 2) & 1.
-    const float* a =
-        reinterpret_cast<const float*>(sm.ring_p + st * WIDE_STAGE_BYTES + STAGE_BYTES);
+    const float* a = reinterpret_cast<const float*>(sm.ring_p + st * wide_stage_bytes(BN, 2) +
+                                                    wide_weight_bytes(BN));
     const int r = 16 * l.wl + l.g, k0 = 4 * ((r >> 2) & 1) + l.t, k4 = k0 ^ 4;
     const float av[4] = {a[8 * r + k0], a[8 * (r + 8) + k0], a[8 * r + k4], a[8 * (r + 8) + k4]};
 #pragma unroll
@@ -578,13 +588,14 @@ __device__ __forceinline__ void add_acc(float (&acc)[N], float (&s)[N]) {
 // zero: a wait for its stages, one fence, then for each k-step lo·hi
 // (unless A is exact), hi·lo and hi·hi, and one commit.  ah / al hold the
 // chunk's A fragments, loaded before.
-// WIDE: the wide route's n = 128 products, from a stage of WIDE_STAGE_BYTES
-// in layer 2 (else STAGE_BYTES); else this group's 64 columns.
-template <bool L1, bool EXACT, bool WIDE>
+// BN > 0: the wide route's products over all BN columns of its stages
+// (n = BN); else this group's 64 columns of the pass.
+template <bool L1, bool EXACT, int BN>
 __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint32_t it0, int j,
                                             uint32_t (&ah)[CHUNK][4], uint32_t (&al)[CHUNK][4],
-                                            float (&s)[WIDE ? 64 : 32]) {
-  constexpr int SB = WIDE && !L1 ? WIDE_STAGE_BYTES : STAGE_BYTES;
+                                            float (&s)[BN == NC ? 64 : 32]) {
+  constexpr int SB = BN > 0 ? wide_stage_bytes(BN, L1 ? 1 : 2) : STAGE_BYTES;
+  constexpr int SN = BN > 0 ? BN : NC;  // the stage's columns
   uint64_t dh[CHUNK], dl[CHUNK];
 #pragma unroll
   for (int q = 0; q < CHUNK; ++q) {
@@ -593,9 +604,9 @@ __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint3
 #ifndef PROBE_NO_LOADS
     mbar_wait(full_bar(sm, st), (it >> sm.shift) & 1);
 #endif
-    const uint32_t bh = sm.ring + st * SB + (WIDE ? 0 : l.c * WG_N * KSTEP * 4);
+    const uint32_t bh = sm.ring + st * SB + (BN > 0 ? 0 : l.c * WG_N * KSTEP * 4);
     dh[q] = desc_sw32(bh);
-    dl[q] = desc_sw32(bh + NC * KSTEP * 4);
+    dl[q] = desc_sw32(bh + SN * KSTEP * 4);
   }
   fence_regs(s);
   wgmma_fence();
@@ -619,14 +630,14 @@ __device__ __forceinline__ void issue_chunk(const Smem& sm, const Lane& l, uint3
 }
 
 // The A fragments of the chunk at k-step j, pinned in their registers.
-template <bool L1, bool EXACT, bool RA>
+template <bool L1, bool EXACT, int BN>
 __device__ __forceinline__ void load_chunk(const Smem& sm, uint32_t it0, const Lane& l, int j,
                                            const float* h1, int SH, const int32_t* __restrict__ x,
                                            int rows, int (&pa)[4], int (&pb)[4],
                                            uint32_t (&ah)[CHUNK][4], uint32_t (&al)[CHUNK][4]) {
 #pragma unroll
   for (int q = 0; q < CHUNK; ++q) {
-    load_a<L1, EXACT, RA>(sm, it0, l, j + q, h1, SH, x, rows, pa, pb, ah[q], al[q]);
+    load_a<L1, EXACT, BN>(sm, it0, l, j + q, h1, SH, x, rows, pa, pb, ah[q], al[q]);
     fence_regs(ah[q]);
     fence_regs(al[q]);
   }
@@ -651,20 +662,20 @@ __device__ __forceinline__ void finish_chunk(const Smem& sm, uint32_t it0, int j
 // the wait for it is the only one, so the chunk's products run back to
 // back.  The hardware reads a wgmma's A registers while it runs, so the two
 // sets of A registers alternate: the next chunk's fragments are loaded
-// while this chunk runs, into the set the chunk before read.  WIDE: the
-// wide route's block of WM rows, this group's 64 of them and all NC columns
-// (n = 128), A from the obs (L1) or the ring's stages; else this group's 64
-// columns of the block's 64 rows, A from the obs (L1) or h1.
-template <bool L1, bool EXACT, bool WIDE = false>
+// while this chunk runs, into the set the chunk before read.  BN > 0: the
+// wide route's block of WM rows and BN columns, this group's 64 of the rows
+// and all BN columns (n = BN), A from the obs (L1) or the ring's stages;
+// else this group's 64 columns of the block's 64 rows, A from the obs (L1)
+// or h1.
+template <bool L1, bool EXACT, int BN = 0>
 __device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_t it0, int j0,
                                           int j1, const float* h1, int SH,
                                           const int32_t* __restrict__ x, int rows,
-                                          float (&acc)[WIDE ? 64 : 32]) {
-  constexpr int N = WIDE ? 64 : 32;
-  constexpr bool RA = WIDE && !L1;
+                                          float (&acc)[BN == NC ? 64 : 32]) {
+  constexpr int N = BN == NC ? 64 : 32;
   // The lane of the A fragments: in the wide route group c's rows are 64 c
   // + 16 wl + g (+ 8).
-  const Lane la = WIDE ? Lane{l.c, 4 * l.c + l.wl, l.g, l.t} : l;
+  const Lane la = BN > 0 ? Lane{l.c, 4 * l.c + l.wl, l.g, l.t} : l;
   float s[N];
   int pa[4], pb[4];
   uint32_t ah0[CHUNK][4], al0[CHUNK][4], ah1[CHUNK][4], al1[CHUNK][4];
@@ -674,16 +685,16 @@ __device__ __forceinline__ void gemm_pass(const Smem& sm, const Lane& l, uint32_
     obs_frag(x, rows, la, j0, pa);
     obs_frag(x, rows, la, j0 + 1, pb);
   }
-  load_chunk<L1, EXACT, RA>(sm, it0, la, j0, h1, SH, x, rows, pa, pb, ah0, al0);
+  load_chunk<L1, EXACT, BN>(sm, it0, la, j0, h1, SH, x, rows, pa, pb, ah0, al0);
   for (int j = j0;; j += 2 * CHUNK) {
-    issue_chunk<L1, EXACT, WIDE>(sm, l, it0, j, ah0, al0, s);
+    issue_chunk<L1, EXACT, BN>(sm, l, it0, j, ah0, al0, s);
     if (j + CHUNK < j1)
-      load_chunk<L1, EXACT, RA>(sm, it0, la, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
+      load_chunk<L1, EXACT, BN>(sm, it0, la, j + CHUNK, h1, SH, x, rows, pa, pb, ah1, al1);
     finish_chunk(sm, it0, j, acc, s);
     if (j + CHUNK == j1) return;
-    issue_chunk<L1, EXACT, WIDE>(sm, l, it0, j + CHUNK, ah1, al1, s);
+    issue_chunk<L1, EXACT, BN>(sm, l, it0, j + CHUNK, ah1, al1, s);
     if (j + 2 * CHUNK < j1)
-      load_chunk<L1, EXACT, RA>(sm, it0, la, j + 2 * CHUNK, h1, SH, x, rows, pa, pb, ah0, al0);
+      load_chunk<L1, EXACT, BN>(sm, it0, la, j + 2 * CHUNK, h1, SH, x, rows, pa, pb, ah0, al0);
     finish_chunk(sm, it0, j + CHUNK, acc, s);
     if (j + 2 * CHUNK == j1) return;
   }
@@ -1111,27 +1122,25 @@ struct WideParams {
   int B, H;
 };
 
-// Group cg's half of a wide accumulator: the 32 floats of its columns 64 cg
-// ... 64 cg + 63 of the pass, laid out as an n = 64 accumulator's.
-template <int CG>
-__device__ __forceinline__ float (&half_acc(float (&acc)[64]))[32] {
+// Column group CG's 32 floats of a wide accumulator: its columns 64 CG
+// ... 64 CG + 63 of the block, laid out as an n = 64 accumulator's.
+template <int CG, int F>
+__device__ __forceinline__ float (&group_acc(float (&acc)[F]))[32] {
   return *reinterpret_cast<float(*)[32]>(acc + 32 * CG);
 }
 
-// The lane that addresses column group cg of the pass (acc_col, bias_tanh,
-// the heads) for this thread's rows.
-__device__ __forceinline__ Lane column_lane(const Lane& l, int cg) { return {cg, l.wl, l.g, l.t}; }
+// The lane that addresses a 64-column group (acc_col, bias_tanh, the heads)
+// for this thread's rows, given the group's first column as n0.
+__device__ __forceinline__ Lane group_lane(const Lane& l) { return {0, l.wl, l.g, l.t}; }
 
-// h1 rows 64 c + 16 wl + g (+ 8) of the tile, columns of group CG below
-// pad16(H), to the scratch.
-template <int CG>
-__device__ __forceinline__ void wide_store_h1(const Lane& l, float (&acc)[64], float* h1, int KH,
-                                              int rows, int n0) {
+// h1 rows 64 c + 16 wl + g (+ 8) of the tile, columns 64 g ... 64 g + 63 of
+// the hidden layer below pad16(H), from a, to the scratch.
+__device__ __forceinline__ void wide_store_h1(const Lane& l, const float (&a)[32], float* h1,
+                                              int KH, int rows, int g) {
   const int r0 = 64 * l.c + 16 * l.wl + l.g;
-  float(&a)[32] = half_acc<CG>(acc);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int col = acc_col(column_lane(l, CG), n0, i, 0);
+    const int col = acc_col(group_lane(l), WG_N * g, i, 0);
     if (col >= KH) continue;
     if (r0 < rows)
       *reinterpret_cast<float2*>(h1 + (size_t)r0 * KH + col) = make_float2(a[4 * i], a[4 * i + 1]);
@@ -1141,38 +1150,48 @@ __device__ __forceinline__ void wide_store_h1(const Lane& l, float (&acc)[64], f
   }
 }
 
-// Layer 1 of a (pass, tile, head) block: its pass's columns of h1 for the
-// tile's WM rows, bias and tanh, stored to the scratch in f32.
-__device__ __forceinline__ void wide_layer1(const Smem& sm, const WideParams& p,
-                                            const int32_t* __restrict__ x, int rows, int row0,
-                                            bool exact, int head, int q) {
-  const int tid = threadIdx.x, H = p.H, KH = pad16(H), n0 = NC * q;
-  const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
-  float acc[64];
-  zero_acc(acc);
-  if (exact)
-    gemm_pass<true, true, true>(sm, l, 0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
-  else
-    gemm_pass<true, false, true>(sm, l, 0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
-  const float* b = p.w[6 * head + 1];
-  bias_tanh(column_lane(l, 0), half_acc<0>(acc), b, H, n0);
-  bias_tanh(column_lane(l, 1), half_acc<1>(acc), b, H, n0);
-  float* h1 = p.h1 + ((size_t)head * p.B + row0) * KH;
-  wide_store_h1<0>(l, acc, h1, KH, rows, n0);
-  wide_store_h1<1>(l, acc, h1, KH, rows, n0);
+// Column group CG of a layer-1 block's accumulator: bias, tanh, to the scratch.
+template <int CG, int F>
+__device__ __forceinline__ void wide_h1_group(const Lane& l, float (&acc)[F], const float* bias,
+                                              float* h1, int H, int rows, int g) {
+  bias_tanh(group_lane(l), group_acc<CG>(acc), bias, H, WG_N * g);
+  wide_store_h1(l, group_acc<CG>(acc), h1, pad16(H), rows, g);
 }
 
-// Column group CG's partial head over its 64 columns of the pass, from zero,
-// for this thread's rows, stored to the scratch ([passes][2][B]...).
-template <int CG>
-__device__ __forceinline__ void wide_head(const Lane& l, const WideParams& p, float (&acc)[64],
+// Layer 1 of a block of BN columns (block column b): those columns of h1
+// for the tile's WM rows, bias and tanh, stored to the scratch in f32.
+template <int BN>
+__device__ __forceinline__ void wide_layer1(const Smem& sm, const WideParams& p,
+                                            const int32_t* __restrict__ x, int rows, int row0,
+                                            bool exact, int head, int b) {
+  const int tid = threadIdx.x, g = BN / WG_N * b;
+  const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
+  float acc[BN == NC ? 64 : 32];
+  zero_acc(acc);
+  if (exact)
+    gemm_pass<true, true, BN>(sm, l, 0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
+  else
+    gemm_pass<true, false, BN>(sm, l, 0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
+  const float* bias = p.w[6 * head + 1];
+  float* h1 = p.h1 + ((size_t)head * p.B + row0) * pad16(p.H);
+  wide_h1_group<0>(l, acc, bias, h1, p.H, rows, g);
+  if constexpr (BN == NC) wide_h1_group<1>(l, acc, bias, h1, p.H, rows, g + 1);
+}
+
+// Column group CG of a layer-2 block's accumulator (hidden columns 64 g
+// ...): bias and tanh, then its partial head over those 64 columns, from
+// zero, for this thread's rows, stored to the scratch ([2 passes][B]...).
+template <int CG, int F>
+__device__ __forceinline__ void wide_head(const Lane& l, const WideParams& p, float (&acc)[F],
                                           const float* const* w, int head, int rows, int row0,
-                                          int q) {
-  const int r0 = 64 * l.c + 16 * l.wl + l.g, n0 = NC * q;
-  const size_t part = ((size_t)q * CONSUMERS + CG) * p.B + row0;  // the group's first row
+                                          int g) {
+  const int r0 = 64 * l.c + 16 * l.wl + l.g, n0 = WG_N * g;
+  const size_t part = (size_t)g * p.B + row0;  // the group's first row
+  float(&a)[32] = group_acc<CG>(acc);
+  bias_tanh(group_lane(l), a, w[3], p.H, n0);
   if (head == 0) {
     float pl[HEAD_TILES][4];
-    logit_partial(column_lane(l, CG), half_acc<CG>(acc), w[4], p.H, n0, pl);
+    logit_partial(group_lane(l), a, w[4], p.H, n0, pl);
 #pragma unroll
     for (int hn = 0; hn < HEAD_TILES; ++hn)
 #pragma unroll
@@ -1184,7 +1203,7 @@ __device__ __forceinline__ void wide_head(const Lane& l, const WideParams& p, fl
       }
   } else {
     float pv[2];
-    value_partial(column_lane(l, CG), half_acc<CG>(acc), w[4], p.H, n0, pv);
+    value_partial(group_lane(l), a, w[4], p.H, n0, pv);
     if (l.t == 0) {
       if (r0 < rows) p.vpart[part + r0] = pv[0];
       if (r0 + 8 < rows) p.vpart[part + r0 + 8] = pv[1];
@@ -1192,34 +1211,33 @@ __device__ __forceinline__ void wide_head(const Lane& l, const WideParams& p, fl
   }
 }
 
-// Layer 2 of a (pass, tile, head) block: its pass's columns over all of K,
-// A from the ring, in tile mode's k order; bias and tanh; each column
-// group's partial head over its 64 columns, from zero, to the scratch.
+// Layer 2 of a block of BN columns (block column b): those columns over all
+// of K, A from the ring, in tile mode's k order; then each 64-column
+// group's bias, tanh and partial head.
+template <int BN>
 __device__ __forceinline__ void wide_layer2(const Smem& sm, const WideParams& p, int rows,
-                                            int row0, int head, int q) {
-  const int tid = threadIdx.x, H = p.H, n0 = NC * q;
+                                            int row0, int head, int b) {
+  const int tid = threadIdx.x, g = BN / WG_N * b;
   const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
   const float* const* w = p.w + 6 * head;
-  float acc[64];
+  float acc[BN == NC ? 64 : 32];
   zero_acc(acc);
-  gemm_pass<false, false, true>(sm, l, 0, 0, pad16(H) / KSTEP, nullptr, 0, nullptr, rows, acc);
-  bias_tanh(column_lane(l, 0), half_acc<0>(acc), w[3], H, n0);
-  bias_tanh(column_lane(l, 1), half_acc<1>(acc), w[3], H, n0);
-  wide_head<0>(l, p, acc, w, head, rows, row0, q);
-  wide_head<1>(l, p, acc, w, head, rows, row0, q);
+  gemm_pass<false, false, BN>(sm, l, 0, 0, pad16(p.H) / KSTEP, nullptr, 0, nullptr, rows, acc);
+  wide_head<0>(l, p, acc, w, head, rows, row0, g);
+  if constexpr (BN == NC) wide_head<1>(l, p, acc, w, head, rows, row0, g + 1);
 }
 
-// One layer of the wide route: a block per (pass, WM-row tile, head), grid
-// (passes, tiles, heads), so that the blocks running at once share a tile's
-// h1 and a head's weights in L2.  Layer 1's ring stages hold the pass's
-// weights of a k-step; layer 2's also the tile's h1 of that k-step, from
-// the scratch by TMA.
-template <int LAYER>
+// One layer of the wide route: a block per (BN columns, WM-row tile, head),
+// grid (blocks of columns, tiles, heads), so that the blocks running at
+// once share a tile's h1 and a head's weights in L2.  Layer 1's ring stages
+// hold the block's weights of a k-step; layer 2's also the tile's h1 of
+// that k-step, from the scratch by TMA.
+template <int LAYER, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_c,
                      const __grid_constant__ CUtensorMap map_h1, const WideParams p) {
-  constexpr int SB = LAYER == 1 ? STAGE_BYTES : WIDE_STAGE_BYTES, STAGES = 1 << WIDE_SHIFT;
+  constexpr int SB = wide_stage_bytes(BN, LAYER), STAGES = 1 << WIDE_SHIFT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + ALIGN - 1) / ALIGN * ALIGN;
   Smem sm;
@@ -1230,7 +1248,7 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
   sm.h1 = nullptr;
   sm.vpart = nullptr;
   sm.any_legal = nullptr;
-  const int tid = threadIdx.x, q = blockIdx.x, row0 = blockIdx.y * WM, head = blockIdx.z;
+  const int tid = threadIdx.x, b = blockIdx.x, row0 = blockIdx.y * WM, head = blockIdx.z;
   const int rows = min(WM, p.B - row0);
   const int32_t* x = p.obs + (size_t)row0 * OBS;
   if (tid == 0) {
@@ -1257,10 +1275,10 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
         const int st = it & (STAGES - 1);
         mbar_wait(empty_bar(sm, st), ((it >> WIDE_SHIFT) & 1) ^ 1);
         mbar_expect_tx(full_bar(sm, st), SB);
-        tma_load(sm.ring + st * SB, map, KSTEP * it, NC * q, full_bar(sm, st));
+        tma_load(sm.ring + st * SB, map, KSTEP * it, BN * b, full_bar(sm, st));
         if constexpr (LAYER == 2)
-          tma_load(sm.ring + st * SB + STAGE_BYTES, &map_h1, KSTEP * it, row0, full_bar(sm, st),
-                   head);
+          tma_load(sm.ring + st * SB + wide_weight_bytes(BN), &map_h1, KSTEP * it, row0,
+                   full_bar(sm, st), head);
       }
       // Stay until the consumers have released every stage.
       for (int i = 0; i < STAGES && i < nk; ++i, ++it)
@@ -1270,9 +1288,9 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     if constexpr (LAYER == 1)
-      wide_layer1(sm, p, x, rows, row0, exact, head, q);
+      wide_layer1<BN>(sm, p, x, rows, row0, exact, head, b);
     else
-      wide_layer2(sm, p, rows, row0, head, q);
+      wide_layer2<BN>(sm, p, rows, row0, head, b);
   }
 }
 
@@ -1368,13 +1386,13 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// The map of one prepared matrix [2][HP][KP]: boxes of {8 k, NC outputs, 2}.
-int encode(CUtensorMap* map, const float* base, int HP, int KP) {
+// The map of one prepared matrix [2][HP][KP]: boxes of {8 k, n outputs, 2}.
+int encode(CUtensorMap* map, const float* base, int HP, int KP, int n = NC) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[3] = {(cuuint64_t)KP, (cuuint64_t)HP, 2};
   const cuuint64_t strides[2] = {(cuuint64_t)KP * 4, (cuuint64_t)HP * KP * 4};
-  const cuuint32_t box[3] = {KSTEP, NC, 2}, estride[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {KSTEP, (cuuint32_t)n, 2}, estride[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)base, dims, strides, box,
                         estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1408,11 +1426,35 @@ size_t wide_scratch_floats(int B, int H, int heads) {
 }
 
 // A wide-route layer's kernel, with its shared memory limit raised once.
-template <int LAYER>
+template <int LAYER, int BN>
 cudaError_t wide_ready() {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fused_ac_wide_kernel<LAYER>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+      fused_ac_wide_kernel<LAYER, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   return attr;
+}
+
+// The shared memory of a wide-route layer's block.
+constexpr size_t wide_smem(int BN, int layer) {
+  return ALIGN + ((size_t)wide_stage_bytes(BN, layer) << WIDE_SHIFT) + 2 * MAX_STAGES * 8;
+}
+
+// The two layers of the wide route with blocks of BN columns, in stream order.
+template <int BN>
+cudaError_t wide_layers(const CUtensorMap (&maps)[4], const CUtensorMap& map_h1,
+                        const WideParams& p, int tiles, int heads, cudaStream_t st) {
+  cudaError_t e = wide_ready<1, BN>();
+  if (e == cudaSuccess) e = wide_ready<2, BN>();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.H + NC - 1) / NC * (NC / BN), tiles, heads);
+  size_t smem2 = wide_smem(BN, 2);
+#ifdef PROBE_SMEM_EXTRA
+  smem2 += PROBE_SMEM_EXTRA;
+#endif
+  fused_ac_wide_kernel<1, BN><<<grid, THREADS, wide_smem(BN, 1), st>>>(maps[0], maps[2], map_h1, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  fused_ac_wide_kernel<2, BN><<<grid, THREADS, smem2, st>>>(maps[1], maps[3], map_h1, p);
+  return cudaGetLastError();
 }
 
 // The kernel of a mode, with its shared memory limit raised once.
@@ -1521,7 +1563,8 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
 
 // The wide route (any H): obs, mask, weights, prepared and outputs as in
 // fused_actor_critic_wgmma_forward; `scratch` holds at least
-// `scratch_floats` floats, which must be wide_scratch_floats(B, H, heads).
+// `scratch_floats` floats, which must be wide_scratch_floats(B, H, heads);
+// `columns` is a block's columns, 128 (a pass) or 64 (half a pass).
 // Three launches on the stream, in order: layer 1, layer 2 with the
 // partial heads, the outputs.  Each reads what the one before wrote, so
 // the launch boundaries order the stores of h1 before layer 2's TMA reads
@@ -1529,17 +1572,19 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
 extern "C" int fused_actor_critic_wide_forward(const void* obs, const void* mask, int B, int H,
                                                const void* const* weights, const void* prepared,
                                                void* scratch, long long scratch_floats,
-                                               void* logits, void* value, void* stream) {
+                                               void* logits, void* value, int columns,
+                                               void* stream) {
   if (B <= 0) return 0;
   const int heads = value ? 2 : 1, KH = pad16(H), tiles = (B + WM - 1) / WM;
-  if (H < 1 || tiles > 65535) return (int)cudaErrorInvalidValue;
+  if (H < 1 || tiles > 65535 || (columns != NC && columns != WG_N))
+    return (int)cudaErrorInvalidValue;
   if (scratch_floats < (long long)wide_scratch_floats(B, H, heads))
     return (int)cudaErrorInvalidValue;
   const int HP = pad8(H), passes = (H + NC - 1) / NC;
   CUtensorMap maps[4], map_h1;
   for (int m = 0; m < 4; ++m) {
     const int err = encode(&maps[m], (const float*)prepared + prepared_offset(H, m), HP,
-                           m & 1 ? KH : K1P);
+                           m & 1 ? KH : K1P, columns);
     if (err) return err;
   }
   WideParams p;
@@ -1555,21 +1600,9 @@ extern "C" int fused_actor_critic_wide_forward(const void* obs, const void* mask
   p.H = H;
   const int err = encode_h1(&map_h1, p.h1, KH, B, heads);
   if (err) return err;
-  cudaError_t attr = wide_ready<1>();
-  if (attr == cudaSuccess) attr = wide_ready<2>();
-  if (attr != cudaSuccess) return (int)attr;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(passes, tiles, heads);
-  const size_t smem1 = ALIGN + ((size_t)STAGE_BYTES << WIDE_SHIFT) + 2 * MAX_STAGES * 8;
-  size_t smem2 = ALIGN + ((size_t)WIDE_STAGE_BYTES << WIDE_SHIFT) + 2 * MAX_STAGES * 8;
-#ifdef PROBE_SMEM_EXTRA
-  smem2 += PROBE_SMEM_EXTRA;
-#endif
-  fused_ac_wide_kernel<1><<<grid, THREADS, smem1, st>>>(maps[0], maps[2], map_h1, p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  fused_ac_wide_kernel<2><<<grid, THREADS, smem2, st>>>(maps[1], maps[3], map_h1, p);
-  e = cudaGetLastError();
+  const cudaError_t e = columns == NC ? wide_layers<NC>(maps, map_h1, p, tiles, heads, st)
+                                      : wide_layers<WG_N>(maps, map_h1, p, tiles, heads, st);
   if (e != cudaSuccess) return (int)e;
   wide_heads_kernel<<<(B + OUT_ROWS - 1) / OUT_ROWS, OUT_THREADS, 0, st>>>(p);
   return (int)cudaGetLastError();

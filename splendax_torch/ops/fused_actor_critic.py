@@ -13,9 +13,11 @@ has two modes, chosen by `wgmma_mode(B, H)`: tile mode (a block per 64-row
 tile does every column) and, at small B, cluster mode (a cluster of blocks
 per tile and head splits the hidden columns).  The `wide` route stores the
 first hidden layer to a scratch in device memory and streams it back by
-TMA, a block per (pass of 128 columns, 128-row tile, head) in each layer, B
-cut into calls of at most `WIDE_MAX_ROWS` rows.  All sum in one order, so a
-row's outputs are the same bits in every mode and at every B.  The older
+TMA, a block per (128 columns, 128-row tile, head) in each layer (pass
+mode) or, where those would leave half the SMs idle, per (64 columns,
+tile, head) (half mode; `wide_mode(B, H, with_value)`); B is cut into calls
+of at most `WIDE_MAX_ROWS` rows.  All sum in one order, so a row's outputs
+are the same bits in every mode and at every B.  The older
 `mma_sync` kernel (`csrc/fused_actor_critic.cu`) is on no path: it stays
 only to be timed beside them (`_launch("mma_sync", ...)`).  On a CPU
 tensor it runs `fused_masked_forward_plain`, the same function in plain
@@ -26,7 +28,8 @@ so float64 weights give the reference.
 
 Counters: `launches` counts forwards that launched a kernel (one each),
 `launches_by_route` splits them by route, `launches_by_mode` splits the
-`wgmma` route's by mode, and `prep_launches` counts the weight preparations
+`wgmma` route's by mode, `launches_by_wide_mode` the `wide` route's, and
+`prep_launches` counts the weight preparations
 of the `wgmma` and `wide` routes; `launch_counts()` reads them all.
 
 `weights` is the list of the 12 weight and bias tensors in the JAX package's
@@ -59,12 +62,17 @@ CLUSTER_MAX_ROWS = 4096
 # sized for this many rows at most, whatever B.
 WIDE_MAX_ROWS = 32768
 WIDE_ROWS = 128  # the wide route's row tile: two consumer groups of 64 rows
+# The wide route's half mode while pass mode would launch at most this many
+# blocks a layer: half the 132 SMs of an H100 SXM, one block each, so that
+# half mode's twice as many still run in one wave (see `wide_mode`).
+WIDE_HALF_MAX_BLOCKS = 66
 WIDE_OUT_ROWS = 8  # rows of a block of the wide route's output kernel
 WIDE_HEAD_PAD = 48  # the wide route's partial logits a row: 45 padded to six n-tiles of 8
 
 launches = 0
 launches_by_route = {"wgmma": 0, "wide": 0, "mma_sync": 0}
 launches_by_mode = {"tile": 0, "cluster": 0}
+launches_by_wide_mode = {"pass": 0, "half": 0}
 prep_launches = 0
 
 
@@ -117,13 +125,26 @@ def wide_scratch_floats(B: int, H: int, with_value: bool) -> int:
     return B * (heads * pad16(H) + passes * 2 * WIDE_HEAD_PAD + (passes * 2 if with_value else 0))
 
 
-def wide_launch_shape(B: int, H: int, with_value: bool) -> dict:
-    """The grids of a wide-route launch of B rows (one chunk): layer 1 and
-    layer 2 a block per (pass, 128-row tile, head), one pass a block, no
-    cluster; the outputs a block per WIDE_OUT_ROWS rows."""
-    layer = (column_groups(H), -(-B // WIDE_ROWS), 2 if with_value else 1)
-    return {"layer1": layer, "layer2": layer, "heads": (-(-B // WIDE_OUT_ROWS), 1, 1),
-            "cluster": (1, 1, 1), "passes_per_block": 1}
+def wide_mode(B: int, H: int, with_value: bool) -> str:
+    """The `wide` route's mode for B rows at hidden width H: "pass" (a block
+    per 128 hidden columns of a 128-row tile and head, so each weight stage
+    serves twice the products) unless its blocks would leave half the SMs
+    idle (at most `WIDE_HALF_MAX_BLOCKS` a layer), then "half" (a block per
+    64 columns: twice the blocks, in one wave).  An H100 measured the split
+    at H = 1024 and 1280 (scripts/torch_kernel_a_probe.py --wide).  The
+    modes sum in the same order, so the choice changes no bit."""
+    blocks = column_groups(H) * -(-min(B, WIDE_MAX_ROWS) // WIDE_ROWS) * (2 if with_value else 1)
+    return "half" if blocks <= WIDE_HALF_MAX_BLOCKS else "pass"
+
+
+def wide_launch_shape(B: int, H: int, with_value: bool, mode: str) -> dict:
+    """The grids of a wide-route launch of B rows (one chunk) in `mode`, as
+    the C side forms them: layer 1 and layer 2 a block per (128 or 64
+    columns, 128-row tile, head), no cluster; the outputs a block per
+    WIDE_OUT_ROWS rows."""
+    blocks = column_groups(H) * (2 if mode == "half" else 1)
+    layer = (blocks, -(-B // WIDE_ROWS), 2 if with_value else 1)
+    return {"layers": layer, "heads": (-(-B // WIDE_OUT_ROWS), 1, 1)}
 
 
 def launch_counts() -> dict:
@@ -131,6 +152,7 @@ def launch_counts() -> dict:
     return {"fused_actor_critic": launches,
             **{f"fused_actor_critic_{r}": n for r, n in launches_by_route.items()},
             **{f"fused_actor_critic_{m}": n for m, n in launches_by_mode.items()},
+            **{f"fused_actor_critic_wide_{m}": n for m, n in launches_by_wide_mode.items()},
             "fused_actor_critic_prep": prep_launches}
 
 
@@ -215,7 +237,7 @@ def bind(lib: ctypes.CDLL, r: str) -> ctypes.CDLL:
         fns = [(lib.fused_actor_critic_wgmma_prepare, [w, i, i, p, p]),
                (lib.fused_actor_critic_wgmma_forward, [p, p, i, i, w, p, p, p, i, p]),
                (lib.fused_actor_critic_wide_forward,
-                [p, p, i, i, w, p, p, ctypes.c_longlong, p, p, p]),
+                [p, p, i, i, w, p, p, ctypes.c_longlong, p, p, i, p]),
                (lib.fused_actor_critic_wgmma_max_clusters, [i, ctypes.POINTER(i)])]
     else:
         fns = [(lib.fused_actor_critic_forward, [p, p, i, i, w, p, p, p])]
@@ -306,23 +328,23 @@ def max_clusters(H: int) -> int:
     return n.value
 
 
-def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None, mode=None,
-            scratch=None):
+def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None, mode=None):
     """One forward on route `r` of checked CUDA inputs, from `lib` (a
     library of `bind`; the library's own build unless given one); the
     `wgmma` and `wide` routes prepare the weights first unless given
-    `prepared`; the `wgmma` route runs in `wgmma_mode(B, H)` unless given
-    `mode`; the `wide` route takes its scratch from `scratch` (at least
-    `wide_scratch_floats` of its largest chunk) or a new one.  `route(H)`
-    and `wgmma_mode` name what the path runs; a measurement or a test may
-    force another route or mode, or a probe's build."""
+    `prepared`, and run in the mode their shape gives (`wgmma_mode`,
+    `wide_mode`) unless given `mode`.  `route(H)` and the modes name what the path runs;
+    a measurement or a test may force another route or mode, or a probe's
+    build."""
     global launches
     if r not in SOURCES:
         raise ValueError(f"unknown route {r!r}")
     B, H = obs.shape[0], weights[0].shape[1]
-    if r == "wgmma":
-        mode = wgmma_mode(B, H) if mode is None else mode
-        if mode not in launches_by_mode:
+    modes = {"wgmma": launches_by_mode, "wide": launches_by_wide_mode}.get(r)
+    if modes is not None:
+        if mode is None:
+            mode = wgmma_mode(B, H) if r == "wgmma" else wide_mode(B, H, with_value)
+        if mode not in modes:
             raise ValueError(f"unknown mode {mode!r}")
     logits = torch.empty((B, ACT_DIM), dtype=torch.float32, device=obs.device)
     value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
@@ -338,16 +360,16 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
             obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), prepared.data_ptr(),
             logits.data_ptr(), value_ptr, groups, _stream(obs))
     elif r == "wide":
-        if scratch is None:
-            scratch = torch.empty(wide_scratch_floats(min(B, WIDE_MAX_ROWS), H, with_value),
-                                  dtype=torch.float32, device=obs.device)
+        scratch = torch.empty(wide_scratch_floats(min(B, WIDE_MAX_ROWS), H, with_value),
+                              dtype=torch.float32, device=obs.device)
+        columns = PASS_COLUMNS if mode == "pass" else PASS_COLUMNS // 2
         err = 0
         for c0, n in wide_chunks(B):
             err = lib.fused_actor_critic_wide_forward(
                 obs.data_ptr() + 4 * OBS_DIM * c0, mask.data_ptr() + ACT_DIM * c0, n, H,
                 _ptrs(weights), prepared.data_ptr(), scratch.data_ptr(), scratch.numel(),
                 logits.data_ptr() + 4 * ACT_DIM * c0,
-                value_ptr + 4 * c0 if with_value else None, _stream(obs))
+                value_ptr + 4 * c0 if with_value else None, columns, _stream(obs))
             if err != 0:
                 break
     else:
@@ -358,6 +380,6 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
         raise RuntimeError(f"fused_actor_critic {r} kernel launch failed: CUDA error {err}")
     launches += 1
     launches_by_route[r] += 1
-    if r == "wgmma":
-        launches_by_mode[mode] += 1
+    if modes is not None:
+        modes[mode] += 1
     return logits, value

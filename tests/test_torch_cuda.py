@@ -62,8 +62,9 @@ def test_fused_kernel_matches_plain(cuda, H, B):
     """Kernel A against its plain version across the row-tile edges and
     ragged hidden widths (37: padding in K and N; 100: a part pass), with a
     row that has no legal action.  H <= 768 takes the wgmma route, wider
-    nets (1024, 1280, 2048) the wide route; both take 64-row tiles, ragged
-    at every B here but 2048 and 4096."""
+    nets (1024, 1280, 2048) the wide route.  The wgmma route takes 64-row
+    tiles and the wide route 128-row ones, ragged at every B here but 2048
+    and 4096."""
     rng = np.random.RandomState(H + B)
     w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
     obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
@@ -538,31 +539,61 @@ def test_wide_net_takes_the_wide_route(cuda, H, source):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H", [1024, 2048])
-def test_wide_route_back_to_back_on_one_scratch(cuda, H):
-    """Two launches in a row on one scratch, at many B, each within
-    rtol/atol 1e-5 of the float64 plain forward and bit-equal to the other:
-    the second launch's layer 1 overwrites h1 while nothing may still read
-    the first's, and each layer 2 must read the h1 its own layer 1 wrote
-    (a missing order between the stores and the TMA loads of h1 would show
-    as stale rows now and then).  The two launches differ in their obs."""
+def test_wide_route_back_to_back_on_one_scratch(cuda, H, monkeypatch):
+    """Launches in a row on one scratch: the wrapper's chunks (WIDE_MAX_ROWS
+    cut to 64 and to 1000) at many B, on different rows each, within
+    rtol/atol 1e-5 of the float64 plain forward and bit-equal to the call in
+    one chunk: each launch's layer 1 overwrites h1 while nothing may still
+    read the chunk before's, and each layer 2 must read the h1 its own
+    layer 1 wrote (a missing order between the stores and the TMA loads of
+    h1 would show as stale rows now and then)."""
     w = wide_net(cuda, H, "random")
     w64 = [t.double() for t in w]
     rng = np.random.RandomState(7)
-    scratch = torch.empty(fac.wide_scratch_floats(8192, H, True), dtype=torch.float32,
-                          device=cuda)
     for B in (1, 64, 65, 1000, 2049, 8192):
         for _ in range(3):
-            obs = [torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32),
-                                   device=cuda) for _ in range(2)]
+            obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
             mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
-            outs = [fac._launch("wide", w, o, mask, True, scratch=scratch) for o in obs]
-            again = fac._launch("wide", w, obs[0], mask, True, scratch=scratch)
-            torch.cuda.synchronize()
-            for o, (lk, vk) in zip(obs, outs):
-                lr, vr = fac.fused_masked_forward_plain(w64, o, mask)
+            whole = fac._launch("wide", w, obs, mask, True)
+            lr, vr = fac.fused_masked_forward_plain(w64, obs, mask)
+            for rows in (64, 1000):
+                monkeypatch.setattr(fac, "WIDE_MAX_ROWS", rows)
+                lk, vk = fac._launch("wide", w, obs, mask, True)
+                monkeypatch.undo()
                 torch.testing.assert_close(lk.double(), lr, rtol=1e-5, atol=1e-5)
                 torch.testing.assert_close(vk.double(), vr, rtol=1e-5, atol=1e-5)
-            assert torch.equal(again[0], outs[0][0]) and torch.equal(again[1], outs[0][1])
+                assert torch.equal(lk, whole[0]) and torch.equal(vk, whole[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [769, 1024, 1100, 1280, 2048])
+@pytest.mark.parametrize("B", [1, 16, 127, 129, 1024, 4097])
+def test_wide_modes_agree_bit_for_bit(cuda, H, B):
+    """The wide route's pass and half modes, forced on the same rows, give
+    the same bits, with and without value, on ragged tiles and at widths
+    whose last pass is part padding (769, 1100); one launch each, counted
+    by mode; within rtol/atol 1e-5 of the float64 plain forward."""
+    rng = np.random.RandomState(H + B)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+    obs[B // 2, 7] = 4097  # a tile that takes layer 1's third product
+    mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+    mask[0] = False
+    w64 = [t.double() for t in w]
+    for with_value in (True, False):
+        before = dict(fac.launches_by_wide_mode)
+        full = fac._launch("wide", w, obs, mask, with_value, mode="pass")
+        half = fac._launch("wide", w, obs, mask, with_value, mode="half")
+        torch.cuda.synchronize()
+        assert {m: fac.launches_by_wide_mode[m] - before[m] for m in before} == {"pass": 1,
+                                                                                 "half": 1}
+        ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
+        for a, b, r in zip(full, half, ref):
+            if r is None:
+                assert a is None and b is None
+                continue
+            assert torch.equal(a, b)
+            torch.testing.assert_close(a.double(), r, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

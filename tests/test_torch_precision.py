@@ -432,14 +432,16 @@ def test_route_follows_the_hidden_width(hidden, want):
 def test_wide_launch_shape(hidden):
     """The wide route's launches: B cut into chunks of at most
     WIDE_MAX_ROWS rows that cover it in order; per chunk, layer 1 and layer
-    2 a block per (pass of 128 columns, 128-row tile, head), one pass a
-    block and no cluster (so no cluster limit at any width), the outputs a
-    block per 8 rows; a scratch of h1 in f32 for every row and head,
-    plus the per-(pass, column group) partial heads, sized by the chunk's
-    rows and H, never by B beyond the chunk."""
+    2 a block per (128 columns in pass mode, 64 in half mode, 128-row tile,
+    head), with no cluster, so no cluster limit at any width; half mode
+    while pass mode's blocks would fill at most half of the H100's 132 SMs
+    (WIDE_HALF_MAX_BLOCKS); the outputs a block per 8 rows; a scratch
+    of h1 in f32 for every row and head, plus the per-(pass, column group)
+    partial heads, sized by the chunk's rows and H, never by B beyond the
+    chunk."""
     passes = -(-hidden // 128)
     kh = (hidden + 15) // 16 * 16
-    for B in (1, 63, 64, 65, 1024, 8192, fac.WIDE_MAX_ROWS, fac.WIDE_MAX_ROWS + 1, 737280):
+    for B in (1, 63, 64, 65, 1024, 1025, 8192, fac.WIDE_MAX_ROWS, fac.WIDE_MAX_ROWS + 1, 737280):
         chunks = fac.wide_chunks(B)
         assert chunks[0][0] == 0 and sum(n for _, n in chunks) == B
         assert all(a + n == b for (a, n), (b, _) in zip(chunks, chunks[1:]))
@@ -448,15 +450,25 @@ def test_wide_launch_shape(hidden):
         for with_value in (True, False):
             heads = 2 if with_value else 1
             n = chunks[0][1]
-            shape = fac.wide_launch_shape(n, hidden, with_value)
-            assert shape["layer1"] == shape["layer2"] == (passes, -(-n // 128), heads)
-            assert shape["heads"] == (-(-n // 8), 1, 1)
-            assert shape["layer1"][1] <= 65535  # the grid's y
-            assert shape["cluster"] == (1, 1, 1) and shape["passes_per_block"] == 1
+            half = passes * -(-n // 128) * heads <= 66
+            assert fac.wide_mode(B, hidden, with_value) == ("half" if half else "pass")
+            for mode, blocks in (("pass", passes), ("half", 2 * passes)):
+                shape = fac.wide_launch_shape(n, hidden, with_value, mode)
+                assert shape["layers"] == (blocks, -(-n // 128), heads)
+                assert shape["heads"] == (-(-n // 8), 1, 1)
+                assert shape["layers"][1] <= 65535  # the grid's y
             floats = fac.wide_scratch_floats(n, hidden, with_value)
             assert floats == n * (heads * kh + passes * 2 * 48 + (passes * 2 if with_value else 0))
             # the scratch follows the chunk, so it stops growing past WIDE_MAX_ROWS
             assert floats <= fac.wide_scratch_floats(fac.WIDE_MAX_ROWS, hidden, with_value)
+    if hidden == 1024:
+        # The pool slot's forward (B = 1024, no value) in the mode it
+        # derives: 128 blocks a layer, near the H100's 132 SMs, not 64; the
+        # agent forward (B = 1024 with value) already 128 in pass mode.
+        for with_value, mode in ((False, "half"), (True, "pass")):
+            assert fac.wide_mode(1024, 1024, with_value) == mode
+            layers = fac.wide_launch_shape(1024, 1024, with_value, mode)["layers"]
+            assert layers[0] * layers[1] * layers[2] == 128
 
 
 def test_route_takes_no_batch_size():
