@@ -8,8 +8,16 @@ Phases, in order; any failure exits non-zero:
      in parallel) and print the build seconds;
   2. check the engine on the card against the engine on the CPU, ply by
      ply, on identical actions and ring;
-  3. env throughput: B=32768 games, uniform random legal actions, ring
-     autoreset with a 4096-row window (the workload of `bench.py`);
+  3. the benchmark, `python -m splendax_torch.bench`, in three processes of
+     its own: the env workload at `bench.py`'s shape (B=32768 games, uniform
+     random legal actions, ring autoreset with a 4096-row window, 400 steps a
+     call, best of 5), and the league recipe's `update_step` without and with
+     its search slot (the committed agent run's update 3,812 with a full
+     pool, best of 3, each from the state its warm-up left).  Each JSON line
+     is checked against the bench's contract (keys, shape, no ring overflow,
+     kernel B 6 x 400 launches, every rep all 64 optimizer steps, kernel A in
+     the modes its B derive) and printed; each process's launch counts are
+     its path's;
   4. the flagship self-play rollout: 8192 games, hidden 768, pool of 12,
      agent and pool slots loaded from the committed h768 checkpoints.  Every
      kernel launch counter is zeroed just before it and read just after;
@@ -104,8 +112,9 @@ torch.profiler session of the process, so that no profiler state is left
 behind in them.  A profile of one distillation ply at 737,280 lanes comes
 last.
 
-Prints the card's name and power limit first, a JSON line with each
-kernel's numbers second to last, and `{"ok": true, "device": ...}` last.
+Prints the card's name and power limit first, the bench's three lines in
+phase 3, a JSON line with each kernel's numbers second to last, and
+`{"ok": true, "device": ...}` last.
 Imports nothing of JAX.
 """
 
@@ -121,6 +130,12 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+if not os.path.isdir(os.path.join(ROOT, "splendax_torch", "csrc")):
+    sys.exit("chip_smoke: the splendax_torch package is not beside this script")
+from splendax_torch.bench import (  # noqa: E402  (after the check above)
+    check_route, derived_modes, flagship_state, league_config, LEARNER_PHASES, read_launches,
+    timed_calls, zero_launches,
+)
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 H100_TF32_FLOPS = 494.7e12  # TF32 tensor cores, dense, H100 SXM data sheet
@@ -710,133 +725,60 @@ def phase_engine_agreement(device) -> None:
           f"so do the heuristics {sorted(heuristics)}", flush=True)
 
 
-def phase_env(device) -> float:
-    """Env steps/s at B=32768 with ring autoreset (bench.py's workload)."""
-    import torch
-
-    from splendax_torch.env import core
-    from splendax_torch.env import ring as ring_lib
-    from splendax_torch.selfplay.opponents import uniform_legal_action
-
-    B, steps = 32768, 64
-    g = torch.Generator(device=device).manual_seed(0)
-    state, obs, mask = core.reset(B, g, device)
-
-    def run(n):
-        nonlocal state, mask
-        ring = ring_lib.make_ring(B * max(1, -(-n // 64)), g, device, window=4096)
-        obs_sum = torch.zeros((), dtype=torch.int64, device=device)
-        r_sum = torch.zeros((), device=device)
-        for _ in range(n):
-            action = uniform_legal_action(mask, g)
-            state, out, obs, mask, ring = ring_lib.step_autoreset_ring(state, action, ring, mask=mask)
-            obs_sum += obs.sum()
-            r_sum += out.reward.sum()
-        return ring.overflow
-
-    run(4)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    overflow = run(steps)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    check(int(overflow) == 0, f"ring window overflow: {int(overflow)} lanes")
-    rate = B * steps / dt
-    print(f"env: {rate:.1f} env-steps/s (B={B}, {steps} steps, ring window 4096, "
-          f"{dt:.3f} s incl. ring deal)", flush=True)
-    return rate
+# Phase 3's invocations of `python -m splendax_torch.bench`: the env workload
+# at bench.py's shape (its defaults) and the league update with and without
+# its search slot (the committed weights).
+BENCH_RUNS = {
+    "bench env": ("--workload", "env"),
+    "bench update none": ("--workload", "update", "--slot", "none"),
+    "bench update static": ("--workload", "update", "--slot", "static"),
+}
+BENCH_COMMON_KEYS = ("metric", "value", "unit", "mean", "median", "per_rep", "backend", "device",
+                     "host", "detail")
 
 
-def flagship_state(cfg, device):
-    """A TrainState at flagship width: the agent from the committed 2B-step
-    h768 run, two frozen pool slots from the 4B-step and the distilled h768
-    nets."""
-    from splendax_torch.models.actor_critic import import_params_npz
-    from splendax_torch.selfplay import pool as pool_lib
-    from splendax_torch.train import ppo
-
-    agent = import_params_npz(os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz"),
-                              device=device)
-    ts = ppo.init_train_state(cfg, params=agent, device=device)
-    pool = ts.pool
-    for src in ("runs/ppo_splendor_4b_h768/ppo_splendor_params.npz",
-                "runs/distill_h768/distilled_params.npz"):
-        pool = pool_lib.push_snapshot(pool, import_params_npz(os.path.join(ROOT, src), device=device))
-    ts.pool = pool
-    opp_idx = ppo._sample_opponents(cfg, pool, ts.generator, cfg.num_envs)
-    ts.opp_idx = opp_idx if ts.mesh is None else ts.mesh.rows(opp_idx)  # the global draw's rows
-    return ts
-
-
-# The mode each wgmma or wide forward of this process should take, derived
-# from its B (`derive_modes`): "derived_tile", "derived_cluster",
-# "derived_wide_pass" and "derived_wide_half" beside the counters that
-# `read_launches` returns.
-DERIVED = {"tile": 0, "cluster": 0, "wide_pass": 0, "wide_half": 0}
-
-
-def derive_modes() -> None:
-    """From here on each wgmma or wide forward of this process whose mode
-    the wrapper picks adds the mode its B gives (`wgmma_mode`, `wide_mode`)
-    to DERIVED.  A launch that names its mode (the kernel phase's) adds
-    nothing."""
-    from splendax_torch.ops import fused_actor_critic as fac
-
-    launch = fac._launch
-    if getattr(launch, "derives", False):
-        return
-
-    def derived(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None):
-        if r == "wgmma" and mode is None:
-            DERIVED[fac.wgmma_mode(obs.shape[0], weights[0].shape[1])] += 1
-        elif r == "wide" and mode is None:
-            DERIVED["wide_" + fac.wide_mode(obs.shape[0], weights[0].shape[1], with_value)] += 1
-        return launch(r, weights, obs, mask, with_value, prepared, lib, mode)
-
-    derived.derives = True
-    fac._launch = derived
-
-
-def read_launches() -> dict:
-    """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
-    by route and by the wgmma and wide routes' modes, its weight
-    preparations, and kernel B; and the modes derived from the forwards' B."""
-    from splendax_torch.ops import fused_actor_critic as fac
-    from splendax_torch.ops import ring_take as rt
-
-    return {**fac.launch_counts(), "ring_take": rt.launches,
-            **{f"derived_{m}": n for m, n in DERIVED.items()}}
-
-
-def zero_launches() -> None:
-    from splendax_torch.ops import fused_actor_critic as fac
-    from splendax_torch.ops import ring_take as rt
-
-    fac.launches = 0
-    for counts in (fac.launches_by_route, fac.launches_by_mode, fac.launches_by_wide_mode,
-                   DERIVED):
-        for k in counts:
-            counts[k] = 0
-    fac.prep_launches = 0
-    rt.launches = 0
-
-
-def check_route(path: str, n: dict, route: str = "wgmma") -> None:
-    """Every kernel A launch of the path took `route` (the hidden width's),
-    none another route, each forward prepared its weights once, and the
-    wgmma and wide forwards took the modes their B derive."""
-    from splendax_torch.ops import fused_actor_critic as fac
-
-    others = [r for r in fac.launches_by_route if r != route]
-    check(n["fused_actor_critic"] > 0 and n["fused_actor_critic_" + route] == n["fused_actor_critic"]
-          and all(n["fused_actor_critic_" + r] == 0 for r in others)
-          and n["fused_actor_critic_prep"] == n["fused_actor_critic"],
-          f"{path}: kernel A's launches did not all take the {route} route: {n}")
-    for r, names in (("wgmma", ("tile", "cluster")), ("wide", ("wide_pass", "wide_half"))):
-        modes = {m: n["fused_actor_critic_" + m] for m in names}
-        check(sum(modes.values()) == n["fused_actor_critic_" + r]
-              and all(modes[m] == n["derived_" + m] for m in modes),
-              f"{path}: kernel A's {r} modes {modes} are not those its B derive: {n}")
+def phase_bench() -> dict:
+    """Phase 3: the benchmark's three invocations (BENCH_RUNS), each a
+    process of its own; each line is checked against the bench's contract
+    and printed.  Returns each invocation's launch counts, as
+    `read_launches` keys them."""
+    paths = {}
+    for path, args in BENCH_RUNS.items():
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "splendax_torch.bench", *args], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0, f"{path}: exit {out.returncode}\n{out.stderr[-4000:]}")
+        lines = out.stdout.splitlines()
+        check(len(lines) == 1, f"{path}: {len(lines)} lines on stdout: {out.stdout[-2000:]}")
+        line = json.loads(lines[0])
+        print(f"{path} ({time.perf_counter() - t0:.1f} s with start-up): {lines[0]}", flush=True)
+        check(all(k in line for k in BENCH_COMMON_KEYS), f"{path}: a key is missing")
+        check(line["backend"] == "cuda" and line["device"]["count"] >= 1
+              and line["value"] == round(max(line["per_rep"]), 1) > 0,
+              f"{path}: backend, device or value off the contract")
+        if path == "bench env":
+            check(line["metric"] == "env_steps_per_sec_per_chip" and line["unit"] == "steps/s"
+                  and "vs_baseline" in line and line["batch"] == 32768 and line["steps"] == 400
+                  and len(line["per_rep"]) == 5, f"{path}: not bench.py's shape or keys")
+            check(line["ring_overflow"] == 0, f"{path}: ring overflow {line['ring_overflow']}")
+            check(line["ring_take_launches"] == 6 * 400,
+                  f"{path}: kernel B launched {line['ring_take_launches']} times, not 6 x 400")
+            paths[path] = dict(dict.fromkeys(read_launches(), 0),
+                               ring_take=line["ring_take_launches"])
+        else:
+            steps = line["optimizer_steps_per_rep"]
+            check(line["metric"] == "agent_steps_per_sec" and line["num_envs"] == 8192
+                  and line["num_steps"] == 64 and line["hidden"] == 768 and len(steps) == 3
+                  and line["seed"] == 42 and line["update"]["update"] == 3812,
+                  f"{path}: not the league recipe's shape, seed or update")
+            check(steps == [line["optimizer_steps_max"]] * 3 == [64] * 3,
+                  f"{path}: the reps took {steps} optimizer steps, not the run's 64")
+            n = line["launches_per_update"]
+            check_route(path, n)
+            check(n["ring_take"] == 64, f"{path}: kernel B launched {n['ring_take']} times")
+            # Every counted update launched the same kernels (the bench checks it).
+            paths[path] = {k: v * line["updates_counted"] for k, v in n.items()}
+    return paths
 
 
 def phase_rollout(device):
@@ -885,42 +827,6 @@ def phase_rollout(device):
     return launches, cfg, ts
 
 
-@contextlib.contextmanager
-def timed_calls(module, names, seconds: dict, last: dict, launches: dict | None = None):
-    """While open, each function `names` of `module` adds its synchronised
-    host seconds to `seconds` (and, given `launches`, its kernel A launches
-    to it) and leaves its last arguments and result in `last`."""
-    import torch
-
-    from splendax_torch.ops import fused_actor_critic as fac
-
-    originals = {name: getattr(module, name) for name in names}
-
-    def timed(name, fn):
-        def wrapper(*args, **kw):
-            torch.cuda.synchronize()
-            t0, n0 = time.perf_counter(), fac.launches
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
-            if launches is not None:
-                launches[name] = launches.get(name, 0) + fac.launches - n0
-            last[name] = (args, out)
-            return out
-        return wrapper
-
-    for name, fn in originals.items():
-        setattr(module, name, timed(name, fn))
-    try:
-        yield
-    finally:
-        for name, fn in originals.items():
-            setattr(module, name, fn)
-
-
-LEARNER_PHASES = ("rollout", "_gae", "_ppo_epochs")
-
-
 def phase_update(device) -> dict:
     """The league recipe's learner at full width: one warm-up `update_step`,
     two timed ones, and the learner's arithmetic held against the CPU."""
@@ -929,13 +835,8 @@ def phase_update(device) -> dict:
     from splendax_torch.eval import suite
     from splendax_torch.models import actor_critic as ac
     from splendax_torch.train import ppo
-    from splendax_torch.train.config import PPOConfig
 
-    # runs/ppo_splendor_2b_h768_league/config.json without its search slot.
-    cfg = PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
-                    reset_ring_mult=2, minibatch_size=32768, update_epochs=4, lr=2.5e-4,
-                    lr_anneal=True, target_kl=0.02, snapshot_every_updates=16,
-                    total_timesteps=2_000_000_000, rng_mode="fast")
+    cfg = league_config("none")
     eval_games = 256
     check(not torch.backends.cuda.matmul.allow_tf32, "the learner's products must be float32")
     ts = flagship_state(cfg, device)
@@ -1441,13 +1342,6 @@ def phase_distill(device) -> dict:
     return paths
 
 
-# runs/ppo_splendor_2b_h768_league/config.json without its search slot.
-LEAGUE_NO_SLOT = dict(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
-                      reset_ring_mult=2, minibatch_size=32768, update_epochs=4, lr=2.5e-4,
-                      lr_anneal=True, target_kl=0.02, snapshot_every_updates=16,
-                      total_timesteps=2_000_000_000, rng_mode="fast")
-
-
 def probed_update(cfg, ts):
     """One `update_step` -> (ts, seconds, record): the record holds the
     rollout, the first minibatch's loss and the gradients its optimizer
@@ -1501,41 +1395,40 @@ def parallel_rank(runs) -> dict:
     from splendax_torch.models import actor_critic as ac
     from splendax_torch.parallel import collectives
     from splendax_torch.parallel.multihost import local_device
-    from splendax_torch.train.config import PPOConfig
 
     dev = local_device("cuda")
     check(dev.type == "cuda", f"a rank runs on {dev}")
-    derive_modes()
-    out = {}
-    for label, dp, tp, turns in runs:
-        cfg = PPOConfig(**dict(LEAGUE_NO_SLOT, num_steps=turns), dp=dp, tp=tp)
-        probed_update(cfg.replace(num_steps=2), flagship_state(cfg, dev))  # warm-up
-        ts = flagship_state(cfg, dev)
-        zero_launches()
-        dist.barrier()
-        ts, dt, rec = probed_update(cfg, ts)
-        launches = read_launches()
-        mesh, traj = ts.mesh, rec["traj"]
-        check(traj.obs.is_cuda and ts.params.actor[0].weight.is_cuda, "a rank left the card")
-        dims = ts.params.shard_dims or [None] * len(rec["grads"])
-        grads = [g if d is None else collectives.all_gather_cat(g, mesh.tp_group, d)
-                 for g, d in zip(rec["grads"], dims)]
-        gather_ms = None
-        if tp > 1:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                ac.gather_full_weights(ts.params)
-            torch.cuda.synchronize()
-            gather_ms = (time.perf_counter() - t0) * 1e3 / 5
-        out[label] = dict(
-            action=traj.action.to(torch.int8).cpu().numpy(), reward=traj.reward.cpu().numpy(),
-            done=traj.done.cpu().numpy(), overflow=int(traj.overflow), loss=rec["loss"].item(),
-            grads=[g.cpu().numpy() for g in grads], steps=rec["steps"],
-            params=[p.detach().cpu().numpy() for p in ac.whole_model(ts.params).parameters()],
-            seconds=dt, launches=launches, dp_rank=mesh.dp_rank, tp_rank=mesh.tp_rank,
-            gather_ms=gather_ms, device=str(dev), routes=dict(collectives.routes))
-    return out
+    with derived_modes():
+        out = {}
+        for label, dp, tp, turns in runs:
+            cfg = league_config("none").replace(num_steps=turns, dp=dp, tp=tp)
+            probed_update(cfg.replace(num_steps=2), flagship_state(cfg, dev))  # warm-up
+            ts = flagship_state(cfg, dev)
+            zero_launches()
+            dist.barrier()
+            ts, dt, rec = probed_update(cfg, ts)
+            launches = read_launches()
+            mesh, traj = ts.mesh, rec["traj"]
+            check(traj.obs.is_cuda and ts.params.actor[0].weight.is_cuda, "a rank left the card")
+            dims = ts.params.shard_dims or [None] * len(rec["grads"])
+            grads = [g if d is None else collectives.all_gather_cat(g, mesh.tp_group, d)
+                     for g, d in zip(rec["grads"], dims)]
+            gather_ms = None
+            if tp > 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    ac.gather_full_weights(ts.params)
+                torch.cuda.synchronize()
+                gather_ms = (time.perf_counter() - t0) * 1e3 / 5
+            out[label] = dict(
+                action=traj.action.to(torch.int8).cpu().numpy(), reward=traj.reward.cpu().numpy(),
+                done=traj.done.cpu().numpy(), overflow=int(traj.overflow), loss=rec["loss"].item(),
+                grads=[g.cpu().numpy() for g in grads], steps=rec["steps"],
+                params=[p.detach().cpu().numpy() for p in ac.whole_model(ts.params).parameters()],
+                seconds=dt, launches=launches, dp_rank=mesh.dp_rank, tp_rank=mesh.tp_rank,
+                gather_ms=gather_ms, device=str(dev), routes=dict(collectives.routes))
+        return out
 
 
 def phase_parallel(device) -> dict:
@@ -1548,7 +1441,6 @@ def phase_parallel(device) -> dict:
     from splendax_torch.parallel import bench_scaling, dryrun
     from splendax_torch.parallel.multihost import spawn
     from splendax_torch.train import ppo
-    from splendax_torch.train.config import PPOConfig
 
     # Kernel A's rows must not depend on B for a rank's half of the batch
     # to equal the same rows of the whole batch.
@@ -1570,7 +1462,7 @@ def phase_parallel(device) -> dict:
           f"with start-up; collective routes of rank 0 {ranks[0]['tp']['routes']}", flush=True)
     launches = dict.fromkeys(read_launches(), 0)
     for label, dp, tp, turns in runs:
-        cfg = PPOConfig(**dict(LEAGUE_NO_SLOT, num_steps=turns))
+        cfg = league_config("none").replace(num_steps=turns)
         ts1, dt, rec = probed_update(cfg, flagship_state(cfg, device))
         traj, n = rec["traj"], cfg.num_envs // dp
         for r in ranks:
@@ -1798,19 +1690,6 @@ def profile_distill_ply(device) -> None:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}", flush=True)
 
 
-def league_cfg():
-    """runs/ppo_splendor_2b_h768_league/config.json, its search slot
-    included."""
-    from splendax_torch.train.config import PPOConfig
-
-    return PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
-                     reset_ring_mult=2, minibatch_size=32768, update_epochs=4, lr=2.5e-4,
-                     lr_anneal=True, target_kl=0.02, snapshot_every_updates=16,
-                     total_timesteps=2_000_000_000, rng_mode="fast", eval_games=256,
-                     search_opponent=True, search_static=True, p_search=0.125, search_m=8,
-                     search_k0=4, search_horizon=2)
-
-
 def phase_league(device):
     """The league recipe with its search slot at full width: a warm-up
     update, a timed one, and one more with the search timed on its own."""
@@ -1819,7 +1698,7 @@ def phase_league(device):
     from splendax_torch.ops import fused_actor_critic as fac
     from splendax_torch.train import ppo
 
-    cfg = league_cfg()
+    cfg = league_config("static")
     S = cfg.n_search_static
     check(S == 1024 and cfg.search_stride == 8, f"static slot: {S} rows, stride {cfg.search_stride}")
     ts = flagship_state(cfg, device)
@@ -2011,7 +1890,6 @@ def phase_host(device) -> dict:
     from splendax_torch.selfplay.opponents import uniform_legal_action
     from splendax_torch.tools import game_logger
     from splendax_torch.train import ppo
-    from splendax_torch.train.config import PPOConfig
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -2179,10 +2057,7 @@ def phase_host(device) -> dict:
           f"{out.getvalue().splitlines()[-1]}", flush=True)
 
     # The flagship rollout with the full-batch autoreset, then one update.
-    cfg = PPOConfig(num_envs=8192, num_steps=64, hidden=768, pool_size=12, p_current=0.25,
-                    reset_ring_mult=0, minibatch_size=32768, update_epochs=4, lr=2.5e-4,
-                    lr_anneal=True, target_kl=0.02, snapshot_every_updates=16,
-                    total_timesteps=2_000_000_000, rng_mode="fast")
+    cfg = league_config("none").replace(reset_ring_mult=0)
     ts = flagship_state(cfg, device)
     ppo.rollout(cfg.replace(num_steps=2), ts)  # warm-up, not kept
     torch.cuda.synchronize()
@@ -2263,16 +2138,20 @@ def phase_profile(cfg, ts, n: int = 4, label: str = "profile") -> None:
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(ROOT, "splendax_torch", "csrc")):
-        print("chip_smoke: the splendax_torch package is not beside this script", file=sys.stderr)
-        return 2
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    derive_modes()
+    with derived_modes():
+        return run_phases()
+
+
+def run_phases() -> int:
+    """Every phase, in order, with kernel A's modes derived from its shapes
+    (`derived_modes`)."""
+    import torch
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2292,9 +2171,10 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     phase_engine_agreement(device)
-    phase_env(device)
+    bench_paths = phase_bench()
     launches, cfg, ts = phase_rollout(device)
     by_path = {"rollout": launches, "update": phase_update(device), "train": phase_train(device)}
+    by_path.update((p, n) for p, n in bench_paths.items() if p != "bench env")
     zero_launches()
     phase_search(device)
     by_path["search"] = read_launches()
@@ -2323,6 +2203,7 @@ def main() -> int:
     print("kernel A's wgmma launches by mode (tile / cluster, as their B derive): " + "; ".join(
         f"{path} {n['fused_actor_critic_tile']} / {n['fused_actor_critic_cluster']}"
         for path, n in by_path.items()), flush=True)
+    by_path["bench env"] = bench_paths["bench env"]  # kernel B alone
     by_path["train H=1024, 1280"] = phase_wide(device)
     by_path["eval h1024"] = phase_eval_h1024(device)
     kern = phase_kernels(device)
