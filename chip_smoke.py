@@ -35,16 +35,21 @@ Phases, in order; any failure exits non-zero:
      kernel, the plain version and one PyTorch library call for the
      same function at the main path's shapes, on the device clock (the
      summed kernel time under torch.profiler).  Kernel A takes its wgmma
-     route at H <= 768 (held at H = 256 and 768, its prep kernel bit for bit
-     against the plain preparation, its tile and cluster modes bit for bit
-     against each other) and its wide route above (held at H = 1024, 1280
+     route at H <= 768 (held at H = 256 and 768, its tile and cluster modes
+     bit for bit against each other) and its wide route above (held at H = 1024, 1280
      and 2048 on random weights, B = 1 to 8192 with the wide paths' 16, 512
      and 1024, obs of 4097, its pass and half modes bit for bit against each
      other); at each main-path shape both modes of the wgmma kernel, alone
      and with their prep, the mma_sync kernel on the same rows, the plain
      forward and the addmm chain are timed, and so are both modes of the
      wide route at the wide paths' shapes (H = 1024, B = 16, 256, 1024 and
-     8192; H = 1280, B = 512 and 8192) beside the same yardsticks;
+     8192; H = 1280, B = 512 and 8192) beside the same yardsticks.  "With
+     the prep" is a forward on a plain list of weights; the paths' handles
+     pay the prep once per weight version.  Its prep kernel, and the earlier
+     one (built with PROBE_OLD_PREP beside the libraries in phase 1), equal the
+     plain preparation bit for bit at H = 64, 256, 768, 769, 1024, 1280 and
+     2048, with and without the critic, and are timed in turns at H = 768,
+     1024 and 1280;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
   9. the searches: without a network, `determinize`, the Gumbel search
@@ -55,7 +60,11 @@ Phases, in order; any failure exits non-zero:
  10. the league recipe WITH its search slot (static, m=8, k0=4, horizon 2) at
      full width: one warm-up `update_step`, one timed, and one with the
      search timed and its launches counted; the launch counts are asserted.
-     Then four of its turns under the profiler, as in 8;
+     Then four of its turns under the profiler, as in 8.  Then two of its
+     updates on the pool's prepared-weight handles from the full pool, the
+     first pushing a snapshot, the second from the bench's deep copy of
+     the state, then a checkpoint restore: every forward on a handle
+     equals the same forward on freshly prepared weights bit for bit;
  11. the engine in parity mode (MT19937 token return) on the card against
      the CPU, 100 plies x 512 games from `initial_state_parity` deals;
  12. the eval CLI on the card: `vs-search --algo gumbel --agent basic` with
@@ -100,11 +109,14 @@ Phases, in order; any failure exits non-zero:
      forwards on the rows it was given, and its other mode bit for bit.
 
 Every driven path at H <= 768 (4 to 16) must launch kernel A on its wgmma
-route only, each forward with one weight preparation and in the mode its B
-derives (`wgmma_mode`: cluster mode up to CLUSTER_MAX_ROWS rows, tile mode
-above), the cluster mode on the pool slots, the eval suite, the root prior
-and the host policies; paths 17 and 18 on the wide route only, each forward
-with one weight preparation and in the mode its B derives (`wide_mode`).
+route only, in the mode its B derives (`wgmma_mode`: cluster mode up to
+CLUSTER_MAX_ROWS rows, tile mode above), the cluster mode on the pool
+slots, the eval suite, the root prior and the host policies; paths 17 and
+18 on the wide route only, in the mode its B derives (`wide_mode`).  On
+every path the weight preparations must equal those its forwards' weights
+call for (`bench.needs_preparation`): one for each forward on a plain list,
+one for each written weight version on a `PreparedWeights` handle (the
+pool's slots, the eval and host policies, the search contexts).
 
 Phases 9 to 16 run after phase 6 and before phase 7, so the host-clock
 rates (phases 3 to 6 and 9 to 16) are taken before the first
@@ -127,6 +139,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -134,8 +147,13 @@ if not os.path.isdir(os.path.join(ROOT, "splendax_torch", "csrc")):
     sys.exit("chip_smoke: the splendax_torch package is not beside this script")
 from splendax_torch.bench import (  # noqa: E402  (after the check above)
     check_route, derived_modes, flagship_state, league_config, LEARNER_PHASES, read_launches,
-    timed_calls, zero_launches,
+    restore_state, save_state, timed_calls, zero_launches,
 )
+from splendax_torch.ops import _build  # noqa: E402
+
+# The earlier weight preparation kernel (the wgmma source built with
+# PROBE_OLD_PREP), timed beside the library's in the kernel phase.
+OLD_PREP_LIB = _build.BUILD_DIR / "libfused_actor_critic_wgmma_old_prep.so"
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 H100_TF32_FLOPS = 494.7e12  # TF32 tensor cores, dense, H100 SXM data sheet
@@ -254,6 +272,8 @@ def bound_a(B: int, H: int, with_value: bool, l1_products: int) -> tuple[float, 
 def phase_kernels(device) -> dict:
     """Each kernel against its plain version; device-clock times at the main
     path's shapes, beside the plain version and one PyTorch library call."""
+    import ctypes
+
     import numpy as np
     import torch
 
@@ -368,8 +388,9 @@ def phase_kernels(device) -> dict:
         check(all(fac.launches_by_route[r] == before[r] for r in before if r != "wgmma")
               and fac.launches_by_route["wgmma"] > before["wgmma"],
               f"kernel A at H={H} left the wgmma route: {fac.launches_by_route}")
-        # The prep kernel against its plain version, bit for bit (the actor's
-        # half alone without the critic: the kernel leaves the rest unwritten).
+        # The prep kernel on the committed net against its plain version, bit
+        # for bit (the actor's half alone without the critic: the kernel
+        # leaves the rest unwritten); every other width below.
         for with_value in (True, False):
             n = len(fac.prepare_weights_plain(w)) if with_value else fac.prepared_layout(H)[2][0]
             check(torch.equal(fac.prepare_weights(w, with_value)[:n],
@@ -397,6 +418,26 @@ def phase_kernels(device) -> dict:
                         (rng.uniform(-1, 1, shape) / np.sqrt(fi)).astype(np.float32),
                         device=device))
         return out
+
+    # The prep kernel, and the earlier one (PROBE_OLD_PREP), against the
+    # plain preparation bit for bit at every width the routes' paths and
+    # tests give it, ragged (769) and 16-byte aligned, with and without the
+    # critic; and on a weight 4 bytes off 16-byte alignment (its 4-byte path).
+    old_lib = fac.bind(ctypes.CDLL(str(OLD_PREP_LIB)), "wgmma")
+    prep_widths = (64, 256, 768, 769, 1024, 1280, 2048)
+    for H_p in prep_widths:
+        w_p = random_weights(H_p)
+        if H_p == 768:
+            w_p[2] = torch.empty(H_p * H_p + 1, device=device)[1:].view(H_p, H_p).copy_(w_p[2])
+        for with_value in (True, False):
+            want = fac.prepare_weights_plain(w_p, with_value)
+            n = want.numel() if with_value else fac.prepared_layout(H_p)[2][0]
+            for name, lib in (("prep kernel", None), ("old prep kernel", old_lib)):
+                check(torch.equal(fac.prepare_weights(w_p, with_value, lib)[:n], want[:n]),
+                      f"the {name} differs from its plain version at H={H_p} value={with_value}")
+    print(f"kernel A prep: the new and the old kernel equal the plain preparation bit for bit at "
+          f"H in {prep_widths}, with and without the critic (H=768 with aw1 off 16-byte "
+          f"alignment)", flush=True)
 
     wide_modes_ = tuple(fac.launches_by_wide_mode)
 
@@ -486,9 +527,10 @@ def phase_kernels(device) -> dict:
 
         n = 20 if B <= 32768 else 5
         prepared = fac.prepare_weights(w, with_value)
-        # The wgmma route as the path runs it (prep + kernel, in the mode B
-        # derives), each mode's kernel alone and (up to B = 8192) the other
-        # mode with its prep, PR 2's mma_sync kernel on the same rows, the
+        # The wgmma route on a plain list (prep + kernel, in the mode B
+        # derives; a path's handle pays the prep once per weight version),
+        # each mode's kernel alone and (up to B = 8192) the other mode with
+        # its prep, the mma_sync kernel on the same rows, the
         # plain forward and the addmm chain.
         mode = fac.wgmma_mode(B, H)
         route_ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w, obs, mask, with_value), n,
@@ -529,34 +571,47 @@ def phase_kernels(device) -> dict:
             checked_against="plain version in float64, rtol/atol 1e-5; the other mode bit for bit",
             by_shape=shapes if m == "tile" else "as fused_actor_critic_tile")
 
-    # The prep kernel at H = 768, with and without the critic: its bytes
-    # bound reads the first two layers' weights once and writes each
-    # prepared matrix (hi and lo, [2, HP, KP]) once.
+    # The prep kernel at H = 768, 1024 and 1280, with and without the
+    # critic, beside the earlier prep kernel in turns (new, old, old, new):
+    # its bytes bound reads the first two layers' weights once and writes
+    # each prepared matrix (hi and lo, [2, HP, KP]) once.
     preps = []
-    for with_value in (True, False):
-        heads = 2 if with_value else 1
-        written = sum(2 * hp * kp for _, hp, kp in fac.prepared_layout(H)[:2 * heads])
-        nbytes = 4 * (heads * (297 + H) * H + written)
-        ms, host_ms = device_ms(lambda: fac.prepare_weights(w, with_value), 20)
-        plain_ms = device_ms(lambda: fac.prepare_weights_plain(w, with_value), 20)[0]
-        preps.append(dict(H=H, with_value=with_value, ms=ms, plain_ms=plain_ms, library_ms=None,
-                          bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
-                          host_ms=host_ms))
-        print(f"kernel A prep H={H} value={with_value}: {ms:.5f} ms, plain {plain_ms:.5f} ms; "
-              f"bound {preps[-1]['bound_ms']:.5f} ms by bytes ({nbytes} bytes); host "
-              f"{host_ms:.4f} ms per call", flush=True)
+    for H_p in (768, 1024, 1280):
+        w_p = w if H_p == H else random_weights(H_p)
+        for with_value in (True, False):
+            heads = 2 if with_value else 1
+            written = sum(2 * hp * kp for _, hp, kp in fac.prepared_layout(H_p)[:2 * heads])
+            nbytes = 4 * (heads * (297 + H_p) * H_p + written)
+            t = {"new": [], "old": []}
+            for name in ("new", "old", "old", "new"):
+                lib = old_lib if name == "old" else None
+                t[name].append(device_ms(lambda: fac.prepare_weights(w_p, with_value, lib), 20))
+            ms, host_ms = (sum(x[i] for x in t["new"]) / 2 for i in (0, 1))
+            earlier_ms = sum(x[0] for x in t["old"]) / 2
+            plain_ms = device_ms(lambda: fac.prepare_weights_plain(w_p, with_value), 20)[0]
+            preps.append(dict(H=H_p, with_value=with_value, ms=ms, earlier_ms=earlier_ms,
+                              plain_ms=plain_ms, library_ms=None,
+                              bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                              host_ms=host_ms))
+            print(f"kernel A prep H={H_p} value={with_value}: {ms:.5f} ms "
+                  f"({[round(x[0], 5) for x in t['new']]}), the old kernel {earlier_ms:.5f} ms "
+                  f"({[round(x[0], 5) for x in t['old']]}), plain {plain_ms:.5f} ms; bound "
+                  f"{preps[-1]['bound_ms']:.5f} ms by bytes ({nbytes} bytes), "
+                  f"{preps[-1]['bound_ms'] / ms:.2f} of it; host {host_ms:.4f} ms per call",
+                  flush=True)
     results["fused_actor_critic_prep"] = dict(
-        max_abs_err=0.0, **{k: preps[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                     "bound_by", "host_ms")},
+        max_abs_err=0.0, **{k: preps[0][k] for k in ("ms", "earlier_ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by", "host_ms")},
         bound_peak="HBM3, 3.35 TB/s", checked_against="plain version, bit for bit",
+        earlier="the earlier prep kernel (PROBE_OLD_PREP), timed in turns with it",
         by_shape=preps)
 
     # The wide route at the wide paths' shapes: H = 1024, B = 1024 with value
     # (the H=1024 train's agent forward and bootstrap) and without (its pool
     # slot), B = 256 without (the h1024 eval's forward), B = 16 without (the
     # trains' eval), B = 8192 with value; H = 1280, B = 512 with value (its
-    # train's rollout) and B = 8192 with value.  Beside the route as the
-    # path runs it (prep + kernel, in the mode B derives), in the same call:
+    # train's rollout) and B = 8192 with value.  Beside the route on a plain
+    # list (prep + kernel, in the mode B derives), in the same call:
     # each mode alone (weights prepared once) and the other mode with its
     # prep, the mma_sync kernel (`csrc/fused_actor_critic.cu`, H <= 1024
     # only) on the same rows, the plain forward and the addmm chain.
@@ -776,6 +831,12 @@ def phase_bench() -> dict:
             n = line["launches_per_update"]
             check_route(path, n)
             check(n["ring_take"] == 64, f"{path}: kernel B launched {n['ring_take']} times")
+            # The update writes CURRENT before its first forward: that slot
+            # prepares once, and so may any slot the saved state left stale.
+            check(line["preparations_per_update"] == n["fused_actor_critic_prep"]
+                  and 1 <= n["fused_actor_critic_prep"] <= 1 + line["slots_stale_at_start"],
+                  f"{path}: {n['fused_actor_critic_prep']} preparations an update with "
+                  f"{line['slots_stale_at_start']} slots stale at its start")
             # Every counted update launched the same kernels (the bench checks it).
             paths[path] = {k: v * line["updates_counted"] for k, v in n.items()}
     return paths
@@ -1510,6 +1571,11 @@ def phase_parallel(device) -> dict:
         # m k0 = 8 lanes each), so each derives the cluster mode.
         check(fac.wgmma_mode(64, 256) == "cluster", "the dry run's B no longer derive cluster mode")
         launches["derived_cluster"] += r["launches"]["fused_actor_critic_wgmma"]
+        # Its weight preparations, 3 a rank: CURRENT's handle once in each of
+        # its two updates (`set_current` writes it before the first forward,
+        # and with no snapshot in the pool every game faces CURRENT), and the
+        # search's handle once.
+        launches["derived_prep"] += 3
     print(f"parallel: dryrun_multichip(4) on the card, {time.perf_counter() - t0:.1f} s; routes of "
           f"rank 0 {results[0]['routes']}", flush=True)
     bench_scaling.main(["--ranks", "2", "--batch-per-rank", "4096", "--steps", "20", "--reps", "1",
@@ -1783,6 +1849,80 @@ def phase_league(device):
           f"the rollout), {per_search} kernel A launches each on up to "
           f"{S * cfg.search_m * cfg.search_k0} lanes", flush=True)
     return launches, cfg, ts
+
+
+def phase_handles(device) -> None:
+    """Two league updates (the recipe with its static search slot, full
+    width, the full pool) on the pool's prepared-weight handles: the first
+    pushes a snapshot at its end; the second runs from the bench's deep copy
+    of the state it left; then a checkpoint restore.  Every forward on a
+    handle (the agent, the pool slots, the league search, the bootstrap)
+    equals, bit for bit, the same forward on a freshly prepared plain list
+    of the same weights, in the same mode.  The comparison launches are this
+    phase's own: no path counts them."""
+    import torch
+
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.train import checkpoint, ppo
+
+    cfg = league_config("static")
+    ts = flagship_state(cfg, device, full_pool=True)
+    k = cfg.snapshot_every_updates
+    ts.update_idx = (cfg.num_updates - 2) // k * k - 1  # an update whose end pushes a snapshot
+    checked = {}
+    launch = fac._launch
+
+    def compare(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None):
+        out = launch(r, weights, obs, mask, with_value, prepared, lib, mode)
+        if isinstance(weights, fac.PreparedWeights) and prepared is None and obs.shape[0] > 0:
+            fresh = launch(r, list(weights), obs, mask, with_value, None, lib, mode)
+            where = next((i for i, h in enumerate(pool_now[0].slots) if h is weights), "search")
+            check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, fresh)),
+                  f"handles: a forward on slot {where}'s handle (B={obs.shape[0]}, value="
+                  f"{with_value}) differs from the same forward on freshly prepared weights")
+            checked[where] = checked.get(where, 0) + 1
+        return out
+
+    pool_now = [ts.pool]
+    preps, stale = [], 0
+    fac._launch = compare
+    try:
+        for i in range(2):
+            before = sum(h.preparations for h in ts.pool.slots)
+            pool_now[0] = ts.pool
+            n_snap = ts.pool.n_snapshots
+            ts, _ = ppo.update_step(cfg, ts)
+            torch.cuda.synchronize()
+            preps.append(sum(h.preparations for h in ts.pool.slots) - before)
+            if i == 0:
+                pushed = n_snap % ts.pool.pool_size
+                was = [h.stale() for h in ts.pool.slots]
+                check(ts.pool.n_snapshots == n_snap + 1 and was[pushed] and not was[-1],
+                      f"handles: after the snapshot push into slot {pushed}, stale slots {was}")
+                ts = restore_state(save_state(ts))  # the bench's deep copy
+                check([h.stale() for h in ts.pool.slots] == was,
+                      "handles: the deep copy did not keep the current preparations")
+                stale = sum(was)
+    finally:
+        fac._launch = launch
+    # CURRENT after its write, and at most each slot the first update left
+    # stale (the pushed one among them).
+    check(1 <= preps[1] <= 1 + stale,
+          f"handles: {preps[1]} preparations in the second update, {stale} slots stale")
+    # A checkpoint restore: new handles over the restored stack, each equal
+    # to the plain preparation of its slot.
+    fresh = checkpoint.load_state_dict(ppo.init_train_state(cfg, device=device),
+                                       checkpoint.state_dict(ts))
+    for j, h in enumerate(fresh.pool.slots):
+        check(h.stale() and torch.equal(h.buffer(), fac.prepare_weights_plain(list(h)))
+              and all(torch.equal(a, b) for a, b in zip(h, ts.pool.slot(j))),
+              f"handles: slot {j} after the checkpoint restore")
+    print(f"handles: two league updates (static slot, full pool, the first pushing slot "
+          f"{pushed}, the second from its deep copy): every handle forward equals the forward "
+          f"on freshly prepared weights bit for bit ({sum(checked.values())} forwards: "
+          f"{dict(sorted(checked.items(), key=str))} by slot); preparations on handles "
+          f"{preps[0]} and {preps[1]}; after a checkpoint restore every slot's handle prepares "
+          f"the restored weights bit for bit", flush=True)
 
 
 def phase_parity(device) -> None:
@@ -2161,10 +2301,14 @@ def run_phases() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     device = torch.device("cuda", 0)
 
-    from splendax_torch.ops import _build
-
+    OLD_PREP_LIB.parent.mkdir(parents=True, exist_ok=True)
+    old_prep = threading.Thread(target=_build.compile_many, args=({"old_prep": (
+        _build.CSRC / "fused_actor_critic_wgmma.cu", OLD_PREP_LIB, ("-DPROBE_OLD_PREP",))},))
+    old_prep.start()
     secs, reports = _build.timed_build()
-    print(f"build: {secs:.2f} s for {sorted(reports)}", flush=True)
+    old_prep.join()
+    check(OLD_PREP_LIB.exists(), "the PROBE_OLD_PREP build failed")
+    print(f"build: {secs:.2f} s for {sorted(reports)}, beside the old prep kernel's", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -2179,6 +2323,7 @@ def run_phases() -> int:
     phase_search(device)
     by_path["search"] = read_launches()
     by_path["league"], cfg_league, ts_league = phase_league(device)
+    phase_handles(device)
     phase_parity(device)
     zero_launches()
     phase_cli(device)

@@ -28,14 +28,19 @@ so each rep must take all 64 optimizer steps, as the run did.  With
 `--weights random` (`--hidden`, `--num-envs`, `--num-steps`) the warm-up
 is the recipe's first update.  Each timed rep starts from the state the
 warm-up left (params, optimizer state, pool, games, opponents and
-generator, saved once), so every rep does the same work; one more rep
-reports the seconds of the rollout, GAE and the epochs, with a
-synchronise around each, and checks kernel A's modes, apart from the
-headline reps.  Agent steps/s = num_envs * num_steps / seconds per
-update.  The run raises unless every metric is finite, the committed
-state's reps took every optimizer step and, on the card, every kernel A
-launch took the route and mode its shape derives, every update launched
-the same kernels, and kernel B launched once a turn.
+generator, saved once, the pool slots' kernel A preparations with it), so
+every rep does the same work; one more rep reports the seconds of the
+rollout, GAE and the epochs, with a synchronise around each, and checks
+kernel A's modes and preparations, apart from the headline reps.  Agent
+steps/s = num_envs * num_steps / seconds per update.  The line gives the
+weight preparations an update (`preparations_per_update`: the CURRENT slot
+once after its write, and any slot the saved state left stale), the
+prepared buffers the pool holds (`prepared_bytes`) and the peak memory.
+The run raises unless every metric is finite, the committed state's reps
+took every optimizer step and, on the card, every kernel A launch took the
+route and mode its shape derives and prepared as its weights called for
+(no slot more than once an update), every update launched the same
+kernels, and kernel B launched once a turn.
 
 `--seed` seeds the env workload's generator (default 0) and the update
 workload's TrainState (default the recipe's).  Entry points run on the
@@ -101,16 +106,27 @@ def synchronize(device) -> None:
 # The mode each wgmma or wide forward should take, derived from its B
 # while `derived_modes` is open: "derived_tile", "derived_cluster",
 # "derived_wide_pass" and "derived_wide_half" beside the counters that
-# `read_launches` returns.
-DERIVED = {"tile": 0, "cluster": 0, "wide_pass": 0, "wide_half": 0}
+# `read_launches` returns; and "derived_prep", the weight preparations the
+# forwards' weights call for.
+DERIVED = {"tile": 0, "cluster": 0, "wide_pass": 0, "wide_half": 0, "prep": 0}
+
+
+def needs_preparation(weights) -> bool:
+    """True if a forward on `weights` prepares them: a plain list always; a
+    `PreparedWeights` handle only if it was never prepared or a write has
+    moved the version counter of a weight it read since (the pool's writes,
+    an optimizer step, a restore)."""
+    return not isinstance(weights, fac.PreparedWeights) or weights.stale()
 
 
 @contextlib.contextmanager
 def derived_modes():
     """While open, each wgmma or wide forward whose mode the wrapper picks
     adds the mode its B gives (`wgmma_mode`, `wide_mode`) to DERIVED.  A
-    launch that names its mode (the kernel phase's) adds nothing.  Keep it
-    out of timed work: it wraps every forward in Python."""
+    launch that names its mode (the kernel phase's) adds nothing.  Each
+    forward of those routes that is not given a prepared buffer adds the
+    preparation its weights call for (`needs_preparation`).  Keep it out of
+    timed work: it wraps every forward in Python."""
     launch = fac._launch
 
     def derived(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None):
@@ -118,6 +134,8 @@ def derived_modes():
             DERIVED[fac.wgmma_mode(obs.shape[0], weights[0].shape[1])] += 1
         elif r == "wide" and mode is None:
             DERIVED["wide_" + fac.wide_mode(obs.shape[0], weights[0].shape[1], with_value)] += 1
+        if r != "mma_sync" and prepared is None and obs.shape[0] > 0:
+            DERIVED["prep"] += needs_preparation(weights)
         return launch(r, weights, obs, mask, with_value, prepared, lib, mode)
 
     fac._launch = derived
@@ -136,7 +154,8 @@ def kernel_launches() -> dict:
 def read_launches() -> dict:
     """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
     by route and by the wgmma and wide routes' modes, its weight
-    preparations, and kernel B; and the modes derived from the forwards' B."""
+    preparations, and kernel B; and the modes derived from the forwards' B
+    and the preparations derived from their weights."""
     return {**kernel_launches(), **{f"derived_{m}": n for m, n in DERIVED.items()}}
 
 
@@ -152,13 +171,17 @@ def zero_launches() -> None:
 
 def check_route(path: str, n: dict, route: str = "wgmma") -> None:
     """Every kernel A launch of the path took `route` (the hidden width's),
-    none another route, each forward prepared its weights once, and the
-    wgmma and wide forwards took the modes their B derive."""
+    none another route, the weights were prepared as often as the forwards'
+    weights called for (`needs_preparation`: once per forward on a plain
+    list, once per written weight version on a handle), and the wgmma and
+    wide forwards took the modes their B derive."""
     others = [r for r in fac.launches_by_route if r != route]
     check(n["fused_actor_critic"] > 0 and n["fused_actor_critic_" + route] == n["fused_actor_critic"]
-          and all(n["fused_actor_critic_" + r] == 0 for r in others)
-          and n["fused_actor_critic_prep"] == n["fused_actor_critic"],
+          and all(n["fused_actor_critic_" + r] == 0 for r in others),
           f"{path}: kernel A's launches did not all take the {route} route: {n}")
+    check(n["fused_actor_critic_prep"] == n["derived_prep"],
+          f"{path}: kernel A prepared its weights {n['fused_actor_critic_prep']} times, its "
+          f"forwards' weights called for {n['derived_prep']}: {n}")
     for r, names in (("wgmma", ("tile", "cluster")), ("wide", ("wide_pass", "wide_half"))):
         modes = {m: n["fused_actor_critic_" + m] for m in names}
         check(sum(modes.values()) == n["fused_actor_critic_" + r]
@@ -402,10 +425,12 @@ def bench_update(slot: str = "static", weights: str = "committed", hidden: int |
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     split, last = {}, {}
     ts = restore_state(saved)
+    stale = sum(h.stale() for h in ts.pool.slots)  # slots whose handle the saved state left stale
     before = read_launches()
     with derived_modes(), timed_calls(ppo, LEARNER_PHASES, split, last, device=dev):
         ts, _ = ppo.update_step(cfg, ts)
     per_update = {k: v - before[k] for k, v in read_launches().items()}
+    prepared_bytes = sum(h.prepared_bytes for h in ts.pool.slots)
     del ts, last
 
     for i, r in enumerate(runs):
@@ -419,6 +444,11 @@ def bench_update(slot: str = "static", weights: str = "committed", hidden: int |
                   f"all at update {at['update']} (approx_kl {at['logged_approx_kl']})")
     if dev.type == "cuda":
         check_route(f"update ({slot})", per_update, fac.route(cfg.hidden))
+        # An update writes CURRENT before its first forward and pushes a
+        # snapshot after its last: each slot's handle prepares at most once.
+        check(per_update["fused_actor_critic_prep"] <= cfg.pool_size + 1,
+              f"{per_update['fused_actor_critic_prep']} weight preparations in an update, more "
+              f"than its {cfg.pool_size + 1} pool slots")
         want_b = cfg.num_steps if cfg.reset_ring_mult > 0 else 0
     else:  # the plain versions run on the CPU and launch nothing
         check(not any(per_update.values()), f"a kernel counted a launch on the CPU: {per_update}")
@@ -439,6 +469,9 @@ def bench_update(slot: str = "static", weights: str = "committed", hidden: int |
         "split_seconds": {"rollout": split["rollout"], "gae": split["_gae"],
                           "epochs": split["_ppo_epochs"]},
         "peak_memory_bytes": peak,
+        "preparations_per_update": per_update["fused_actor_critic_prep"],
+        "slots_stale_at_start": stale,
+        "prepared_bytes": prepared_bytes,
         "launches_per_update": per_update,
         "updates_counted": reps + 1,  # each launched launches_per_update; the warm-up uncounted
         "last_metrics": runs[-1]["metrics"],

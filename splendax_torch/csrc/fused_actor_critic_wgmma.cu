@@ -22,8 +22,9 @@
 // Numerics (3xTF32), as in `fused_actor_critic.cu`: each f32 operand a is
 // split into hi = tf32(a) (cvt.rna) and lo = tf32(a - hi), and a·b is taken
 // as lo·hi + hi·lo + hi·hi.  Every operand the tensor cores read is an exact
-// TF32 value, rounded by cvt.rna beforehand: the weights once per call by
-// `prepare_kernel`, the activations in registers.  A chunk of CHUNK k-steps
+// TF32 value, rounded by cvt.rna beforehand: the weights by `prepare_kernel`
+// (once per weight version where the caller holds a prepared handle, else
+// once a call), the activations in registers.  A chunk of CHUNK k-steps
 // of 8 is summed by `wgmma` from zero into a scratch accumulator, and each
 // chunk's sum is added to the f32 accumulator on the CUDA cores, rounded to
 // nearest: chained over all of K, the tensor cores' own accumulation drifts
@@ -122,8 +123,8 @@
 // B = 8192 with the critic: operations, 125.3 GFLOP of TF32 products (two
 // for each f32 one of layer 1, three elsewhere), 0.2535 ms at 494.7 TFLOP/s.
 // Against the mma_sync kernel (fused_actor_critic.cu), which took these
-// widths up to 1024: the weights are split once a call by the prep kernel,
-// not by every 16- or 32-row block in registers; a block streams 1 / passes
+// widths up to 1024: the weights are split once by the prep kernel, not by
+// every 16- or 32-row block in registers; a block streams 1 / passes
 // of one head's weights, so B = 1024 gives 128 blocks a layer with the
 // critic, not 32-64; and the products are wgmma, not mma.sync.  The wrapper
 // cuts B into launches of at most 32,768 rows (`WIDE_MAX_ROWS`), which caps
@@ -145,6 +146,8 @@
 // (the probe reads them; needs B >= 64).  PROBE_SMEM_EXTRA=<bytes> asks for
 // that much more shared memory in cluster mode, past the card's limit: the
 // launch is refused (tests/test_torch_cuda.py holds the wrapper to raising).
+// PROBE_OLD_PREP builds the earlier weight preparation kernel in place of the
+// one below (chip_smoke.py times the two in one run; both give the same bits).
 
 #include <cstdint>
 #include <cuda.h>
@@ -1335,15 +1338,119 @@ __global__ void __launch_bounds__(OUT_THREADS) wide_heads_kernel(const WideParam
     }
 }
 
-// The split and transpose of aw0, aw1, cw0, cw1: dst[m] = [2][HP][KP_m] with
-// hi = cvt.rna(w) and lo = cvt.rna(w - hi), zeros past K and H.
+// ---------------------------------------------------------------- weight preparation
+//
+// The split and transpose of aw0, aw1, cw0, cw1 (each [K_m, H], row-major):
+// dst[m] = [2][HP][KP_m] with hi = cvt.rna(w) and lo = cvt.rna(w - hi),
+// output-major, zeros past K and H.  The wrapper runs it once per weight
+// version (`fused_actor_critic.PreparedWeights`), or once a forward on a
+// plain list of weights.
+//
+// Bound: bytes.  At H = 768 with the critic it reads 6.5 MB and writes
+// 13.2 MB, 0.0059 ms at 3.35 TB/s; no arithmetic to speak of.  So the
+// design is about bytes in flight and whole sectors.  A block per 64 x 64
+// tile of a destination matrix (64 k of 64 outputs), the grid enumerating
+// exactly the tiles of the 2 or 4 matrices (no block returns at once);
+// 256 threads of 16 KB of shared memory, so eight blocks fit an SM and at
+// H <= 1280 every tile is resident at once.  Each thread issues its four
+// 16-byte cp.async loads along H before waiting for any (the whole tile,
+// 16 KB a block, in flight), straight into shared memory; a warp's loads
+// are two rows of 256 contiguous bytes.  Rows of a tile past K, and columns
+// past H, are zero-filled by the copy itself (source size 0).  The tile is
+// stored [k][64] with its 16-byte chunks XOR-swizzled by bits 2-4 of k, so
+// that the transposed reads hit 32 banks: a warp reads 4 outputs x 32 k,
+// each thread 4 consecutive k of one output, and writes them as one
+// 16-byte store of hi and one of lo, a warp's stores four rows of 128
+// contiguous bytes each.  Where H is not a multiple of 4 (or a weight is
+// not 16-byte aligned) the loads are 4-byte cp.async into the same layout.
+constexpr int PT = 64;              // a tile: PT k x PT outputs
+constexpr int PREP_THREADS = 256;
+constexpr int PREP_MATS = 4;
+
 struct PrepParams {
-  const float* src[4];  // [K_m, H]
+  const float* src[PREP_MATS];  // [K_m, H]
+  float* dst[PREP_MATS];
+  int K[PREP_MATS], KP[PREP_MATS];
+  int first[PREP_MATS + 1];     // the first tile of each matrix; first[mats] tiles in all
+  int H, HP, mats;
+};
+
+// The float offset of tile element (k, n) in shared memory.
+__device__ __forceinline__ int prep_at(int k, int n) {
+  return k * PT + (((n >> 2) ^ ((k >> 2) & 7)) << 2) + (n & 3);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(PREP_THREADS) prepare_kernel(const PrepParams p) {
+  __shared__ __align__(16) float tile[PT * PT];
+  const int b = blockIdx.x;
+  int m = 0;
+  while (m + 1 < p.mats && b >= p.first[m + 1]) ++m;
+  const int K = p.K[m], KP = p.KP[m], k_tiles = (KP + PT - 1) / PT;
+  const int r = b - p.first[m], k0 = r % k_tiles * PT, n0 = r / k_tiles * PT;
+  const float* src = p.src[m];
+  const int tid = threadIdx.x;
+  if (VEC) {
+#pragma unroll
+    for (int i = 0; i < PT * PT / 4 / PREP_THREADS; ++i) {
+      const int c = i * PREP_THREADS + tid, kl = c / (PT / 4), nl = c % (PT / 4) * 4;
+      const int k = k0 + kl, n = n0 + nl;
+      const bool in = k < K && n < p.H;
+      cp_async16(smem_u32(tile + prep_at(kl, nl)), in ? src + (size_t)k * p.H + n : src,
+                 in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < PT * PT / PREP_THREADS; ++i) {
+      const int c = i * PREP_THREADS + tid, kl = c / PT, nl = c % PT;
+      const int k = k0 + kl, n = n0 + nl;
+      const bool in = k < K && n < p.H;
+      cp_async4(smem_u32(tile + prep_at(kl, nl)), in ? src + (size_t)k * p.H + n : src,
+                in ? 4 : 0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  float* hi = p.dst[m];
+  float* lo = hi + (size_t)p.HP * KP;
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int i = 0; i < PT * PT / 4 / PREP_THREADS; ++i) {
+    // 32 (group of 4 outputs, half of the k) pairs, one a warp at a time.
+    const int pair = i * (PREP_THREADS / 32) + warp;
+    const int nl = (pair >> 1) * 4 + (lane >> 3), kl = (pair & 1) * (PT / 2) + (lane & 7) * 4;
+    const int n = n0 + nl, k = k0 + kl;
+    if (n >= p.HP || k >= KP) continue;
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split(tile[prep_at(kl + j, nl)], h[j], l[j]);
+    const size_t o = (size_t)n * KP + k;
+    *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+#ifdef PROBE_OLD_PREP
+// The earlier preparation kernel, for the kernel phase to time beside the
+// one above: 32 x 32 tiles moved by 32 x 8 threads in 4-byte loads and
+// stores, a grid sized by the larger K of the two layers.
+struct OldPrepParams {
+  const float* src[4];
   float* dst[4];
   int K[4], KP[4];
 };
 
-__global__ void prepare_kernel(const PrepParams p, int H) {
+__global__ void old_prepare_kernel(const OldPrepParams p, int H) {
   __shared__ float tile[32][33];
   const int m = blockIdx.z, K = p.K[m], KP = p.KP[m], HP = pad8(H);
   const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
@@ -1364,6 +1471,7 @@ __global__ void prepare_kernel(const PrepParams p, int H) {
     lo[(size_t)n * KP + k] = __uint_as_float(l);
   }
 }
+#endif
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no -lcuda.
@@ -1493,18 +1601,43 @@ cudaLaunchConfig_t cluster_config(int tiles, int groups, int heads, size_t smem,
 extern "C" int fused_actor_critic_wgmma_prepare(const void* const* weights, int H, int critic,
                                                 void* prepared, void* stream) {
   if (H < 1) return (int)cudaErrorInvalidValue;
-  PrepParams p;
+  if ((uintptr_t)prepared % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const int src[4] = {0, 2, 6, 8};
+#ifdef PROBE_OLD_PREP
+  OldPrepParams o;
   for (int m = 0; m < 4; ++m) {
+    o.src[m] = (const float*)weights[src[m]];
+    o.dst[m] = (float*)prepared + prepared_offset(H, m);
+    o.K[m] = m & 1 ? H : OBS;
+    o.KP[m] = m & 1 ? pad16(H) : K1P;
+  }
+  const int kmax = K1P > pad16(H) ? K1P : pad16(H);
+  const dim3 grid((kmax + 31) / 32, (pad8(H) + 31) / 32, critic ? 4 : 2);
+  old_prepare_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(o, H);
+  return (int)cudaGetLastError();
+#else
+  PrepParams p;
+  p.H = H;
+  p.HP = pad8(H);
+  p.mats = critic ? 4 : 2;
+  bool vec = H % 4 == 0;
+  int tiles = 0;
+  for (int m = 0; m < p.mats; ++m) {
     p.src[m] = (const float*)weights[src[m]];
     p.dst[m] = (float*)prepared + prepared_offset(H, m);
     p.K[m] = m & 1 ? H : OBS;
     p.KP[m] = m & 1 ? pad16(H) : K1P;
+    p.first[m] = tiles;
+    tiles += (p.KP[m] + PT - 1) / PT * ((p.HP + PT - 1) / PT);
+    vec = vec && (uintptr_t)p.src[m] % 16 == 0;
   }
-  const int kmax = K1P > pad16(H) ? K1P : pad16(H);
-  const dim3 grid((kmax + 31) / 32, (pad8(H) + 31) / 32, critic ? 4 : 2);
-  prepare_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(p, H);
+  p.first[p.mats] = tiles;
+  if (vec)
+    prepare_kernel<true><<<tiles, PREP_THREADS, 0, (cudaStream_t)stream>>>(p);
+  else
+    prepare_kernel<false><<<tiles, PREP_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+#endif
 }
 
 // obs int32 [B, 297], mask uint8 [B, 45], weights as listed in Params (the

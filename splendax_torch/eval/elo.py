@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.fused_actor_critic import PreparedWeights
 
 ELO_SCALE = 400.0 / np.log(10.0)  # natural-log strength -> Elo points
 
@@ -57,7 +58,8 @@ def pool_round_robin(stack, n_entries: int, n_games: int = 100, seed: int = 0,
     device = resolve_device(device)
     labels = labels or [f"snap{i}" for i in range(n_entries)]
     assert len(labels) == n_entries
-    policies = [(_greedy_model_fn, [w[i].to(device).contiguous() for w in stack])
+    policies = [(_greedy_model_fn,
+                 PreparedWeights([w[i].to(device).contiguous() for w in stack]))
                 for i in range(n_entries)]
 
     score = np.zeros((n_entries, n_entries))

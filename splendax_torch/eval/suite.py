@@ -30,7 +30,7 @@ from ..engine.encode import encode_observation
 from ..engine.state import TURN_LIMIT, GameState
 from ..env import core
 from ..models import actor_critic as ac
-from ..ops.fused_actor_critic import fused_masked_forward
+from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward
 from ..selfplay import dual
 from ..selfplay.opponents import DEVICE_POLICIES
 
@@ -58,11 +58,13 @@ def is_privileged(policy: PolicySpec) -> bool:
 
 
 def model_greedy_policy(params: ac.ActorCritic) -> PolicySpec:
-    return (_greedy_model_fn, ac.kernel_weights(params))
+    """The greedy policy of `params`; its weights a handle, prepared once
+    for all the games it plays."""
+    return (_greedy_model_fn, PreparedWeights(ac.kernel_weights(params)))
 
 
 def model_sampling_policy(params: ac.ActorCritic) -> PolicySpec:
-    return (_sampling_model_fn, ac.kernel_weights(params))
+    return (_sampling_model_fn, PreparedWeights(ac.kernel_weights(params)))
 
 
 _HEURISTIC_FNS: Dict[str, Callable] = {}

@@ -29,16 +29,23 @@ so float64 weights give the reference.
 Counters: `launches` counts forwards that launched a kernel (one each),
 `launches_by_route` splits them by route, `launches_by_mode` splits the
 `wgmma` route's by mode, `launches_by_wide_mode` the `wide` route's, and
-`prep_launches` counts the weight preparations
+`prep_launches` counts the launches of the weight preparation
 of the `wgmma` and `wide` routes; `launch_counts()` reads them all.
 
 `weights` is the list of the 12 weight and bias tensors in the JAX package's
 layout, [in, out]: aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2
-(`models.actor_critic.kernel_weights` builds it).
+(`models.actor_critic.kernel_weights` builds it), or a `PreparedWeights`
+handle of them.  A plain list is prepared again by every forward on the
+card; a handle keeps its preparation until one of the weights it read is
+written (their version counters move), so a forward pays for the
+preparation once per weight version.  Whoever owns the weights builds the
+handle: the opponent pool (one a slot), the eval policies, the search
+contexts, the host policies.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import functools
 
@@ -204,6 +211,111 @@ def prepare_weights_plain(weights, with_value: bool = True) -> torch.Tensor:
     return out
 
 
+# The weights a preparation reads: aw0, aw1, cw0, cw1.
+PREPARED_INDICES = (0, 2, 6, 8)
+
+
+def read_versions(weights) -> tuple:
+    """The version counters of the four weights a preparation reads.  Every
+    in-place write to a tensor moves its counter, and a view shares its
+    base's: a write through any view of the same base moves it too."""
+    return tuple(weights[i]._version for i in PREPARED_INDICES)
+
+
+class PreparedWeights(tuple):
+    """Kernel A's 12 weights with their preparation, made once per weight
+    version.  A tuple of the 12 tensors, so it reads as the plain list does;
+    it holds them, so their storage cannot be reused under it.  Beside them
+    it keeps the prepared buffer and the version counters of the four
+    weights that buffer was made from (`read_versions`).
+
+    Every forward on the card takes `buffer()`, which prepares again, and
+    counts it in `preparations`, whenever one of those counters differs from
+    the recorded one: no in-place write to the weights (`copy_`, an
+    optimizer's `_foreach_` step, a write through another view of the same
+    base) leaves a forward on a stale buffer.  The buffer is prepared with
+    the critic and serves the forwards without it too, which read only the
+    actor's half: those bits do not depend on `with_value`.
+
+    The preparation runs on the current stream.  A forward on another stream
+    waits for it and marks the buffer as in use there.  A copy (`deepcopy`)
+    holds copies of the weights and keeps the preparation only where it was
+    current; a pickled handle comes back unprepared."""
+
+    def __new__(cls, weights):
+        self = super().__new__(cls, weights)
+        if len(self) != 12:
+            raise ValueError("weights must hold 12 tensors")
+        self._buffer = None
+        self._versions = None
+        self._ready = None  # (stream, event) of the preparation on the card
+        self.preparations = 0
+        return self
+
+    def stale(self) -> bool:
+        """True if the next forward prepares: the handle was never prepared,
+        or one of the weights it read was written since."""
+        return self._buffer is None or self._versions != read_versions(self)
+
+    def buffer(self, lib=None) -> torch.Tensor:
+        """The prepared weights (`prepare_weights` with the critic), prepared
+        again first if `stale()`; `lib` as `prepare_weights` takes it."""
+        if self.stale():
+            versions = read_versions(self)
+            self._buffer = prepare_weights(self, True, lib)
+            self._versions = versions
+            self.preparations += 1
+            self._mark_ready()
+        elif self._ready is not None:
+            stream, event = self._ready
+            here = torch.cuda.current_stream(self._buffer.device)
+            if here != stream:
+                here.wait_event(event)
+                self._buffer.record_stream(here)
+        return self._buffer
+
+    @property
+    def prepared_bytes(self) -> int:
+        """Bytes of the prepared buffer this handle holds (0 before its
+        first preparation)."""
+        return 0 if self._buffer is None else 4 * self._buffer.numel()
+
+    def carry(self, before: tuple) -> None:
+        """Keep the preparation across a write that left this handle's weights
+        as they were but moved their counters (a write to another slot of
+        the same stacked tensors): if the handle was current at `before`,
+        the counters just before that write, record them as they are now.
+        A handle that was stale before stays stale."""
+        if self._buffer is not None and self._versions == before:
+            self._versions = read_versions(self)
+
+    def take_preparation(self, other: "PreparedWeights", memo=None) -> None:
+        """Take a copy of `other`'s preparation, where this handle's weights
+        are copies of `other`'s made just now; nothing if `other` was
+        stale."""
+        if other.stale():
+            return
+        self._buffer = copy.deepcopy(other._buffer, memo)
+        self._versions = read_versions(self)
+        self._mark_ready()
+
+    def _mark_ready(self) -> None:
+        self._ready = None
+        if self._buffer.is_cuda:
+            stream = torch.cuda.current_stream(self._buffer.device)
+            event = torch.cuda.Event()
+            event.record(stream)
+            self._ready = (stream, event)
+
+    def __deepcopy__(self, memo):
+        out = PreparedWeights(copy.deepcopy(tuple(self), memo))
+        out.take_preparation(self, memo)
+        return out
+
+    def __reduce__(self):
+        return PreparedWeights, (tuple(self),)
+
+
 def masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Illegal actions -> -1e9; rows with no legal action left unmasked."""
     any_legal = mask.any(-1, keepdim=True)
@@ -309,7 +421,9 @@ def _check(weights, obs, mask):
 def fused_masked_forward(weights, obs: torch.Tensor, mask: torch.Tensor, with_value: bool = True):
     """(weights, int32 obs [B, 297], bool mask [B, 45]) -> (masked logits
     f32 [B, 45], value f32 [B], or None when `with_value` is False, which
-    skips the critic)."""
+    skips the critic).  `weights` is a list of the 12 tensors, prepared
+    again by this call on the card, or a `PreparedWeights`, prepared only
+    if a weight it read was written since its last preparation."""
     if obs.device.type == "cpu":
         return fused_masked_forward_plain(weights, obs, mask, with_value)
     if obs.device.type != "cuda":
@@ -331,8 +445,9 @@ def max_clusters(H: int) -> int:
 def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None, mode=None):
     """One forward on route `r` of checked CUDA inputs, from `lib` (a
     library of `bind`; the library's own build unless given one); the
-    `wgmma` and `wide` routes prepare the weights first unless given
-    `prepared`, and run in the mode their shape gives (`wgmma_mode`,
+    `wgmma` and `wide` routes prepare the weights first (a
+    `PreparedWeights` only where it is stale) unless given `prepared`, and
+    run in the mode their shape gives (`wgmma_mode`,
     `wide_mode`) unless given `mode`.  `route(H)` and the modes name what the path runs;
     a measurement or a test may force another route or mode, or a probe's
     build."""
@@ -353,7 +468,8 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
     value_ptr = value.data_ptr() if with_value else None
     lib = _route_lib(r) if lib is None else lib
     if r != "mma_sync" and prepared is None:
-        prepared = prepare_weights(weights, with_value, lib)
+        prepared = (weights.buffer(lib) if isinstance(weights, PreparedWeights)
+                    else prepare_weights(weights, with_value, lib))
     if r == "wgmma":
         groups = column_groups(H) if mode == "cluster" else 0
         err = lib.fused_actor_critic_wgmma_forward(

@@ -57,7 +57,7 @@ def _rank(n: int, device: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
     state, obs, mask = core.reset(B, g, dev)
     lo, hi = mesh.row_range(B)
-    weights = ac.kernel_weights(ts.params)  # whole, gathered over tp
+    weights = fac.PreparedWeights(ac.kernel_weights(ts.params))  # whole, gathered over tp
     m, k0, horizon = 4, 2, 2
     draws = gumbel.draw_rows(gumbel.draw_inputs(B, m, k0, horizon, g, dev), lo, hi, m, k0)
     search_fn = gumbel.gumbel_search_fn(m=m, k0=k0, horizon=horizon)

@@ -13,9 +13,10 @@ The JAX package nests `vmap` over games, actions and playouts; here the
 engine is batched already, so the nest is one flat lane batch of
 B x 45 x rollouts games.  A network is given as `ctx`, its 12 weights in the
 fused forward's layout (`models.actor_critic.kernel_weights`, or a pool
-slot); every forward runs the fused actor-critic kernel: playout moves
-without the value, leaves with it (the kernel has no critic-only mode, so
-the logits are computed and dropped).
+slot), best as a `PreparedWeights` handle (`as_ctx` builds one), so that a
+search prepares them once; every forward runs the fused actor-critic
+kernel: playout moves without the value, leaves with it (the kernel has no
+critic-only mode, so the logits are computed and dropped).
 
 A search is `fn(ctx, obs, mask, state, generator=None, draws=None)`.  Its
 random inputs come from `generator` unless `draws` gives them: for each ply
@@ -38,18 +39,22 @@ from ..engine.state import GameState
 from ..env import core
 from ..env.core import select
 from ..models import actor_critic as ac
-from ..ops.fused_actor_critic import fused_masked_forward
+from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward
 from ..selfplay.opponents import uniform_legal_action
 
 _NEG = -float("inf")
 
 
 def as_ctx(params):
-    """The fused forward's 12 weights of `params`: an `ActorCritic`, such a
-    list already, or None for a search without a network."""
-    if params is None or isinstance(params, (list, tuple)):
+    """The fused forward's 12 weights of `params` as a `PreparedWeights`
+    handle, which the search context owns: `params` an `ActorCritic`, its 12
+    weights (a handle is kept as it is), or None for a search without a
+    network."""
+    if params is None or isinstance(params, PreparedWeights):
         return params
-    return ac.kernel_weights(params)
+    if isinstance(params, (list, tuple)):
+        return PreparedWeights(params)
+    return PreparedWeights(ac.kernel_weights(params))
 
 
 def repeat_rows(state: GameState, n: int) -> GameState:

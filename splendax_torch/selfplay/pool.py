@@ -19,10 +19,21 @@ slot whole: writing a slot from a tp-sharded model gathers its weights
 (`kernel_weights`), and the PFSP counts are summed over dp as they are
 recorded, so `sample_opponent_idx` reads the global ones.  The per-slot
 launches and their host sync in `pool_greedy_policy` stay per rank.
+
+Each slot's weights are a `PreparedWeights` handle over views of the stack
+(`slot(i)`), so a slot's kernel A preparation is made once per weight
+version, not once a forward.  The views share the stack's version
+counters: a write to one slot moves every slot's counters.  `_write_slot`
+therefore records, for every other slot whose preparation was current just
+before its write, the counters as they are after it; a slot that was stale
+stays stale, so no write hides another.  The handles are built with the
+pool, kept by `replace`, built anew when `replace` is given a new stack,
+and copied with their preparations by `deepcopy`.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -30,7 +41,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.actor_critic import ActorCritic, kernel_weights
-from ..ops.fused_actor_critic import fused_masked_forward
+from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward, read_versions
 from ..parallel import collectives
 from .opponents import first_legal
 
@@ -44,6 +55,13 @@ class OpponentPool:
     # PFSP sampling and reset when a slot is overwritten.
     wins: torch.Tensor  # f32 [pool_size + 1]
     games: torch.Tensor  # f32 [pool_size + 1]
+    # A PreparedWeights a slot over views of `stack`; built from it when None.
+    slots: list = dataclasses.field(default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.slots is None:
+            self.slots = [PreparedWeights([w[i] for w in self.stack])
+                          for i in range(self.pool_size + 1)]
 
     @property
     def pool_size(self) -> int:
@@ -58,12 +76,26 @@ class OpponentPool:
         """Agent win rate per slot; 0.5 below 8 games of evidence."""
         return torch.where(self.games >= 8, self.wins / torch.clamp(self.games, min=1.0), 0.5)
 
-    def slot(self, i: int) -> list:
-        """The 12 weights of slot i."""
-        return [w[i] for w in self.stack]
+    def slot(self, i: int) -> PreparedWeights:
+        """The 12 weights of slot i, views of the stack, as the slot's
+        handle."""
+        return self.slots[i]
 
     def replace(self, **kw) -> "OpponentPool":
+        """The pool with fields replaced; the slots' handles carry over
+        unless `stack` is replaced, which builds them anew."""
+        if "stack" in kw:
+            kw.setdefault("slots", None)
         return dataclasses.replace(self, **kw)
+
+    def __deepcopy__(self, memo):
+        """A copy of the stack and counts, its handles over the copy's views,
+        each with a copy of its slot's preparation where that was current."""
+        out = OpponentPool(copy.deepcopy(self.stack, memo), self.n_snapshots, self.p_current,
+                           copy.deepcopy(self.wins, memo), copy.deepcopy(self.games, memo))
+        for mine, theirs in zip(out.slots, self.slots):
+            mine.take_preparation(theirs, memo)
+        return out
 
 
 def init_pool(model: ActorCritic, pool_size: int, p_current: float = 0.25) -> OpponentPool:
@@ -79,8 +111,15 @@ def init_pool(model: ActorCritic, pool_size: int, p_current: float = 0.25) -> Op
 
 
 def _write_slot(pool: OpponentPool, slot: int, model: ActorCritic) -> OpponentPool:
-    for s, w in zip(pool.stack, kernel_weights(model)):
+    """Write `model`'s weights into `slot`: its handle is stale from now on;
+    every other slot's keeps its preparation if it was current before."""
+    weights = kernel_weights(model)  # on a tp mesh a collective, before any write
+    before = [read_versions(h) for h in pool.slots]
+    for s, w in zip(pool.stack, weights):
         s[slot].copy_(w)
+    for i, h in enumerate(pool.slots):
+        if i != slot:
+            h.carry(before[i])
     wins, games = pool.wins.clone(), pool.games.clone()
     wins[slot] = 0.0
     games[slot] = 0.0

@@ -295,9 +295,9 @@ def frozen_policy_from(params) -> Callable:
     `ActorCritic`), on the params' device: the fused forward at B=1
     without the critic, then the argmax of the masked logits."""
     from ..models.actor_critic import kernel_weights
-    from ..ops.fused_actor_critic import fused_masked_forward
+    from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward
 
-    weights = kernel_weights(params)
+    weights = PreparedWeights(kernel_weights(params))  # prepared once for every move
     device = weights[0].device
 
     def policy(obs, info):

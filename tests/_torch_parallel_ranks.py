@@ -125,6 +125,35 @@ def tp_grads(flat, obs, kw_batch):
             "want_logits": whole(rows[0])[0].detach().numpy()}
 
 
+def tp_handles(kw):
+    """On a tp mesh: the pool's CURRENT handle after `set_current` from the
+    sharded params (the tp gather, new tensors each rollout), prepared once
+    for the rollout, after an in-place write to the shards once more; the
+    frozen slots keep theirs.  Returns whether each buffer was the plain
+    preparation of the whole weights, and the handles' preparations."""
+    from splendax_torch.ops import fused_actor_critic as fac
+    from splendax_torch.selfplay import pool as pool_lib
+
+    cfg = PPOConfig(**kw, dp=1, tp=world_size())
+    ts = ppo.init_train_state(cfg, device="cpu")
+    pool = ts.pool
+    for h in pool.slots:
+        h.buffer()
+    ok = []
+    for step in range(2):
+        with torch.no_grad():
+            for p in ts.params.parameters():
+                p.add_(0.01 * (step + 1))  # this rank's shards, in place
+        whole = ac.kernel_weights(ts.params)  # gathered over tp
+        pool = pool_lib.set_current(pool, ts.params)
+        cur = pool.slot(pool.pool_size)
+        ok.append(cur.stale() and not any(h.stale() for h in pool.slots[:-1]))
+        for _ in range(3):  # the rollout's forwards
+            ok.append(torch.equal(cur.buffer(), fac.prepare_weights_plain(whole)))
+    return {"ok": ok, "preparations": [h.preparations for h in pool.slots],
+            "sharded": ts.params.mesh is not None}
+
+
 def train_cli(argv):
     """`train.train` through its flags on the CPU, the evals stubbed."""
     from splendax_torch.train import train

@@ -227,6 +227,45 @@ def test_derived_modes_counts_the_mode_each_b_derives(monkeypatch):
     bench.zero_launches()
 
 
+def test_derived_prep_counts_what_the_weights_call_for(monkeypatch):
+    """Inside `derived_modes` a forward on a plain list adds one
+    preparation; one on a `PreparedWeights` handle adds one only while the
+    handle is stale (before its first preparation, after a write to a
+    weight it read); a forward given its buffer, on no rows or on the
+    mma_sync route adds none."""
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    def launch(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None):
+        if isinstance(weights, fac.PreparedWeights) and prepared is None:
+            weights.buffer()
+
+    monkeypatch.setattr(fac, "_launch", launch)
+    bench.zero_launches()
+    rng = np.random.RandomState(0)
+    w = [torch.as_tensor(rng.rand(*s).astype(np.float32)) for s in
+         [(297, 16), (16,), (16, 16), (16,), (16, 45), (45,)] * 2]
+    h = fac.PreparedWeights(w)
+    obs = torch.zeros(4, 297)
+    with bench.derived_modes():
+        fac._launch("wgmma", w, obs, None, True)
+        fac._launch("wgmma", h, obs, None, True)
+        fac._launch("wgmma", h, obs, None, False)
+        w[2].add_(1.0)
+        fac._launch("wide", h, obs, None, True)
+        fac._launch("wgmma", h, obs, None, True)
+        fac._launch("wgmma", w, obs, None, True, torch.zeros(1))
+        fac._launch("wgmma", w, torch.zeros(0, 297), None, True)
+        fac._launch("mma_sync", w, obs, None, True)
+    assert bench.read_launches()["derived_prep"] == 3 and h.preparations == 2
+    n = dict(dict.fromkeys(bench.read_launches(), 0), fused_actor_critic=3,
+             fused_actor_critic_wgmma=3, fused_actor_critic_cluster=3, derived_cluster=3,
+             fused_actor_critic_prep=3, derived_prep=3)
+    bench.check_route("plain", n)
+    with pytest.raises(RuntimeError, match="prepared its weights 2 times"):
+        bench.check_route("plain", dict(n, fused_actor_critic_prep=2))
+    bench.zero_launches()
+
+
 def test_bench_imports_no_jax():
     code = ("import sys, splendax_torch.bench; "
             "bad = [m for m in sys.modules if m == 'jax' or m.split('.')[0] == 'splendax']; "

@@ -411,12 +411,13 @@ def test_wgmma_route_zero_weights(cuda, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_value", [True, False])
-@pytest.mark.parametrize("H", [37, 100, 256, 768, 1024, 1280])
+@pytest.mark.parametrize("H", [37, 64, 100, 256, 768, 769, 1024, 1280, 2048])
 def test_prep_kernel_equals_plain_bit_for_bit(cuda, H, with_value):
     """The prep kernel's split and transpose equals `prepare_weights_plain`
     bit for bit (without the critic, on the actor's half, which is all the
-    kernel writes then), at the wgmma route's widths and the wide route's;
-    one launch a call."""
+    kernel writes then), at the wgmma route's widths and the wide route's,
+    ragged (37, 100, 769: 4-byte loads) and 16-byte aligned; one launch a
+    call."""
     w = ac.kernel_weights(ac.params_from_jax(numpy_params(np.random.RandomState(H), H),
                                              device=cuda))
     before = fac.prep_launches
@@ -425,6 +426,53 @@ def test_prep_kernel_equals_plain_bit_for_bit(cuda, H, with_value):
     want = fac.prepare_weights_plain(w, with_value)
     n = want.numel() if with_value else fac.prepared_layout(H)[2][0]
     assert torch.equal(got[:n], want[:n])
+
+
+@pytest.mark.cuda
+def test_prep_kernel_on_a_misaligned_weight(cuda):
+    """A weight 4 bytes off 16-byte alignment takes the kernel's 4-byte
+    loads, to the same bits."""
+    H = 256
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(np.random.RandomState(3), H),
+                                             device=cuda))
+    w[2] = torch.empty(H * H + 1, device=cuda)[1:].view(H, H).copy_(w[2])
+    assert w[2].data_ptr() % 16 == 4
+    assert torch.equal(fac.prepare_weights(w), fac.prepare_weights_plain(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 768, 1024])
+def test_prepared_handle_on_the_card(cuda, H):
+    """A forward on a `PreparedWeights` handle equals the forward on its
+    plain list bit for bit, with and without value and in every mode of
+    its route; the handle prepares once, and again after an in-place write
+    to a weight it read; on another stream it waits for its preparation."""
+    rng = np.random.RandomState(H)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
+    h = fac.PreparedWeights(w)
+    obs = torch.as_tensor(rng.randint(0, 8, size=(1000, 297)).astype(np.int32), device=cuda)
+    mask = torch.as_tensor(rng.rand(1000, 45) < 0.4, device=cuda)
+    r = fac.route(H)
+    modes = fac.launches_by_mode if r == "wgmma" else fac.launches_by_wide_mode
+    before = fac.prep_launches
+    for step in range(2):
+        for with_value in (True, False):
+            for m in modes:
+                got = fac._launch(r, h, obs, mask, with_value, mode=m)
+                want = fac._launch(r, w, obs, mask, with_value, mode=m)
+                assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, want))
+        assert h.preparations == step + 1
+        w[2].add_(1e-3)  # aw1, in place
+    assert fac.prep_launches == before + 2 + 2 * 2 * len(modes)
+    side = torch.cuda.Stream()
+    w[0].mul_(0.5)
+    torch.cuda.synchronize()  # all but the preparation below is done
+    h.buffer()  # prepared on the current stream
+    with torch.cuda.stream(side):
+        got = fac.fused_masked_forward(h, obs, mask)
+    torch.cuda.synchronize()
+    want = fac.fused_masked_forward(w, obs, mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

@@ -238,6 +238,16 @@ def test_tp_update_shards_every_weight(hidden, fleets):
     assert all("tp" in spec["params"][f"{h}.{i}.w"] for h in ("actor", "critic") for i in range(3))
 
 
+def test_tp_gather_prepares_current_once_a_rollout(fleets):
+    """The tp gather's writer: `set_current` from tp-sharded params writes
+    whole gathered weights into CURRENT, whose handle then prepares once
+    for all the rollout's forwards, the plain preparation of the whole
+    weights on each rank; the frozen slots keep their preparations."""
+    for out in fleets(2).call(ranks.tp_handles, TINY):
+        assert out["sharded"] and all(out["ok"]), out
+        assert out["preparations"] == [1, 1, 3], out
+
+
 def test_tp_forward_and_gradients_equal_the_whole_model(fleets):
     """The Megatron forward on two ranks' shards (reduce-scatter between
     the hidden layers, all-reduce of the heads) gives the whole model's
