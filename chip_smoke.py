@@ -35,8 +35,8 @@ Phases, in order; any failure exits non-zero:
      kernel, the plain version and one PyTorch library call for the
      same function at the main path's shapes, on the device clock (the
      summed kernel time under torch.profiler).  Kernel A takes its wgmma
-     route at H <= 768 (held at H = 256 and 768, its tile and cluster modes
-     bit for bit against each other) and its wide route above (held at H = 1024, 1280
+     route at H <= 768 (held at H = 256, 512 and 768 on the committed nets,
+     its tile and cluster modes bit for bit against each other) and its wide route above (held at H = 1024, 1280
      and 2048 on random weights, B = 1 to 8192 with the wide paths' 16, 512
      and 1024, obs of 4097, its pass and half modes bit for bit against each
      other); at each main-path shape both modes of the wgmma kernel, alone
@@ -106,20 +106,30 @@ Phases, in order; any failure exits non-zero:
  18. the committed h1024 net (`runs/ppo_splendor_2b_h1024`) greedy against
      the basic heuristic over 256 games, through the wide route; every
      forward it made is then held against the float64 and float32 plain
-     forwards on the rows it was given, and its other mode bit for bit.
+     forwards on the rows it was given, and its other mode bit for bit;
+ 19. the all-agents Elo ladder (`python -m splendax_torch.eval.ladder`
+     through `main`, with its search rows) on a cut of the committed ladder
+     `runs/elo_ladder.json`: the other pairs given as already played, it
+     plays h256 vs basic, h512 vs h256, h768 vs noble, h1024 vs h768 (32
+     games a seat order) and mc over the h768 net vs basic (8): every
+     committed width and both routes of kernel A.  Each forward is held as
+     in 18 and against the route its width gives, and each pair's z against
+     the committed pair must be within 4.  The kernel phase times the
+     ladder's h512 forward (B = 100, cluster mode) beside addmm.
 
 Every driven path at H <= 768 (4 to 16) must launch kernel A on its wgmma
 route only, in the mode its B derives (`wgmma_mode`: cluster mode up to
 CLUSTER_MAX_ROWS rows, tile mode above), the cluster mode on the pool
 slots, the eval suite, the root prior and the host policies; paths 17 and
-18 on the wide route only, in the mode its B derives (`wide_mode`).  On
+18 on the wide route only, in the mode its B derives (`wide_mode`); path 19
+on each net's own route.  On
 every path the weight preparations must equal those its forwards' weights
 call for (`bench.needs_preparation`): one for each forward on a plain list,
 one for each written weight version on a `PreparedWeights` handle (the
 pool's slots, the eval and host policies, the search contexts).
 
-Phases 9 to 16 run after phase 6 and before phase 7, so the host-clock
-rates (phases 3 to 6 and 9 to 16) are taken before the first
+Phases 9 to 19 run after phase 6 and before phase 7, so the host-clock
+rates (phases 3 to 6 and 9 to 19) are taken before the first
 torch.profiler session of the process, so that no profiler state is left
 behind in them.  A profile of one distillation ply at 737,280 lanes comes
 last.
@@ -297,8 +307,10 @@ def phase_kernels(device) -> dict:
     # 24576 (256 games x 96 Gumbel lanes) and 92160 (256 x 45 x 8 MC lanes).
     # 4096 is a dp=2 rank's agent forward and bootstrap value; 512 a full
     # pool's snapshot slot (12 snapshots share 3/4 of 8192 rows).
-    checked_b = (1, 17, 32, 64, 256, 257, 512, 1024, 2048, 3072, 4096, 8192, 24576, 32768,
-                 92160)
+    # 100 and 50 are the all-agents ladder's games a seat order (nets and
+    # search bots), 8 and 32 its smoke cut's.
+    checked_b = (1, 8, 17, 32, 50, 64, 100, 256, 257, 512, 1024, 2048, 3072, 4096, 8192, 24576,
+                 32768, 92160)
     # Distillation's teacher, at the width it runs (H=768, the recipe's
     # source net), on rows of their own: 184320 lanes (256 games x 45 x 16
     # rollouts, the distill CLI phase) and 737280 (the recipe's 1024-game
@@ -325,6 +337,7 @@ def phase_kernels(device) -> dict:
         return got
 
     for H, src in ((256, "runs/ppo_splendor_2b/ppo_splendor_params.npz"),
+                   (512, "runs/ppo_splendor_2b_h512/ppo_splendor_params.npz"),
                    (768, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz")):
         w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, src), device=device))
         w64 = [t.double() for t in w]
@@ -451,7 +464,9 @@ def phase_kernels(device) -> dict:
                   f"kernel A's wide {m} mode differs from the path's forward at {where}")
         return got
 
-    wide_b = (1, 16, 256, 257, 512, 1024, 4096, 4097, 8192)
+    # 100 and 32 are the all-agents ladder's games a seat order for the
+    # h1024 net and its smoke cut's.
+    wide_b = (1, 16, 32, 100, 256, 257, 512, 1024, 4096, 4097, 8192)
     wide_cases = [(B, False) for B in wide_b] + [(8192, True)]
     err_wide, share_wide, share_wide32, n_wide = 0.0, 0.0, 0.0, 0
     before = dict(fac.launches_by_route)
@@ -570,6 +585,42 @@ def phase_kernels(device) -> dict:
             bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
             checked_against="plain version in float64, rtol/atol 1e-5; the other mode bit for bit",
             by_shape=shapes if m == "tile" else "as fused_actor_critic_tile")
+
+    # The all-agents ladder's greedy forward of the committed h512 net: B =
+    # 100 (its games a seat order), no value, in the mode B derives, on a
+    # prepared handle as the ladder runs it; each mode alone, the plain
+    # forward and the addmm chain beside it.
+    H_l, B = 512, 100
+    w_l = ac.kernel_weights(ac.import_params_npz(
+        os.path.join(ROOT, "runs/ppo_splendor_2b_h512/ppo_splendor_params.npz"), device=device))
+    obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+    x32 = obs.to(torch.float32)
+    handle = fac.PreparedWeights(w_l)
+    fac.fused_masked_forward(handle, obs, mask, False)  # its one preparation
+    prepared = fac.prepare_weights(w_l, False)
+    ms, host_ms = device_ms(lambda: fac.fused_masked_forward(handle, obs, mask, False), 20)
+    mode_ms = {m: device_ms(lambda: fac._launch("wgmma", w_l, obs, mask, False, prepared,
+                                                mode=m), 20)[0] for m in modes}
+    plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w_l, obs, mask, False), 20)[0]
+
+    def addmm_actor():
+        h = torch.tanh(torch.addmm(w_l[1], x32, w_l[0]))
+        h = torch.tanh(torch.addmm(w_l[3], h, w_l[2]))
+        torch.addmm(w_l[5], h, w_l[4])
+
+    library_ms = device_ms(addmm_actor, 20)[0]
+    bound_ms, bound_by, bound_f32_ms = bound_a(B, H_l, False, l1_products)
+    ladder_row = dict(B=B, H=H_l, with_value=False, mode=fac.wgmma_mode(B, H_l), ms=ms,
+                      mode_ms=mode_ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
+                      host_ms=host_ms)
+    results["fused_actor_critic_cluster"]["ladder_h512"] = ladder_row
+    print(f"kernel A B={B} H={H_l} value=False (the ladder's h512 net on its handle, the path: "
+          f"{ladder_row['mode']}): {ms:.4f} ms; each mode alone "
+          + ", ".join(f"{m} {t:.4f}" for m, t in mode_ms.items()) + f" ms; plain {plain_ms:.4f} "
+          f"ms, addmm chain {library_ms:.4f} ms (device clock); bound {bound_ms:.4f} ms by "
+          f"{bound_by}, {bound_f32_ms:.4f} ms on f32 CUDA cores; host {host_ms:.4f} ms per call",
+          flush=True)
 
     # The prep kernel at H = 768, 1024 and 1280, with and without the
     # critic, beside the earlier prep kernel in turns (new, old, old, new):
@@ -1697,6 +1748,140 @@ def phase_eval_h1024(device) -> dict:
     return launches
 
 
+# The ladder phase's cut of the committed ladder: every committed width,
+# both routes of kernel A, and one search bot.
+LADDER_CUT = ("basic:ppo_2b_h256", "ppo_2b_h256:ppo_2b_h512", "noble:ppo_2b_h768",
+              "ppo_2b_h768:ppo_2b_h1024", "basic:mc_h768")
+
+
+def phase_ladder(device) -> dict:
+    """`python -m splendax_torch.eval.ladder` through `main`, with the
+    search rows, on a cut of the committed ladder (`runs/elo_ladder.json`):
+    a temporary --out holds every other scheduled pair as already played (the
+    committed results), so the ladder plays the LADDER_CUT pairs alone, the
+    nets' at 32 games a seat order and the search bot's at 8.  Every forward
+    is kept; after the counters are read each is held within rtol/atol 1e-5
+    of the float64 plain forward and within F32_PLAIN_SLACK of the float32
+    one on the committed weights, its route's other mode gives it bit for
+    bit, and it took the route its net's width gives (the h1024 net the
+    wide route, the others wgmma).  Each played pair's z against the
+    committed pair (`scripts/torch_ladder_compare.py`) must be within 4."""
+    import importlib.util
+
+    import torch
+
+    from splendax_torch.eval import ladder, suite
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    with open(ladder.COMMITTED) as f:
+        committed = json.load(f)
+    entries = ladder.roster_entries(include_search=True)
+    labels = [label for label, _, _ in entries]
+    is_search = {label: kind == "search" for label, kind, _ in entries}
+    keys = [f"{labels[i]}:{labels[j]}"
+            for i, j in ladder.schedule(labels, is_search, {"ppo_2b_h768", "basic"})]
+    check(set(LADDER_CUT) <= set(keys) <= set(committed["pairs"]),
+          f"ladder: the schedule's {len(keys)} pairs are not the committed ladder's")
+    prior = {k: committed["pairs"][k] for k in keys if k not in LADDER_CUT}
+    seen, secs = [], []
+    launch, h2h = fac._launch, suite.head_to_head
+
+    def kept(r, weights, obs, mask, with_value, *args, **kwargs):
+        out = launch(r, weights, obs, mask, with_value, *args, **kwargs)
+        seen.append((r, weights, obs.clone(), mask.clone(), with_value, out))
+        return out
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        res = h2h(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ladder.json")
+        with open(out, "w") as f:
+            json.dump({"pairs": prior, "privileged": committed["privileged"]}, f)
+        zero_launches()
+        fac._launch, suite.head_to_head = kept, timed
+        try:
+            t0 = time.perf_counter()
+            payload = ladder.main(["--games", "32", "--search-games", "8", "--include-search",
+                                   "--out", out], device=device)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            fac._launch, suite.head_to_head = launch, h2h
+        launches = read_launches()
+    played = [k for k in keys if k in LADDER_CUT]
+    check(len(secs) == len(LADDER_CUT) and set(payload["pairs"]) == set(keys)
+          and payload["partial"] is False and set(payload["elo"]) == set(labels),
+          f"ladder: played {len(secs)} pairs, wrote {len(payload['pairs'])}")
+    for key, s in zip(played, secs):
+        res = payload["pairs"][key]
+        n = 8 if "mc_h768" in key else 32
+        check(res["n"] == 2 * n and all(res[seat]["illegal_action_rate"] == 0
+                                        for seat in ("first_seat", "second_seat")),
+              f"ladder {key}: {res}")
+        print(f"ladder {key}: {n} games a seat order in {s:.3f} s, score "
+              f"{res['score']:.4f}±{res['score_ci95']:.4f}, turns "
+              f"{res['first_seat']['avg_turns']:.2f}/{res['second_seat']['avg_turns']:.2f}",
+              flush=True)
+    # Routes per net: its width's, in the mode each B derives.
+    others = [r for r in fac.launches_by_route if r not in ("wgmma", "wide")]
+    check(len(seen) == launches["fused_actor_critic"] > 0
+          and all(launches["fused_actor_critic_" + r] == 0 for r in others)
+          and launches["fused_actor_critic_wgmma"] > 0 and launches["fused_actor_critic_wide"] > 0
+          and launches["fused_actor_critic_prep"] == launches["derived_prep"],
+          f"ladder: kept {len(seen)} forwards; launches {launches}")
+    for r, names in (("wgmma", ("tile", "cluster")), ("wide", ("wide_pass", "wide_half"))):
+        check(all(launches["fused_actor_critic_" + m] == launches["derived_" + m] for m in names),
+              f"ladder: kernel A's {r} modes are not those its B derive: {launches}")
+    widths, sizes = set(), set()
+    worst, worst32 = 0.0, 0.0
+    for r, weights, obs, mask, with_value, got in seen:
+        H = weights[0].shape[1]
+        where = f"ladder, H={H} B={obs.shape[0]} value={with_value}"
+        check(r == fac.route(H), f"{where}: took the {r} route")
+        widths.add(H)
+        sizes.add(obs.shape[0])
+        w = list(weights)
+        refs = (fac.fused_masked_forward_plain([t.double() for t in w], obs, mask, with_value),
+                fac.fused_masked_forward_plain(w, obs, mask, with_value))
+        for g, ref, f32 in zip(got, *refs):
+            if g is None:
+                continue
+            e64 = ((g.double() - ref).abs() / (1e-5 + 1e-5 * ref.abs())).max().item()
+            e32 = ((g.double() - f32.double()).abs()
+                   / (1e-5 + 1e-5 * f32.double().abs())).max().item()
+            check(torch.isfinite(g).all().item() and e64 <= 1.0 and e32 <= F32_PLAIN_SLACK,
+                  f"{where}: kernel A is {e64:.3f} of the tolerance from float64, "
+                  f"{e32:.3f} from float32")
+            worst, worst32 = max(worst, e64), max(worst32, e32)
+        modes = fac.launches_by_mode if r == "wgmma" else fac.launches_by_wide_mode
+        for m in tuple(modes):
+            forced = fac._launch(r, w, obs, mask, with_value, mode=m)
+            check(all(a is None or torch.equal(a, b) for a, b in zip(got, forced)),
+                  f"{where}: the {r} route's {m} mode differs from the path's forward")
+    check(widths == {256, 512, 768, 1024}, f"ladder: forwards at widths {sorted(widths)}")
+    print(f"ladder: its {len(seen)} forwards (H in {sorted(widths)}, B in {sorted(sizes)}) on "
+          f"the committed weights: {worst:.3f} of the rtol/atol 1e-5 tolerance vs the float64 "
+          f"plain forward, {worst32:.3f} vs float32 (at most {F32_PLAIN_SLACK}); each route's "
+          f"modes bit-equal", flush=True)
+    spec = importlib.util.spec_from_file_location(
+        "torch_ladder_compare", os.path.join(ROOT, "scripts", "torch_ladder_compare.py"))
+    compare = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(compare)
+    for key, s_p, s_r, se, z in compare.pair_z({k: payload["pairs"][k] for k in played},
+                                               committed["pairs"]):
+        print(f"ladder {key}: z = {z:.3f} (port {s_p:.4f}, committed {s_r:.4f}, se {se:.4f})",
+              flush=True)
+        check(abs(z) <= 4.0, f"ladder {key}: |z| = {abs(z):.3f} against the committed pair")
+    print(f"ladder: {len(played)} pairs in {dt:.3f} s ({sum(secs):.3f} s of games); launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def phase_ppo_generic(device) -> float:
     """`ppo_generic` on the port's env, on the card, 2 updates of 4 envs x
     128 steps (the reference defaults), through gymnasium or its stand-ins."""
@@ -2351,6 +2536,7 @@ def run_phases() -> int:
     by_path["bench env"] = bench_paths["bench env"]  # kernel B alone
     by_path["train H=1024, 1280"] = phase_wide(device)
     by_path["eval h1024"] = phase_eval_h1024(device)
+    by_path["ladder"] = phase_ladder(device)  # both routes: checked per net inside
     kern = phase_kernels(device)
     phase_profile(cfg, ts)
     phase_profile(cfg_league, ts_league, label="profile (league slot)")

@@ -689,3 +689,45 @@ def test_refused_wide_launch_raises(cuda, tmp_path):
         fac._launch("wide", w, obs, mask, True, prepared, lib=refused)
     torch.cuda.synchronize()
     assert fac.launch_counts() == counts
+
+
+@pytest.mark.cuda
+def test_ladder_pair_card_plays_the_cpu_games(cuda):
+    """The ladder pair noble vs ppo_1750m_wallmatch (H=256), whose replayed
+    score lay farthest from the committed one: on the card's deals of the
+    ladder's seed for it and of seeds 1-3, the card and the CPU, handed the
+    same deals as a state, play every game the same in both seat orders.
+    Prints noble's points of 200 in `suite.head_to_head` on the card at the
+    ladder's seed and at seeds 1-16, the spread a far score is read against."""
+    from splendax_torch.engine import state as S
+    from splendax_torch.env import core
+    from splendax_torch.eval import ladder, suite
+
+    a, b, n = "noble", "ppo_1750m_wallmatch", 100
+    entries = ladder.roster_entries(include_search=False)
+    labels = [label for label, _, _ in entries]
+    ladder_seed = 1000 * labels.index(a) + labels.index(b)
+    spec = dict((label, (kind, path)) for label, kind, path in entries)
+
+    def policies(device):
+        nets = {b: ac.import_params_npz(spec[b][1], device=device)}
+        return [ladder.build_policy(l, *spec[l], nets, device) for l in (a, b)]
+
+    devs = {"card": cuda, "cpu": torch.device("cpu")}
+    pols = {d: policies(dev) for d, dev in devs.items()}
+    for seed in (ladder_seed, 1, 2, 3):
+        st, _, _ = core.reset(n, torch.Generator(device=cuda).manual_seed(seed), cuda)
+        states = {"card": st, "cpu": S.from_numpy(S.to_numpy(st), device="cpu")}
+        for order in (0, 1):
+            final = {}
+            for d, dev in devs.items():
+                p0, p1 = pols[d] if order == 0 else pols[d][::-1]
+                gen = torch.Generator(device=dev).manual_seed(0)
+                final[d] = suite._play_matches(p0[0], p0[1], p1[0], p1[1], n, gen, "fast",
+                                               state=states[d])[0].cpu()
+            assert torch.equal(final["card"], final["cpu"]), (seed, order)
+    points = [(lambda r: r["wins"] + 0.5 * r["draws"])(
+        suite.head_to_head(*pols["card"], n, seed=s, device=cuda))
+        for s in (ladder_seed, *range(1, 17))]
+    print(f"{a}:{b} on the card, {a}'s points of {2 * n}: seed {ladder_seed} {points[0]}, "
+          f"seeds 1-16 {points[1:]}")
