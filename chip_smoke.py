@@ -8,14 +8,17 @@ Phases, in order; any failure exits non-zero:
      in parallel) and print the build seconds;
   2. check the engine on the card against the engine on the CPU, ply by
      ply, on identical actions and ring;
-  3. the benchmark, `python -m splendax_torch.bench`, in three processes of
+  3. the benchmark, `python -m splendax_torch.bench`, in seven processes of
      its own: the env workload at `bench.py`'s shape (B=32768 games, uniform
      random legal actions, ring autoreset with a 4096-row window, 400 steps a
-     call, best of 5), and the league recipe's `update_step` without and with
+     call, best of 5), the league recipe's `update_step` without and with
      its search slot (the committed agent run's update 3,812 with a full
-     pool, best of 3, each from the state its warm-up left).  Each JSON line
-     is checked against the bench's contract (keys, shape, no ring overflow,
-     kernel B 6 x 400 launches, every rep all 64 optimizer steps, kernel A in
+     pool, best of 3, each from the state its warm-up left), and the search
+     workload for each of `scripts/time_search.py`'s bots (mc, gumbel, uct,
+     greedy over the h768 net against its greedy policy) cut to 16 games and
+     one timed eval after the warm-up.  Each JSON line is checked against the
+     bench's contract (keys, shape, no ring overflow, kernel B 6 x 400
+     launches, every rep all 64 optimizer steps, no illegal move, kernel A in
      the modes its B derive) and printed; each process's launch counts are
      its path's;
   4. the flagship self-play rollout: 8192 games, hidden 768, pool of 12,
@@ -42,9 +45,9 @@ Phases, in order; any failure exits non-zero:
      other); at each main-path shape both modes of the wgmma kernel, alone
      and with their prep, the mma_sync kernel on the same rows, the plain
      forward and the addmm chain are timed, and so are both modes of the
-     wide route at the wide paths' shapes (H = 1024, B = 16, 256, 1024 and
-     8192; H = 1280, B = 512 and 8192) beside the same yardsticks.  "With
-     the prep" is a forward on a plain list of weights; the paths' handles
+     wide route at the wide paths' shapes (H = 1024, B = 16, 50, 100, 256,
+     1024 and 8192; H = 1280, B = 512 and 8192) beside the same yardsticks.
+     "With the prep" is a forward on a plain list of weights; the paths' handles
      pay the prep once per weight version.  Its prep kernel, and the earlier
      one (built with PROBE_OLD_PREP beside the libraries in phase 1), equal the
      plain preparation bit for bit at H = 64, 256, 768, 769, 1024, 1280 and
@@ -113,28 +116,37 @@ Phases, in order; any failure exits non-zero:
      plays h256 vs basic, h512 vs h256, h768 vs noble, h1024 vs h768 (32
      games a seat order) and mc over the h768 net vs basic (8): every
      committed width and both routes of kernel A.  Each forward is held as
-     in 18 and against the route its width gives, and each pair's z against
-     the committed pair must be within 4.  The kernel phase times the
-     ladder's h512 forward (B = 100, cluster mode) beside addmm.
+     in 18 and against the route its width gives, save that at an output
+     where it lies more than F32_PLAIN_SLACK from the float32 forward it
+     must be the nearer of the two to float64 (`hold_forwards`); each pair's
+     z against the committed pair must be within 4.  The kernel phase times the
+     ladder's h512 forward (B = 100, cluster mode) beside addmm, and the
+     wide route at H = 1024, B = 50 and 100 (half mode);
+ 20. the replay of the committed duels (`python -m
+     splendax_torch.eval.duel_replay` through `main`) on three of its
+     entries at 16 games a seat order: uct against gumbel over the h768 net,
+     the censored Gumbel search at k12 against the censored flat MC, and the
+     s43 league nets (H = 256) against each other.  Each forward is held as
+     in 19 and each file's z against its committed file must be within 4.
 
 Every driven path at H <= 768 (4 to 16) must launch kernel A on its wgmma
 route only, in the mode its B derives (`wgmma_mode`: cluster mode up to
 CLUSTER_MAX_ROWS rows, tile mode above), the cluster mode on the pool
 slots, the eval suite, the root prior and the host policies; paths 17 and
-18 on the wide route only, in the mode its B derives (`wide_mode`); path 19
-on each net's own route.  On
+18 on the wide route only, in the mode its B derives (`wide_mode`); paths 19
+and 20 on each net's own route.  On
 every path the weight preparations must equal those its forwards' weights
 call for (`bench.needs_preparation`): one for each forward on a plain list,
 one for each written weight version on a `PreparedWeights` handle (the
 pool's slots, the eval and host policies, the search contexts).
 
-Phases 9 to 19 run after phase 6 and before phase 7, so the host-clock
-rates (phases 3 to 6 and 9 to 19) are taken before the first
+Phases 9 to 20 run after phase 6 and before phase 7, so the host-clock
+rates (phases 3 to 6 and 9 to 20) are taken before the first
 torch.profiler session of the process, so that no profiler state is left
 behind in them.  A profile of one distillation ply at 737,280 lanes comes
 last.
 
-Prints the card's name and power limit first, the bench's three lines in
+Prints the card's name and power limit first, the bench's seven lines in
 phase 3, a JSON line with each kernel's numbers second to last, and
 `{"ok": true, "device": ...}` last.
 Imports nothing of JAX.
@@ -308,9 +320,16 @@ def phase_kernels(device) -> dict:
     # 4096 is a dp=2 rank's agent forward and bootstrap value; 512 a full
     # pool's snapshot slot (12 snapshots share 3/4 of 8192 rows).
     # 100 and 50 are the all-agents ladder's games a seat order (nets and
-    # search bots), 8 and 32 its smoke cut's.
-    checked_b = (1, 8, 17, 32, 50, 64, 100, 256, 257, 512, 1024, 2048, 3072, 4096, 8192, 24576,
-                 32768, 92160)
+    # search bots), 8 and 32 its smoke cut's.  The duel replay's nets and
+    # greedy bots play 100, 200 and 400 games (400 the league evals' H=256
+    # nets), its smoke cut 16 (its search lanes 1536, 3072 and 5760).
+    checked_b = (1, 8, 16, 17, 32, 50, 64, 100, 200, 256, 257, 400, 512, 1024, 1536, 2048, 3072,
+                 4096, 5760, 8192, 24576, 32768, 92160)
+    # The duel replay's search lanes over the h768 net (its full run on the
+    # card), on rows of their own at that width: Gumbel m16 k6 at 100, 200
+    # and 400 games (9600, 19200, 38400; k12 at 100 games, 19200) and flat
+    # MC r8 (36000, 72000, 144000).
+    search_b = (9600, 19200, 36000, 38400, 72000, 144000)
     # Distillation's teacher, at the width it runs (H=768, the recipe's
     # source net), on rows of their own: 184320 lanes (256 games x 45 x 16
     # rollouts, the distill CLI phase) and 737280 (the recipe's 1024-game
@@ -346,7 +365,7 @@ def phase_kernels(device) -> dict:
         rows = [(B, obs_all, mask_all) for B in checked_b]
         if H == 768:
             obs_big, mask_big = realistic_obs(max(distill_b), 30, seed=H, device=device)
-            rows += [(B, obs_big, mask_big) for B in distill_b]
+            rows += [(B, obs_big, mask_big) for B in search_b + distill_b]
         err_h, shares = 0.0, [0.0, 0.0, 0.0]
         before = dict(fac.launches_by_route)
         for B, obs_src, mask_src in rows:
@@ -516,8 +535,10 @@ def phase_kernels(device) -> dict:
     # = 1, no value), then distillation's teacher: its leaves (with value) and
     # playout moves (no value) at 737280 lanes (the recipe's chunk) and 184320
     # (the CLI phase's; its root prior is the B = 1024 row above), then a dp=2
-    # rank's agent and bootstrap (B = 4096); each beside the addmm chain for
-    # the same rows and heads.  Both modes of the wgmma route are timed at
+    # rank's agent and bootstrap (B = 4096), then the duel replay's search
+    # lanes at 100 games, leaves and playout moves: flat MC r8 (B = 36000) and
+    # Gumbel m16 k6 (B = 9600); each beside the addmm chain for the same rows
+    # and heads.  Both modes of the wgmma route are timed at
     # every shape, each alone and, up to B = 8192, with its prep.
     H = 768
     w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device))
@@ -529,7 +550,8 @@ def phase_kernels(device) -> dict:
     for B, with_value in ((8192, True), (2048, False), (3072, False), (256, False), (512, False),
                           (32768, True), (32768, False), (1024, False), (1, False),
                           (737280, True), (737280, False), (184320, True), (184320, False),
-                          (4096, True), (4096, False)):
+                          (4096, True), (4096, False), (36000, True), (36000, False),
+                          (9600, True), (9600, False)):
         obs_src, mask_src = (obs_big, mask_big) if B in distill_b else (obs_all, mask_all)
         obs, mask = obs_src[:B].contiguous(), mask_src[:B].contiguous()
         x32 = obs.to(torch.float32)
@@ -586,41 +608,45 @@ def phase_kernels(device) -> dict:
             checked_against="plain version in float64, rtol/atol 1e-5; the other mode bit for bit",
             by_shape=shapes if m == "tile" else "as fused_actor_critic_tile")
 
-    # The all-agents ladder's greedy forward of the committed h512 net: B =
-    # 100 (its games a seat order), no value, in the mode B derives, on a
-    # prepared handle as the ladder runs it; each mode alone, the plain
-    # forward and the addmm chain beside it.
-    H_l, B = 512, 100
-    w_l = ac.kernel_weights(ac.import_params_npz(
-        os.path.join(ROOT, "runs/ppo_splendor_2b_h512/ppo_splendor_params.npz"), device=device))
-    obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
-    x32 = obs.to(torch.float32)
-    handle = fac.PreparedWeights(w_l)
-    fac.fused_masked_forward(handle, obs, mask, False)  # its one preparation
-    prepared = fac.prepare_weights(w_l, False)
-    ms, host_ms = device_ms(lambda: fac.fused_masked_forward(handle, obs, mask, False), 20)
-    mode_ms = {m: device_ms(lambda: fac._launch("wgmma", w_l, obs, mask, False, prepared,
-                                                mode=m), 20)[0] for m in modes}
-    plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w_l, obs, mask, False), 20)[0]
+    # Greedy forwards of the committed nets on prepared handles, as the paths
+    # run them, no value, in the mode B derives: the all-agents ladder's h512
+    # net at B = 100 (its games a seat order) and the duel replay's league
+    # evals, an H=256 net at B = 400; each mode alone, the plain forward and
+    # the addmm chain beside it.
+    for key, H_l, B, src in (
+            ("ladder_h512", 512, 100, "runs/ppo_splendor_2b_h512/ppo_splendor_params.npz"),
+            ("replay_h256", 256, 400,
+             "runs/ppo_splendor_500m_search_static_s43/ppo_splendor_params.npz")):
+        w_l = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, src), device=device))
+        check(w_l[0].shape[1] == H_l, f"{src} has hidden {w_l[0].shape[1]}, expected {H_l}")
+        obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
+        x32 = obs.to(torch.float32)
+        handle = fac.PreparedWeights(w_l)
+        fac.fused_masked_forward(handle, obs, mask, False)  # its one preparation
+        prepared = fac.prepare_weights(w_l, False)
+        ms, host_ms = device_ms(lambda: fac.fused_masked_forward(handle, obs, mask, False), 20)
+        mode_ms = {m: device_ms(lambda: fac._launch("wgmma", w_l, obs, mask, False, prepared,
+                                                    mode=m), 20)[0] for m in modes}
+        plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w_l, obs, mask, False), 20)[0]
 
-    def addmm_actor():
-        h = torch.tanh(torch.addmm(w_l[1], x32, w_l[0]))
-        h = torch.tanh(torch.addmm(w_l[3], h, w_l[2]))
-        torch.addmm(w_l[5], h, w_l[4])
+        def addmm_actor(w_l=w_l, x32=x32):
+            h = torch.tanh(torch.addmm(w_l[1], x32, w_l[0]))
+            h = torch.tanh(torch.addmm(w_l[3], h, w_l[2]))
+            torch.addmm(w_l[5], h, w_l[4])
 
-    library_ms = device_ms(addmm_actor, 20)[0]
-    bound_ms, bound_by, bound_f32_ms = bound_a(B, H_l, False, l1_products)
-    ladder_row = dict(B=B, H=H_l, with_value=False, mode=fac.wgmma_mode(B, H_l), ms=ms,
-                      mode_ms=mode_ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
-                      host_ms=host_ms)
-    results["fused_actor_critic_cluster"]["ladder_h512"] = ladder_row
-    print(f"kernel A B={B} H={H_l} value=False (the ladder's h512 net on its handle, the path: "
-          f"{ladder_row['mode']}): {ms:.4f} ms; each mode alone "
-          + ", ".join(f"{m} {t:.4f}" for m, t in mode_ms.items()) + f" ms; plain {plain_ms:.4f} "
-          f"ms, addmm chain {library_ms:.4f} ms (device clock); bound {bound_ms:.4f} ms by "
-          f"{bound_by}, {bound_f32_ms:.4f} ms on f32 CUDA cores; host {host_ms:.4f} ms per call",
-          flush=True)
+        library_ms = device_ms(addmm_actor, 20)[0]
+        bound_ms, bound_by, bound_f32_ms = bound_a(B, H_l, False, l1_products)
+        row = dict(B=B, H=H_l, with_value=False, mode=fac.wgmma_mode(B, H_l), ms=ms,
+                   mode_ms=mode_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
+                   host_ms=host_ms)
+        results["fused_actor_critic_cluster"][key] = row
+        print(f"kernel A B={B} H={H_l} value=False ({key} on its handle, the path: "
+              f"{row['mode']}): {ms:.4f} ms; each mode alone "
+              + ", ".join(f"{m} {t:.4f}" for m, t in mode_ms.items()) + f" ms; plain "
+              f"{plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); bound "
+              f"{bound_ms:.4f} ms by {bound_by}, {bound_f32_ms:.4f} ms on f32 CUDA cores; host "
+              f"{host_ms:.4f} ms per call", flush=True)
 
     # The prep kernel at H = 768, 1024 and 1280, with and without the
     # critic, beside the earlier prep kernel in turns (new, old, old, new):
@@ -660,16 +686,18 @@ def phase_kernels(device) -> dict:
     # The wide route at the wide paths' shapes: H = 1024, B = 1024 with value
     # (the H=1024 train's agent forward and bootstrap) and without (its pool
     # slot), B = 256 without (the h1024 eval's forward), B = 16 without (the
-    # trains' eval), B = 8192 with value; H = 1280, B = 512 with value (its
-    # train's rollout) and B = 8192 with value.  Beside the route on a plain
+    # trains' eval), B = 100 and 50 without (the all-agents ladder's games a
+    # seat order for the nets and for the search pairs), B = 8192 with value;
+    # H = 1280, B = 512 with value (its train's rollout) and B = 8192 with
+    # value.  Beside the route on a plain
     # list (prep + kernel, in the mode B derives), in the same call:
     # each mode alone (weights prepared once) and the other mode with its
     # prep, the mma_sync kernel (`csrc/fused_actor_critic.cu`, H <= 1024
     # only) on the same rows, the plain forward and the addmm chain.
     wides = []
     for H, B, with_value in ((1024, 1024, True), (1024, 1024, False), (1024, 256, False),
-                             (1024, 16, False), (1024, 8192, True), (1280, 512, True),
-                             (1280, 8192, True)):
+                             (1024, 16, False), (1024, 100, False), (1024, 50, False),
+                             (1024, 8192, True), (1280, 512, True), (1280, 8192, True)):
         w_h = random_weights(H)
         obs, mask = obs_all[:B].contiguous(), mask_all[:B].contiguous()
         x32 = obs.to(torch.float32)
@@ -832,22 +860,26 @@ def phase_engine_agreement(device) -> None:
 
 
 # Phase 3's invocations of `python -m splendax_torch.bench`: the env workload
-# at bench.py's shape (its defaults) and the league update with and without
-# its search slot (the committed weights).
+# at bench.py's shape (its defaults), the league update with and without
+# its search slot (the committed weights), and time_search's four bots cut
+# to 16 games and one timed rep.
+SEARCH_BENCH_GAMES = 16
 BENCH_RUNS = {
     "bench env": ("--workload", "env"),
     "bench update none": ("--workload", "update", "--slot", "none"),
     "bench update static": ("--workload", "update", "--slot", "static"),
+    **{f"bench search {bot}": ("--workload", "search", "--bot", bot, "--games",
+                               str(SEARCH_BENCH_GAMES), "--reps", "1")
+       for bot in ("mc", "gumbel", "uct", "greedy")},
 }
 BENCH_COMMON_KEYS = ("metric", "value", "unit", "mean", "median", "per_rep", "backend", "device",
                      "host", "detail")
 
 
 def phase_bench() -> dict:
-    """Phase 3: the benchmark's three invocations (BENCH_RUNS), each a
-    process of its own; each line is checked against the bench's contract
-    and printed.  Returns each invocation's launch counts, as
-    `read_launches` keys them."""
+    """Phase 3: the benchmark's invocations (BENCH_RUNS), each a process of
+    its own; each line is checked against the bench's contract and printed.
+    Returns each invocation's launch counts, as `read_launches` keys them."""
     paths = {}
     for path, args in BENCH_RUNS.items():
         t0 = time.perf_counter()
@@ -871,6 +903,22 @@ def phase_bench() -> dict:
                   f"{path}: kernel B launched {line['ring_take_launches']} times, not 6 x 400")
             paths[path] = dict(dict.fromkeys(read_launches(), 0),
                                ring_take=line["ring_take_launches"])
+        elif path.startswith("bench search"):
+            check(line["metric"] == "search_moves_per_sec" and line["unit"] == "agent moves/s"
+                  and line["bot"] == path.split()[-1] and line["games"] == SEARCH_BENCH_GAMES
+                  and line["seed"] == 7 and line["hidden"] == 768 and len(line["per_rep"]) == 1
+                  and line["evals_counted"] == 2, f"{path}: not time_search's bot, net or seed")
+            check(line["illegal_action_rate"] == 0 and line["agent_moves"] > 0
+                  and 0 < line["turns_played"] <= 100 and line["ms_per_move"] > 0,
+                  f"{path}: illegal moves or no moves: {line['illegal_action_rate']}, "
+                  f"{line['agent_moves']} moves in {line['turns_played']} turns")
+            n = line["launches_per_eval"]
+            check_route(path, n)
+            check(n["ring_take"] == 0 and n["fused_actor_critic_prep"] == 1,
+                  f"{path}: kernel B launched or the bots' handle prepared more than once: {n}")
+            # Each eval launched the warm-up's forwards; only the warm-up prepared.
+            paths[path] = {k: v if k in ("fused_actor_critic_prep", "derived_prep")
+                           else v * line["evals_counted"] for k, v in n.items()}
         else:
             steps = line["optimizer_steps_per_rep"]
             check(line["metric"] == "agent_steps_per_sec" and line["num_envs"] == 8192
@@ -1748,6 +1796,100 @@ def phase_eval_h1024(device) -> dict:
     return launches
 
 
+def keep_forwards(seen: list):
+    """A context in which every kernel A launch whose mode the wrapper picks
+    appends (route, weights, obs, mask, with_value, outputs) to `seen`."""
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    launch = fac._launch
+
+    def kept(r, weights, obs, mask, with_value, *args, **kwargs):
+        out = launch(r, weights, obs, mask, with_value, *args, **kwargs)
+        seen.append((r, weights, obs.clone(), mask.clone(), with_value, out))
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        fac._launch = kept
+        try:
+            yield
+        finally:
+            fac._launch = launch
+
+    return patched()
+
+
+def hold_forwards(seen: list, path: str) -> set:
+    """Each forward kept by `keep_forwards`, on the weights it was given:
+    within rtol/atol 1e-5 of the float64 plain forward, its route's other
+    mode bit for bit, on the route its width gives; and at every output
+    within F32_PLAIN_SLACK of the float32 plain forward, or nearer the
+    float64 forward than the float32 one is.  Both forwards round in
+    float32, each up to about the tolerance off float64 on the search lanes,
+    so they can lie more than the slack apart where the kernel is the nearer
+    to exact.  Prints the worst shares and how many outputs lay beyond the
+    slack; returns the widths seen."""
+    import torch
+
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    def share(a, b):
+        """|a - b| as a share of the rtol/atol 1e-5 tolerance about b."""
+        a, b = a.double(), b.double()
+        return (a - b).abs() / (1e-5 + 1e-5 * b.abs())
+
+    widths, sizes = set(), set()
+    worst, worst32, f32_worst, beyond = 0.0, 0.0, 0.0, 0
+    for r, weights, obs, mask, with_value, got in seen:
+        H = weights[0].shape[1]
+        where = f"{path}, H={H} B={obs.shape[0]} value={with_value}"
+        check(r == fac.route(H), f"{where}: took the {r} route")
+        widths.add(H)
+        sizes.add(obs.shape[0])
+        w = list(weights)
+        refs = (fac.fused_masked_forward_plain([t.double() for t in w], obs, mask, with_value),
+                fac.fused_masked_forward_plain(w, obs, mask, with_value))
+        for g, ref, f32 in zip(got, *refs):
+            if g is None:
+                continue
+            d64, d32, f64 = share(g, ref), share(g, f32), share(f32, ref)
+            apart = d32 > F32_PLAIN_SLACK
+            e64, e32 = d64.max().item(), d32.max().item()
+            check(torch.isfinite(g).all().item() and e64 <= 1.0
+                  and not (apart & (d64 >= f64)).any().item(),
+                  f"{where}: kernel A is {e64:.3f} of the tolerance from float64, {e32:.3f} from "
+                  f"float32 (float32 {f64.max().item():.3f} from float64)")
+            worst, worst32 = max(worst, e64), max(worst32, e32)
+            f32_worst = max(f32_worst, f64.max().item())
+            beyond += int(apart.sum())
+        modes = fac.launches_by_mode if r == "wgmma" else fac.launches_by_wide_mode
+        for m in tuple(modes):
+            forced = fac._launch(r, w, obs, mask, with_value, mode=m)
+            check(all(a is None or torch.equal(a, b) for a, b in zip(got, forced)),
+                  f"{where}: the {r} route's {m} mode differs from the path's forward")
+    print(f"{path}: its {len(seen)} forwards (H in {sorted(widths)}, B in {sorted(sizes)}) on "
+          f"the committed weights: {worst:.3f} of the rtol/atol 1e-5 tolerance vs the float64 "
+          f"plain forward, {worst32:.3f} vs float32 ({beyond} outputs beyond {F32_PLAIN_SLACK}, "
+          f"the kernel nearer float64 at each); the float32 plain forward itself up to "
+          f"{f32_worst:.3f} off float64; each route's modes bit-equal", flush=True)
+    return widths
+
+
+def check_modes(path: str, launches: dict, n_seen: int) -> None:
+    """Every kernel A launch of the path was kept, took the wgmma or the wide
+    route in the mode its B derives, and prepared as its weights called for."""
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    others = [r for r in fac.launches_by_route if r not in ("wgmma", "wide")]
+    check(n_seen == launches["fused_actor_critic"] > 0
+          and all(launches["fused_actor_critic_" + r] == 0 for r in others)
+          and launches["fused_actor_critic_prep"] == launches["derived_prep"],
+          f"{path}: kept {n_seen} forwards; launches {launches}")
+    for r, names in (("wgmma", ("tile", "cluster")), ("wide", ("wide_pass", "wide_half"))):
+        check(all(launches["fused_actor_critic_" + m] == launches["derived_" + m] for m in names),
+              f"{path}: kernel A's {r} modes are not those its B derive: {launches}")
+
+
 # The ladder phase's cut of the committed ladder: every committed width,
 # both routes of kernel A, and one search bot.
 LADDER_CUT = ("basic:ppo_2b_h256", "ppo_2b_h256:ppo_2b_h512", "noble:ppo_2b_h768",
@@ -1760,18 +1902,16 @@ def phase_ladder(device) -> dict:
     a temporary --out holds every other scheduled pair as already played (the
     committed results), so the ladder plays the LADDER_CUT pairs alone, the
     nets' at 32 games a seat order and the search bot's at 8.  Every forward
-    is kept; after the counters are read each is held within rtol/atol 1e-5
-    of the float64 plain forward and within F32_PLAIN_SLACK of the float32
-    one on the committed weights, its route's other mode gives it bit for
-    bit, and it took the route its net's width gives (the h1024 net the
-    wide route, the others wgmma).  Each played pair's z against the
+    is kept; after the counters are read each is held by `hold_forwards`
+    on the committed weights (the float64 and float32 plain forwards, its
+    route's other mode bit for bit) and took the route its net's width gives
+    (the h1024 net the wide route, the others wgmma).  Each played pair's z against the
     committed pair (`scripts/torch_ladder_compare.py`) must be within 4."""
     import importlib.util
 
     import torch
 
     from splendax_torch.eval import ladder, suite
-    from splendax_torch.ops import fused_actor_critic as fac
 
     with open(ladder.COMMITTED) as f:
         committed = json.load(f)
@@ -1784,12 +1924,7 @@ def phase_ladder(device) -> dict:
           f"ladder: the schedule's {len(keys)} pairs are not the committed ladder's")
     prior = {k: committed["pairs"][k] for k in keys if k not in LADDER_CUT}
     seen, secs = [], []
-    launch, h2h = fac._launch, suite.head_to_head
-
-    def kept(r, weights, obs, mask, with_value, *args, **kwargs):
-        out = launch(r, weights, obs, mask, with_value, *args, **kwargs)
-        seen.append((r, weights, obs.clone(), mask.clone(), with_value, out))
-        return out
+    h2h = suite.head_to_head
 
     def timed(*args, **kwargs):
         t0 = time.perf_counter()
@@ -1803,15 +1938,16 @@ def phase_ladder(device) -> dict:
         with open(out, "w") as f:
             json.dump({"pairs": prior, "privileged": committed["privileged"]}, f)
         zero_launches()
-        fac._launch, suite.head_to_head = kept, timed
+        suite.head_to_head = timed
         try:
-            t0 = time.perf_counter()
-            payload = ladder.main(["--games", "32", "--search-games", "8", "--include-search",
-                                   "--out", out], device=device)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            with keep_forwards(seen):
+                t0 = time.perf_counter()
+                payload = ladder.main(["--games", "32", "--search-games", "8", "--include-search",
+                                       "--out", out], device=device)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
         finally:
-            fac._launch, suite.head_to_head = launch, h2h
+            suite.head_to_head = h2h
         launches = read_launches()
     played = [k for k in keys if k in LADDER_CUT]
     check(len(secs) == len(LADDER_CUT) and set(payload["pairs"]) == set(keys)
@@ -1828,46 +1964,11 @@ def phase_ladder(device) -> dict:
               f"{res['first_seat']['avg_turns']:.2f}/{res['second_seat']['avg_turns']:.2f}",
               flush=True)
     # Routes per net: its width's, in the mode each B derives.
-    others = [r for r in fac.launches_by_route if r not in ("wgmma", "wide")]
-    check(len(seen) == launches["fused_actor_critic"] > 0
-          and all(launches["fused_actor_critic_" + r] == 0 for r in others)
-          and launches["fused_actor_critic_wgmma"] > 0 and launches["fused_actor_critic_wide"] > 0
-          and launches["fused_actor_critic_prep"] == launches["derived_prep"],
-          f"ladder: kept {len(seen)} forwards; launches {launches}")
-    for r, names in (("wgmma", ("tile", "cluster")), ("wide", ("wide_pass", "wide_half"))):
-        check(all(launches["fused_actor_critic_" + m] == launches["derived_" + m] for m in names),
-              f"ladder: kernel A's {r} modes are not those its B derive: {launches}")
-    widths, sizes = set(), set()
-    worst, worst32 = 0.0, 0.0
-    for r, weights, obs, mask, with_value, got in seen:
-        H = weights[0].shape[1]
-        where = f"ladder, H={H} B={obs.shape[0]} value={with_value}"
-        check(r == fac.route(H), f"{where}: took the {r} route")
-        widths.add(H)
-        sizes.add(obs.shape[0])
-        w = list(weights)
-        refs = (fac.fused_masked_forward_plain([t.double() for t in w], obs, mask, with_value),
-                fac.fused_masked_forward_plain(w, obs, mask, with_value))
-        for g, ref, f32 in zip(got, *refs):
-            if g is None:
-                continue
-            e64 = ((g.double() - ref).abs() / (1e-5 + 1e-5 * ref.abs())).max().item()
-            e32 = ((g.double() - f32.double()).abs()
-                   / (1e-5 + 1e-5 * f32.double().abs())).max().item()
-            check(torch.isfinite(g).all().item() and e64 <= 1.0 and e32 <= F32_PLAIN_SLACK,
-                  f"{where}: kernel A is {e64:.3f} of the tolerance from float64, "
-                  f"{e32:.3f} from float32")
-            worst, worst32 = max(worst, e64), max(worst32, e32)
-        modes = fac.launches_by_mode if r == "wgmma" else fac.launches_by_wide_mode
-        for m in tuple(modes):
-            forced = fac._launch(r, w, obs, mask, with_value, mode=m)
-            check(all(a is None or torch.equal(a, b) for a, b in zip(got, forced)),
-                  f"{where}: the {r} route's {m} mode differs from the path's forward")
+    check_modes("ladder", launches, len(seen))
+    check(launches["fused_actor_critic_wgmma"] > 0 and launches["fused_actor_critic_wide"] > 0,
+          f"ladder: both routes of kernel A should launch: {launches}")
+    widths = hold_forwards(seen, "ladder")
     check(widths == {256, 512, 768, 1024}, f"ladder: forwards at widths {sorted(widths)}")
-    print(f"ladder: its {len(seen)} forwards (H in {sorted(widths)}, B in {sorted(sizes)}) on "
-          f"the committed weights: {worst:.3f} of the rtol/atol 1e-5 tolerance vs the float64 "
-          f"plain forward, {worst32:.3f} vs float32 (at most {F32_PLAIN_SLACK}); each route's "
-          f"modes bit-equal", flush=True)
     spec = importlib.util.spec_from_file_location(
         "torch_ladder_compare", os.path.join(ROOT, "scripts", "torch_ladder_compare.py"))
     compare = importlib.util.module_from_spec(spec)
@@ -1879,6 +1980,64 @@ def phase_ladder(device) -> dict:
         check(abs(z) <= 4.0, f"ladder {key}: |z| = {abs(z):.3f} against the committed pair")
     print(f"ladder: {len(played)} pairs in {dt:.3f} s ({sum(secs):.3f} s of games); launches "
           f"{launches}", flush=True)
+    return launches
+
+
+# The duel replay phase's cut of `python -m splendax_torch.eval.duel_replay`:
+# PUCT on the card, the censored Gumbel search at k12, and a model eval of
+# the H=256 league nets.
+DUEL_REPLAY_CUT = ("uct_vs_gumbel_h768", "cgumbelfk12_vs_cmc_h768_r5",
+                   "censored_vs_priv_league_s43")
+DUEL_REPLAY_GAMES = 16
+
+
+def phase_duel_replay(device) -> dict:
+    """`python -m splendax_torch.eval.duel_replay` through `main` on the
+    DUEL_REPLAY_CUT entries at 16 games a seat order, into a temporary
+    --out-dir.  Each file holds the committed key at n = 32, and each z
+    against the committed file (`scripts/torch_ladder_compare.py --duel`,
+    from the cut's own CI) is within 4.  Every forward is held as the
+    ladder phase holds its forwards."""
+    import torch
+
+    from splendax_torch.eval import duel_replay
+
+    seen = []
+    argv = [a for name in DUEL_REPLAY_CUT for a in ("--only", name)]
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        with keep_forwards(seen):
+            t0 = time.perf_counter()
+            out = duel_replay.main([*argv, "--games", str(DUEL_REPLAY_GAMES), "--out-dir", tmp],
+                                   device=device)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = read_launches()
+        written = {}
+        for name in DUEL_REPLAY_CUT:
+            with open(os.path.join(tmp, name + ".json")) as f:
+                written[name] = json.load(f)
+    check(list(out["entries"]) == list(DUEL_REPLAY_CUT), f"duel replay: {list(out['entries'])}")
+    for name, row in out["entries"].items():
+        with open(os.path.join(duel_replay.COMMITTED_DIR, name + ".json")) as f:
+            committed = json.load(f)
+        (key, res), = written[name].items()
+        check(key in committed and res["n"] == 2 * DUEL_REPLAY_GAMES and row["seconds"]
+              and all(res[seat]["illegal_action_rate"] == 0
+                      for seat in ("first_seat", "second_seat")),
+              f"duel replay {name}: {key} at n {res['n']}")
+        check(len(row["rows"]) == 1, f"duel replay {name}: rows {row['rows']}")
+        _, s_p, s_r, se, z, proto = row["rows"][0]
+        print(f"duel replay {name} ({row['limit']}): {DUEL_REPLAY_GAMES} games a seat order in "
+              f"{row['seconds']:.3f} s, score {s_p:.4f} against the committed {s_r:.4f} "
+              f"({proto}), se {se:.4f}, z {z:.3f}", flush=True)
+        check(abs(z) <= 4.0, f"duel replay {name}: |z| = {abs(z):.3f} against the committed file")
+    check_modes("duel replay", launches, len(seen))
+    check(launches["fused_actor_critic_wide"] == 0, f"duel replay: a wide launch {launches}")
+    widths = hold_forwards(seen, "duel replay")
+    check(widths == {256, 768}, f"duel replay: forwards at widths {sorted(widths)}")
+    print(f"duel replay: {len(DUEL_REPLAY_CUT)} entries in {dt:.3f} s; launches {launches}",
+          flush=True)
     return launches
 
 
@@ -2537,6 +2696,7 @@ def run_phases() -> int:
     by_path["train H=1024, 1280"] = phase_wide(device)
     by_path["eval h1024"] = phase_eval_h1024(device)
     by_path["ladder"] = phase_ladder(device)  # both routes: checked per net inside
+    by_path["duel replay"] = phase_duel_replay(device)
     kern = phase_kernels(device)
     phase_profile(cfg, ts)
     phase_profile(cfg_league, ts_league, label="profile (league slot)")

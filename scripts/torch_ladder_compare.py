@@ -2,7 +2,7 @@
 """Hold the port's Elo ladder against a committed one.
 
     python3 scripts/torch_ladder_compare.py [PORT_JSON] [REFERENCE_JSON] \
-        [--leave-out KEY=REASON ...] [--duel]
+        [--leave-out KEY=REASON ...] [--duel] [--no-limit KEY=REASON ...]
 
 PORT_JSON defaults to runs/elo_ladder_torch.json (`python -m
 splendax_torch.eval.ladder`), REFERENCE_JSON to runs/elo_ladder.json (the
@@ -20,8 +20,13 @@ Exits 1 when a limit is broken: more than 10% of the compared pairs with
 |z| > 1.96, a pair with |z| > 4, a refit Elo more than 50 from the
 reference's, or a `privileged` flag that differs.  --leave-out takes a pair
 out of the comparison; the reason is printed beside it.  With --duel the two
-files are `python -m splendax_torch.eval.search_duel` JSONs: each duel both
-hold gets its z, and the limit is |z| <= 4.
+files are `python -m splendax_torch.eval.search_duel` (or `eval.cli
+--both-seats`) JSONs: each duel both hold gets its z, and the limit is
+|z| <= 4.  A result without `n_pairs` comes from the older unpaired
+head-to-head: its floor takes n // 2, the games of one seat order, and the
+row names the reference's protocol ("paired" or "unpaired").  --no-limit
+prints a duel's z with the reason beside it and keeps it out of the exit
+code.
 """
 
 from __future__ import annotations
@@ -68,11 +73,20 @@ def pair_z(port_pairs: dict, ref_pairs: dict) -> list:
     return rows
 
 
+def protocol(result: dict) -> str:
+    """"paired" for a head-to-head on the same deals in both seat orders
+    (it records `n_pairs`), "unpaired" for the older protocol."""
+    return "paired" if "n_pairs" in result else "unpaired"
+
+
 def duel_z(port: dict, ref: dict) -> list:
-    """One row per duel both files hold (`eval/search_duel.py`'s JSON:
-    `{"<tag_a>_vs_<tag_b>": result}`)."""
-    return [z_row(key, *((d[key]["score"], d[key]["score_ci95"], d[key]["n_pairs"])
-                         for d in (port, ref)))
+    """One row (key, s_port, s_ref, se, z, the reference's protocol) per
+    duel both files hold (`eval/search_duel.py`'s JSON: `{"<tag_a>_vs_<tag_b>":
+    result}`).  The se floor's game count is `n_pairs`, or n // 2 where the
+    result lacks it."""
+    return [(*z_row(key, *((d[key]["score"], d[key]["score_ci95"],
+                            d[key].get("n_pairs", d[key]["n"] // 2)) for d in (port, ref))),
+             protocol(ref[key]))
             for key in port if key in ref]
 
 
@@ -126,16 +140,20 @@ def main(argv=None) -> int:
     ap.add_argument("--duel", action="store_true",
                     help="the two files are search duels' JSON: print each duel's z, "
                          "exit 1 above |z| = 4")
+    ap.add_argument("--no-limit", action="append", default=[], metavar="KEY=REASON",
+                    help="--duel: print the duel KEY's z but hold it to no limit, for REASON")
     args = ap.parse_args(argv)
     with open(args.port) as f:
         port = json.load(f)
     with open(args.reference) as f:
         ref = json.load(f)
     if args.duel:
+        no_limit = dict(item.split("=", 1) for item in args.no_limit)
         rows = duel_z(port, ref)
-        for key, s_p, s_r, se, z in rows:
-            print(f"{key}: port {s_p:.4f}, reference {s_r:.4f}, se {se:.4f}, z {z:.3f}")
-        return 1 if not rows or any(abs(r[4]) > Z_MAX for r in rows) else 0
+        for key, s_p, s_r, se, z, proto in rows:
+            print(f"{key}: port {s_p:.4f}, reference {s_r:.4f} ({proto}), se {se:.4f}, z {z:.3f}"
+                  + (f"; no limit: {no_limit[key]}" if key in no_limit else ""))
+        return 1 if not rows or any(abs(r[4]) > Z_MAX for r in rows if r[0] not in no_limit) else 0
     leave_out = dict(item.split("=", 1) for item in args.leave_out)
     out = compare(port, ref, leave_out)
     rows = out["rows"]

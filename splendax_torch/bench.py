@@ -3,6 +3,7 @@
     python -m splendax_torch.bench                                   # env, ring autoreset
     python -m splendax_torch.bench --naive-reset                     # env, full-batch reset
     python -m splendax_torch.bench --workload update --slot static   # the league recipe
+    python -m splendax_torch.bench --workload search --bot gumbel    # a search bot's eval
 
 Workload `env` (the default) is the counterpart of the root `bench.py`:
 env steps/s of B=32,768 games in lockstep, each step a uniform random legal
@@ -41,6 +42,25 @@ took every optimizer step and, on the card, every kernel A launch took the
 route and mode its shape derives and prepared as its weights called for
 (no slot more than once an update), every update launched the same
 kernels, and kernel B launched once a turn.
+
+Workload `search` (`--bot mc|gumbel|uct|greedy`) is the counterpart of
+`scripts/time_search.py`: the bot over the committed h768 net
+(`runs/ppo_splendor_2b_h768`) plays `suite.eval_vs_opponent` against that
+net's greedy policy, `--games` (100) games from seed 7.  The bots are
+time_search's: `mc_search_policy(8, 4)`, `gumbel_search_policy(m=16, k0=6,
+horizon=4)`, `uct_search_policy(64)` and the greedy net itself, all on one
+`PreparedWeights` handle that the opponent shares.  One untimed warm-up eval
+(the kernel builds, first use, the one weight preparation, and kernel A's
+modes derived from its shapes), then `--reps` (2) timed evals; the value is
+the best.  `search_moves_per_sec` is the agent's moves in live games (each
+game's agent moves, summed) over the best eval's seconds; `ms_per_move` is
+that eval's seconds over the turns its loop ran (`turns_played`), which is
+time_search's figure with another denominator: JAX's eval scan always runs
+100 turns, the port's loop stops once no game is active.  The run raises
+unless every agent move was legal, each timed eval launched what the
+warm-up launched (no preparation), the same moves in the same turns, and,
+on the card, every kernel A launch took the wgmma route in the mode its B
+derives.
 
 `--seed` seeds the env workload's generator (default 0) and the update
 workload's TrainState (default the recipe's).  Entry points run on the
@@ -484,6 +504,116 @@ def bench_update(slot: str = "static", weights: str = "committed", hidden: int |
     }
 
 
+# ---------------------------------------------------------------- search workload
+
+SEARCH_BOTS = ("mc", "gumbel", "uct", "greedy")
+SEARCH_SEED = 7  # scripts/time_search.py's eval seed
+
+
+def search_bots(params) -> dict:
+    """scripts/time_search.py's bots over `params` (an `ActorCritic`):
+    {name: (time_search's label, PolicySpec)}, all on one `PreparedWeights`
+    handle, so the net is prepared once for every bot and the greedy
+    opponent.  Building them launches nothing."""
+    from . import search
+    from .eval import suite
+    from .models import actor_critic as ac
+
+    net = fac.PreparedWeights(ac.kernel_weights(params))
+    return {
+        "mc": ("mc(r8,h4)", search.mc_search_policy(8, 4, net)),
+        "gumbel": ("gumbel(m16,k6,h4)", search.gumbel_search_policy(m=16, k0=6, horizon=4,
+                                                                    params=net)),
+        "uct": ("uct(s64)", search.uct_search_policy(64, params=net)),
+        "greedy": ("greedy", (suite._greedy_model_fn, net)),
+    }
+
+
+def bench_search(bot: str, games: int = 100, reps: int = 2, device="cuda",
+                 seed: int = SEARCH_SEED) -> dict:
+    """Agent moves/s of search bot `bot` (SEARCH_BOTS) against the greedy
+    h768 net over `games` games: one untimed warm-up eval with kernel A's
+    modes derived, then `reps` timed evals."""
+    from .eval import suite
+    from .models.actor_critic import import_params_npz
+
+    check(bot in SEARCH_BOTS, f"unknown bot {bot!r}, not one of {SEARCH_BOTS}")
+    dev = resolve_device(device)
+    params = import_params_npz(os.path.join(ROOT, AGENT_NPZ), device=dev)
+    bots = search_bots(params)
+    label, spec = bots[bot]
+    opponent = bots["greedy"][1]
+    last = {}
+
+    def evaluate():
+        """One eval -> (its result, agent moves in live games, turns the
+        loop ran); each game's moves come from `_match`'s checks."""
+        with timed_calls(suite, ["_match"], {}, last, device=dev):
+            res = suite.eval_vs_opponent(spec, opponent, games, seed=seed, device=dev)
+        checks = last["_match"][1][4]
+        return res, int(checks.sum()), int(checks.max())
+
+    before = read_launches()
+    with derived_modes():
+        warm, moves, turns = evaluate()
+    per_eval = {k: v - before[k] for k, v in read_launches().items()}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for _ in range(reps):
+        n0 = kernel_launches()
+        synchronize(dev)
+        t0 = time.perf_counter()
+        res, m, t = evaluate()
+        synchronize(dev)
+        runs.append(dict(seconds=time.perf_counter() - t0, result=res, moves=m, turns=t,
+                         launches={k: v - n0[k] for k, v in kernel_launches().items()}))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+    check(warm["illegal_action_rate"] == 0, f"the warm-up eval played illegal moves: {warm}")
+    for i, r in enumerate(runs):
+        check(r["result"]["illegal_action_rate"] == 0, f"rep {i} played illegal moves: {r}")
+        check((r["moves"], r["turns"]) == (moves, turns),
+              f"rep {i} played {r['moves']} moves in {r['turns']} turns, the warm-up {moves} in "
+              f"{turns}")
+        want = {k: 0 if k == "fused_actor_critic_prep" else per_eval[k] for k in r["launches"]}
+        check(r["launches"] == want, f"rep {i} launched {r['launches']}, the warm-up {per_eval}")
+    if dev.type == "cuda":
+        check_route(f"search ({bot})", per_eval, fac.route(params.hidden))
+        check(per_eval["fused_actor_critic_prep"] == 1,
+              f"the bots' one handle prepared {per_eval['fused_actor_critic_prep']} times")
+    else:  # the plain versions run on the CPU and launch nothing
+        check(not any(per_eval.values()), f"a kernel counted a launch on the CPU: {per_eval}")
+    check(per_eval["ring_take"] == 0, f"an eval launched kernel B {per_eval['ring_take']} times")
+    seconds = [r["seconds"] for r in runs]
+    rates = [moves / dt for dt in seconds]
+    res = runs[-1]["result"]
+    return {
+        "search_moves_per_sec": max(rates),
+        "mean": statistics.mean(rates),
+        "median": statistics.median(rates),
+        "per_rep": rates,
+        "seconds_per_rep": seconds,
+        "ms_per_move": min(seconds) / turns * 1e3,
+        "turns_played": turns,
+        "agent_moves": moves,
+        "bot": bot,
+        "label": label,
+        "games": games,
+        "seed": seed,
+        "reps": reps,
+        "win_rate": res["win_rate"],
+        "win_rate_ci95": res["win_rate_ci95"],
+        "avg_turns": res["avg_turns"],
+        "illegal_action_rate": res["illegal_action_rate"],
+        "privileged": res["privileged"],
+        "peak_memory_bytes": peak,
+        "launches_per_eval": per_eval,  # the warm-up's; each rep's the same without the prep
+        "evals_counted": reps + 1,
+        "hidden": params.hidden,
+    }
+
+
 # ---------------------------------------------------------------- the JSON line
 
 def device_info(dev: torch.device):
@@ -515,11 +645,12 @@ def host_info() -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("env", "update"), default="env")
+    ap.add_argument("--workload", choices=("env", "update", "search"), default="env")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=None,
                     help="env: the generator's seed (0); update: the TrainState's (the recipe's)")
-    ap.add_argument("--reps", type=int, default=None, help="timed reps (env 5, update 3)")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="timed reps (env 5, update 3, search 2)")
     ap.add_argument("--batch", type=int, default=32768, help="env: games in lockstep")
     ap.add_argument("--steps", type=int, default=400, help="env: steps a timed call")
     ap.add_argument("--naive-reset", action="store_true", help="env: full-batch reset, no ring")
@@ -528,7 +659,11 @@ def main(argv=None) -> None:
     ap.add_argument("--hidden", type=int, default=None)
     ap.add_argument("--num-envs", type=int, default=None)
     ap.add_argument("--num-steps", type=int, default=None)
+    ap.add_argument("--bot", choices=SEARCH_BOTS, default=None, help="search: the bot")
+    ap.add_argument("--games", type=int, default=100, help="search: games an eval")
     args = ap.parse_args(argv)
+    if args.workload == "search" and args.bot is None:
+        ap.error(f"--workload search needs --bot, one of {', '.join(SEARCH_BOTS)}")
     dev = resolve_device(args.device)
     common = {"backend": dev.type, "device": device_info(dev), "host": host_info()}
     if args.workload == "env":
@@ -555,6 +690,20 @@ def main(argv=None) -> None:
             + (" (naive reset)" if args.naive_reset else " (ring reset)")
             + f", eager loop of {r['scan_steps']} steps a call, best of {r['reps']} reps "
             + f"(mean {r['steps_per_sec_mean']:,.0f}/s)",
+        }
+    elif args.workload == "search":
+        r = bench_search(args.bot, args.games, args.reps or 2, dev)
+        line = {
+            "metric": "search_moves_per_sec",
+            "value": round(r.pop("search_moves_per_sec"), 1),
+            "unit": "agent moves/s",
+            "mean": round(r.pop("mean"), 1),
+            "median": round(r.pop("median"), 1),
+            **common,
+            **r,
+            "detail": f"{r['label']} vs the greedy h768 net, eval_vs_opponent over {r['games']} "
+            + f"games from seed {r['seed']}, best of {r['reps']} reps after a warm-up: "
+            + f"{r['agent_moves']} agent moves in {r['turns_played']} turns",
         }
     else:
         r = bench_update(args.slot, args.weights, args.hidden, args.num_envs, args.num_steps,

@@ -147,7 +147,9 @@ def _search_policy(args, leaf):
     return make(args.rollouts, args.horizon, leaf), f"{args.algo}(r{args.rollouts},h{args.horizon})"
 
 
-def main(argv=None, device="cuda") -> None:
+def main(argv=None, device="cuda") -> dict:
+    """Run the subcommand, print its lines, write --json-out; returns what
+    --json-out holds."""
     from . import suite
 
     ap = build_parser()
@@ -175,7 +177,7 @@ def main(argv=None, device="cuda") -> None:
             with open(args.json_out, "w") as f:
                 json.dump(league, f, indent=2)
             print(f"wrote {args.json_out}")
-        return
+        return league
     else:
         from ..models.actor_critic import import_params_npz
 
@@ -214,6 +216,7 @@ def main(argv=None, device="cuda") -> None:
         with open(args.json_out, "w") as f:
             json.dump(results, f, indent=2)
         print(f"wrote {args.json_out}")
+    return results
 
 
 if __name__ == "__main__":

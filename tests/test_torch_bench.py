@@ -141,6 +141,63 @@ def test_cli_update_prints_one_json_line():
     assert line["seed"] == 42 and line["update"] == {"update": 1}  # the recipe's seed, update 0 warm
 
 
+SEARCH_KEYS = {"metric", "value", "unit", "mean", "median", "per_rep", "backend", "device", "host",
+               "detail", "seconds_per_rep", "ms_per_move", "turns_played", "agent_moves", "bot",
+               "label", "games", "seed", "reps", "win_rate", "illegal_action_rate",
+               "peak_memory_bytes", "launches_per_eval", "evals_counted", "hidden"}
+
+
+def test_cli_search_prints_one_json_line(capsys, one_thread):
+    """The search workload at a tiny size: one line, its rate from the
+    agent's moves and its ms a move from the turns the loop ran; without
+    --bot the CLI refuses."""
+    bench.main(["--workload", "search", "--bot", "greedy", "--device", "cpu", "--games", "2",
+                "--reps", "1"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert set(line) >= SEARCH_KEYS
+    assert line["metric"] == "search_moves_per_sec" and line["unit"] == "agent moves/s"
+    assert line["bot"] == line["label"] == "greedy" and line["games"] == 2 and line["seed"] == 7
+    assert line["hidden"] == 768 and line["evals_counted"] == 2
+    assert line["illegal_action_rate"] == 0 and 0 <= line["win_rate"] <= 1
+    (s,) = line["seconds_per_rep"]
+    assert line["value"] == round(line["per_rep"][0], 1) > 0
+    assert line["per_rep"][0] == pytest.approx(line["agent_moves"] / s)
+    assert line["ms_per_move"] == pytest.approx(s / line["turns_played"] * 1e3)
+    assert line["turns_played"] <= line["agent_moves"] <= 2 * line["turns_played"]
+    assert not any(line["launches_per_eval"].values())  # the plain forward on the CPU
+    with pytest.raises(SystemExit):
+        bench.main(["--workload", "search", "--device", "cpu"])
+    assert "needs --bot" in capsys.readouterr().err
+
+
+def test_search_bots_are_time_search_s():
+    """The bots' names and privileged flags are those of
+    scripts/time_search.py's bots built by the JAX package on the same npz
+    (building either compiles nothing), and every bot shares one handle."""
+    from splendax.eval import suite as jsuite
+    from splendax.search import gumbel_search_policy, mc_search_policy, uct_search_policy
+    from splendax.train.checkpoint import import_params_npz as jax_npz
+    from splendax_torch.eval import suite as tsuite
+    from splendax_torch.models.actor_critic import import_params_npz
+
+    npz = os.path.join(ROOT, bench.AGENT_NPZ)
+    jparams = jax_npz(npz)
+    jax_bots = {"mc(r8,h4)": mc_search_policy(8, 4, jparams),
+                "gumbel(m16,k6,h4)": gumbel_search_policy(m=16, k0=6, horizon=4, params=jparams),
+                "uct(s64)": uct_search_policy(64, params=jparams),
+                "greedy": jsuite.model_greedy_policy(jparams)}
+    bots = bench.search_bots(import_params_npz(npz, device="cpu"))
+    assert tuple(bots) == bench.SEARCH_BOTS
+    assert [label for label, _ in bots.values()] == list(jax_bots)
+    for label, spec in bots.values():
+        want = jax_bots[label]
+        assert spec[0].__name__ == want[0].__name__, label
+        assert tsuite.is_privileged(spec) == jsuite.is_privileged(want), label
+    assert len({id(spec[1]) for _, spec in bots.values()}) == 1
+
+
 def test_update_reps_do_the_same_work(one_thread):
     """Two reps from one saved state take the same optimizer steps and
     leave the same params, bit for bit, as an update of a fresh state."""

@@ -321,7 +321,7 @@ def test_comparator(compare, committed, tmp_path, capsys):
     duel = os.path.join(ROOT, "runs", "search_duels", "gumbelgf_vs_mc_h768_r5paired.json")
     with open(duel) as f:
         ref = json.load(f)
-    assert [z for *_, z in compare.duel_z(ref, ref)] == [0.0]
+    assert [(r[4], r[5]) for r in compare.duel_z(ref, ref)] == [(0.0, "paired")]
     assert compare.main(["--duel", duel, duel]) == 0
     tag = next(iter(ref))
     shifted = tmp_path / "duel.json"
