@@ -86,6 +86,7 @@ import time
 
 import torch
 
+from . import trace
 from .device import resolve_device
 from .env import core
 from .env import ring as ring_lib
@@ -180,13 +181,10 @@ def read_launches() -> dict:
 
 
 def zero_launches() -> None:
-    fac.launches = 0
-    for counts in (fac.launches_by_route, fac.launches_by_mode, fac.launches_by_wide_mode,
-                   DERIVED):
-        for k in counts:
-            counts[k] = 0
-    fac.prep_launches = 0
-    rt.launches = 0
+    trace.zero("kernel_a.")
+    trace.zero("kernel_b.")
+    for k in DERIVED:
+        DERIVED[k] = 0
 
 
 def check_route(path: str, n: dict, route: str = "wgmma") -> None:

@@ -26,6 +26,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
+
 N = 624
 _M = 397
 _MATRIX_A = 0x9908B0DF
@@ -50,7 +52,8 @@ def _init_by_array(key2: torch.Tensor, keylen: torch.Tensor) -> torch.Tensor:
     [L, 2], keylen int64 [L] (1 or 2) -> mt int64 [L, 624]."""
     L = key2.shape[0]
     dev = key2.device
-    base = torch.as_tensor(np.asarray(_init_genrand_words(), np.int64), device=dev)
+    base = trace.sync("mt19937.init", lambda: torch.as_tensor(
+        np.asarray(_init_genrand_words(), np.int64), device=dev))  # a pageable copy
     mt = [base[i].expand(L) for i in range(N)]
 
     # Pass 1: 624 steps at i = 1..623, then 1 again after the wrap; j cycles
@@ -129,11 +132,12 @@ def randbelow(stream, n: torch.Tensor, active=None):
     block, ptr = stream
     L = n.shape[0]
     ar = torch.arange(L, device=n.device)
-    k = torch.as_tensor(_BITLEN, device=n.device)[n.clamp(0, 5)]
+    k = trace.sync("mt19937.bitlen", lambda: torch.as_tensor(_BITLEN, device=n.device))[
+        n.clamp(0, 5)]  # a pageable copy
     shift = 32 - k
     need = torch.ones_like(n, dtype=torch.bool) if active is None else active.clone()
     r = torch.zeros_like(n)
-    while bool(need.any()):
+    while trace.sync("mt19937.randbelow", need.any().item):
         draw = block[ar, ptr.clamp(max=N - 1)] >> shift
         r = torch.where(need, draw, r)
         ptr = ptr + need.long()

@@ -18,6 +18,7 @@ import functools
 
 import torch
 
+from .. import trace
 from . import data as D
 from . import mt19937
 from .state import GameState, NUM_PLAYERS, TOKEN_CAP, TURN_LIMIT
@@ -271,7 +272,7 @@ def _return_tokens_mt(tokens, bank, k, lo, hi):
     Costs one host read for the lanes over the cap and one per round of
     draws.  Returns (tokens, bank, returned)."""
     returned = torch.zeros_like(k)
-    over = torch.nonzero(k > 0)[:, 0]
+    over = trace.sync("rules.return_mt", lambda: torch.nonzero(k > 0)[:, 0])
     if over.numel() == 0:
         return tokens, bank, returned
     tok, bnk, need = tokens[over], bank[over], k[over]
@@ -282,7 +283,7 @@ def _return_tokens_mt(tokens, bank, k, lo, hi):
         nonzero = tok[:, :5] > 0
         n = nonzero.sum(1)
         active = (done < need) & (n > 0)
-        if not bool(active.any()):
+        if not trace.sync("rules.return_mt", active.any().item):
             break
         stream, r = mt19937.randbelow(stream, torch.clamp(n, min=1), active)
         cum = torch.cumsum(nonzero, 1)
@@ -359,7 +360,8 @@ def apply_action(state: GameState, action: torch.Tensor, rng_mode: str = "fast")
     p = state.to_play.long()
     state = _apply_move(state, a)
     state = _grant_noble(state)
-    state = _auto_return_tokens(state, p, rng_mode)
+    with trace.span("engine.token_return"):
+        state = _auto_return_tokens(state, p, rng_mode)
 
     game_over = state.game_over | (_player_row(state.prestige, p) >= 15)
     move_count = state.move_count + 1

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from . import data as D
 
@@ -90,12 +91,14 @@ def _blank_state_np() -> dict:
 
 
 def blank_batch(B: int, device: torch.device, exclude=()) -> dict:
-    """`_blank_state_np` broadcast to [B, ...] tensors on `device`."""
-    return {
+    """`_blank_state_np` broadcast to [B, ...] tensors on `device`.  On the
+    card each field is a pageable host-to-device copy, which blocks: one
+    `trace.sync` a call."""
+    return trace.sync("state.blank", lambda: {
         k: torch.as_tensor(np.asarray(v), device=device).expand((B,) + np.shape(v)).clone()
         for k, v in _blank_state_np().items()
         if k not in exclude
-    }
+    })
 
 
 def initial_state(B: int, generator: torch.Generator, device="cuda") -> GameState:
@@ -112,8 +115,12 @@ def initial_state(B: int, generator: torch.Generator, device="cuda") -> GameStat
         u = torch.rand(B, n, generator=generator, device=device)
         perm = torch.argsort(u, dim=1).to(torch.int32) + int(D.TIER_OFFSETS[t])
         fields["deck_perm"][:, t, :n] = perm
-        fields["board"][:, t] = perm[:, [n - 1, n - 2, n - 3, n - 4]]
-        fields["deck_count"][:, t] = n - 4
+
+        def deal():  # a list index and a Python number, copied from the host, block
+            fields["board"][:, t] = perm[:, [n - 1, n - 2, n - 3, n - 4]]
+            fields["deck_count"][:, t] = n - 4
+
+        trace.sync("state.deal", deal)
     u = torch.rand(B, D.NUM_NOBLES, generator=generator, device=device)
     fields["noble_ids"] = torch.argsort(u, dim=1)[:, :NUM_NOBLES_VISIBLE].to(torch.int32)
     return GameState(**fields)

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..engine import data as D
 from ..engine import rules
@@ -78,9 +79,9 @@ def _unpack_state(rows: torch.Tensor) -> GameState:
     from the blank state with 4 cards of each tier dealt."""
     B = rows.shape[0]
     fields = blank_batch(B, rows.device, exclude={n for n, _ in _VAR_FIELDS})
-    fields["deck_count"] = (
-        torch.as_tensor(D.TIER_SIZES - 4, device=rows.device).expand(B, 3).clone()
-    )
+    fields["deck_count"] = trace.sync(  # a pageable copy, which blocks
+        "ring.deck_count", lambda: torch.as_tensor(D.TIER_SIZES - 4, device=rows.device)
+    ).expand(B, 3).clone()
     off = 0
     for (name, shape), size in zip(_VAR_FIELDS, _VAR_SIZES):
         fields[name] = rows[:, off : off + size].reshape((B,) + shape).to(torch.int32)

@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..engine import rules
 from ..engine.encode import encode_observation
@@ -110,15 +111,17 @@ def _play_matches(agent_fn, agent_ctx, opp_fn, opp_ctx, n_games: int, generator,
 
     # A full game is at most TURN_LIMIT complete turns.
     for _ in range(TURN_LIMIT):
-        a = agent_fn(agent_ctx, obs, mask, state, generator)
-        next_state, out = dual.dual_step(state, a, opp_policy, rng_mode)
-        checks = checks + active
-        illegal = illegal + (active & out.illegal_agent)
-        final_r = torch.where(active & out.done, out.agent_reward, final_r)
-        state = GameState(**{k: keep(getattr(next_state, k), v) for k, v in state.items()})
-        obs, mask = keep(out.agent_obs, obs), keep(out.action_mask, mask)
-        active = active & ~out.done
-        if not active.any().item():
+        with trace.span("eval.turn"):
+            a = agent_fn(agent_ctx, obs, mask, state, generator)
+            next_state, out = dual.dual_step(state, a, opp_policy, rng_mode)
+            checks = checks + active
+            illegal = illegal + (active & out.illegal_agent)
+            final_r = torch.where(active & out.done, out.agent_reward, final_r)
+            state = GameState(**{k: keep(getattr(next_state, k), v) for k, v in state.items()})
+            obs, mask = keep(out.agent_obs, obs), keep(out.action_mask, mask)
+            active = active & ~out.done
+            playing = trace.sync("eval.active", active.any().item)
+        if not playing:
             break
     last_mover = (state.to_play.long() - 1) % 2
     prestige = state.prestige.gather(1, last_mover[:, None])[:, 0]
@@ -151,14 +154,17 @@ def _match(p0: PolicySpec, p1: PolicySpec, n_games: int, seed: int, rng_mode: st
     """One match from the deals of `seed`; the per-game arrays on the host."""
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     *arrays, still_active = _play_matches(p0[0], p0[1], p1[0], p1[1], n_games, gen, rng_mode)
-    assert not bool(still_active.any()), "game exceeded turn limit?"
-    return [x.cpu().numpy() for x in arrays]
+    arrays, still_active = trace.sync(
+        "eval.result", lambda: ([x.cpu().numpy() for x in arrays], still_active.cpu().numpy()))
+    assert not still_active.any(), "game exceeded turn limit?"
+    return arrays
 
 
 def eval_vs_opponent(agent: PolicySpec, opponent: PolicySpec, n_games: int = 400, seed: int = 0,
                      rng_mode: str = "fast", device="cuda") -> Dict:
     """`agent` as player 0 against `opponent` over n_games fresh deals."""
-    res = summarize(*_match(agent, opponent, n_games, seed, rng_mode, device))
+    with trace.span("eval"):
+        res = summarize(*_match(agent, opponent, n_games, seed, rng_mode, device))
     res["privileged"] = {"agent": is_privileged(agent), "opponent": is_privileged(opponent)}
     return res
 
@@ -181,7 +187,8 @@ def head_to_head(a: PolicySpec, b: PolicySpec, n_games: int = 400, seed: int = 0
     per_seat = []
     pts = []
     for order, (p0, p1) in enumerate(((a, b), (b, a))):
-        fr, *rest = _match(p0, p1, n_games, seed, rng_mode, device)
+        with trace.span("eval"):
+            fr, *rest = _match(p0, p1, n_games, seed, rng_mode, device)
         win_p0 = fr > 0.5
         loss_p0 = fr < -0.5
         draw = ~win_p0 & ~loss_p0

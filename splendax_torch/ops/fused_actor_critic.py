@@ -26,11 +26,14 @@ the plain version, which computes in the weights' dtype: on the committed
 nets the plain float32 version is itself that far from the exact forward,
 so float64 weights give the reference.
 
-Counters: `launches` counts forwards that launched a kernel (one each),
-`launches_by_route` splits them by route, `launches_by_mode` splits the
-`wgmma` route's by mode, `launches_by_wide_mode` the `wide` route's, and
-`prep_launches` counts the launches of the weight preparation
-of the `wgmma` and `wide` routes; `launch_counts()` reads them all.
+Counters (in `splendax_torch.trace`'s registry, read here as module
+attributes): `launches` counts forwards that launched a kernel (one each,
+`kernel_a.launches`), `launches_by_route` splits them by route
+(`kernel_a.route.<route>`), `launches_by_mode` splits the `wgmma` route's by
+mode (`kernel_a.mode.<mode>`), `launches_by_wide_mode` the `wide` route's
+(`kernel_a.wide_mode.<mode>`), and `prep_launches` counts the launches of
+the weight preparation of the `wgmma` and `wide` routes (`kernel_a.prep`);
+`launch_counts()` reads them all.
 
 `weights` is the list of the 12 weight and bias tensors in the JAX package's
 layout, [in, out]: aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2
@@ -51,6 +54,7 @@ import functools
 
 import torch
 
+from .. import trace
 from . import _build
 
 OBS_DIM = 297
@@ -76,11 +80,8 @@ WIDE_HALF_MAX_BLOCKS = 66
 WIDE_OUT_ROWS = 8  # rows of a block of the wide route's output kernel
 WIDE_HEAD_PAD = 48  # the wide route's partial logits a row: 45 padded to six n-tiles of 8
 
-launches = 0
-launches_by_route = {"wgmma": 0, "wide": 0, "mma_sync": 0}
-launches_by_mode = {"tile": 0, "cluster": 0}
-launches_by_wide_mode = {"pass": 0, "half": 0}
-prep_launches = 0
+ROUTES = ("wgmma", "wide", "mma_sync")
+MODES = {"wgmma": ("tile", "cluster"), "wide": ("pass", "half")}
 
 
 def route(H: int) -> str:
@@ -154,13 +155,30 @@ def wide_launch_shape(B: int, H: int, with_value: bool, mode: str) -> dict:
     return {"layers": layer, "heads": (-(-B // WIDE_OUT_ROWS), 1, 1)}
 
 
+def __getattr__(name: str):
+    """The launch counters, read from `splendax_torch.trace`."""
+    if name == "launches":
+        return trace.counter("kernel_a.launches")
+    if name == "prep_launches":
+        return trace.counter("kernel_a.prep")
+    if name == "launches_by_route":
+        return {r: trace.counter("kernel_a.route." + r) for r in ROUTES}
+    if name == "launches_by_mode":
+        return {m: trace.counter("kernel_a.mode." + m) for m in MODES["wgmma"]}
+    if name == "launches_by_wide_mode":
+        return {m: trace.counter("kernel_a.wide_mode." + m) for m in MODES["wide"]}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def launch_counts() -> dict:
     """Every counter of this module, by the names chip_smoke.py reports."""
-    return {"fused_actor_critic": launches,
-            **{f"fused_actor_critic_{r}": n for r, n in launches_by_route.items()},
-            **{f"fused_actor_critic_{m}": n for m, n in launches_by_mode.items()},
-            **{f"fused_actor_critic_wide_{m}": n for m, n in launches_by_wide_mode.items()},
-            "fused_actor_critic_prep": prep_launches}
+    c = trace.counter
+    return {"fused_actor_critic": c("kernel_a.launches"),
+            **{f"fused_actor_critic_{r}": c("kernel_a.route." + r) for r in ROUTES},
+            **{f"fused_actor_critic_{m}": c("kernel_a.mode." + m) for m in MODES["wgmma"]},
+            **{f"fused_actor_critic_wide_{m}": c("kernel_a.wide_mode." + m)
+               for m in MODES["wide"]},
+            "fused_actor_critic_prep": c("kernel_a.prep")}
 
 
 def pad8(n: int) -> int:
@@ -379,7 +397,6 @@ def prepare_weights(weights, with_value: bool = True, lib=None) -> torch.Tensor:
     on a CPU tensor `prepare_weights_plain`."""
     if weights[0].device.type == "cpu":
         return prepare_weights_plain(weights, with_value)
-    global prep_launches
     H = weights[0].shape[1]
     for i, w in enumerate(weights):
         if w.device != weights[0].device or w.dtype != torch.float32 or not w.is_contiguous():
@@ -391,7 +408,7 @@ def prepare_weights(weights, with_value: bool = True, lib=None) -> torch.Tensor:
         _ptrs(weights), H, int(with_value), prepared.data_ptr(), _stream(prepared))
     if err != 0:
         raise RuntimeError(f"fused_actor_critic weight preparation failed: CUDA error {err}")
-    prep_launches += 1
+    trace.count("kernel_a.prep")
     return prepared
 
 
@@ -451,11 +468,10 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
     `wide_mode`) unless given `mode`.  `route(H)` and the modes name what the path runs;
     a measurement or a test may force another route or mode, or a probe's
     build."""
-    global launches
     if r not in SOURCES:
         raise ValueError(f"unknown route {r!r}")
     B, H = obs.shape[0], weights[0].shape[1]
-    modes = {"wgmma": launches_by_mode, "wide": launches_by_wide_mode}.get(r)
+    modes = MODES.get(r)
     if modes is not None:
         if mode is None:
             mode = wgmma_mode(B, H) if r == "wgmma" else wide_mode(B, H, with_value)
@@ -494,8 +510,8 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
                                              _stream(obs))
     if err != 0:
         raise RuntimeError(f"fused_actor_critic {r} kernel launch failed: CUDA error {err}")
-    launches += 1
-    launches_by_route[r] += 1
+    trace.count("kernel_a.launches")
+    trace.count("kernel_a.route." + r)
     if modes is not None:
-        modes[mode] += 1
+        trace.count(("kernel_a.mode." if r == "wgmma" else "kernel_a.wide_mode.") + mode)
     return logits, value

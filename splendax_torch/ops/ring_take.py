@@ -3,7 +3,8 @@
 Counterpart of the TPU kernel `splendax/ops/ring_take.py`.  On a CUDA tensor
 `take_rows` launches the hand-written kernel in `csrc/ring_take.cu`; on a CPU
 tensor it runs `take_rows_plain`, the same function in plain PyTorch, which
-is also what the kernel is held against.  `launches` counts kernel launches.
+is also what the kernel is held against.  `launches` counts kernel launches
+(counter `kernel_b.launches` of `splendax_torch.trace`).
 """
 
 from __future__ import annotations
@@ -13,10 +14,17 @@ import functools
 
 import torch
 
+from .. import trace
 from . import _build
 
 WIDTH = 135  # bytes of a packed game state; the kernel is built for this width
-launches = 0
+
+
+def __getattr__(name: str):
+    """`launches`, read from `splendax_torch.trace`."""
+    if name == "launches":
+        return trace.counter("kernel_b.launches")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def take_rows_plain(packed: torch.Tensor, ptr: torch.Tensor, rank: torch.Tensor, window: int):
@@ -41,7 +49,6 @@ def take_rows(packed: torch.Tensor, ptr: torch.Tensor, rank: torch.Tensor, windo
     int64 [B], all on one device."""
     if packed.device.type == "cpu":
         return take_rows_plain(packed, ptr, rank, window)
-    global launches
     if packed.device.type != "cuda":
         raise ValueError(f"take_rows: unsupported device {packed.device}")
     for name, t, dt in (("packed", packed, torch.int8), ("ptr", ptr, torch.int64), ("rank", rank, torch.int64)):
@@ -62,5 +69,5 @@ def take_rows(packed: torch.Tensor, ptr: torch.Tensor, rank: torch.Tensor, windo
     )
     if err != 0:
         raise RuntimeError(f"ring_take kernel launch failed: CUDA error {err}")
-    launches += 1
+    trace.count("kernel_b.launches")
     return rows

@@ -36,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from .. import trace
 from ..engine import rules as R
 from ..models.actor_critic import gumbel_noise
 from ..ops.fused_actor_critic import fused_masked_forward
@@ -83,83 +84,86 @@ def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float 
 
     @torch.no_grad()
     def fn(ctx, obs, mask, state, generator=None, draws=None, info=None):
-        draws = draws or {}
-        B = mask.shape[0]
-        dev = mask.device
-        me = state.to_play
-        rows = torch.arange(B, device=dev)[:, None]
+        with trace.span("search"):
+            draws = draws or {}
+            B = mask.shape[0]
+            dev = mask.device
+            me = state.to_play
+            rows = torch.arange(B, device=dev)[:, None]
 
-        if ctx is not None:
-            logits, _ = fused_masked_forward(ctx, obs, mask, with_value=False)
-        else:
-            logits = torch.zeros((B, A), device=dev)
-        g = draws["g"] if "g" in draws else gumbel_noise((B, A), generator, dev)
-        gscore = torch.where(mask, g + logits, _NEG)
-        cand = _root_candidates(gscore, logits, mask, m)  # [B, m]
-        cand_live = mask.gather(1, cand)
-        cand_g = gscore.gather(1, cand)  # g + logits, -inf in padded slots
-
-        if determinize_fn is None:
-            # Root children once per candidate: child[b * m + j].
-            child = R.apply_action(repeat_rows(state, m), cand.reshape(-1), rng_mode=rng_mode)
-
-        q_sum = torch.zeros((B, m), device=dev)
-        n_cnt = torch.zeros((B, m), device=dev)
-        alive = cand_live
-        lanes = m * k0  # the lane budget of every round
-        cuts = []  # (scores, slots kept) of every halving
-
-        for r in range(rounds):
-            n_alive = m >> r
-            k_r = lanes // n_alive
-            # Survivors packed into the first n_alive slots, in slot order.
-            order = torch.argsort((~alive).to(torch.int8), dim=-1, stable=True)[:, :n_alive]
-            if determinize_fn is None:
-                lane_child = (rows * m + order).reshape(-1).repeat_interleave(k_r)
-                flat = child.map(lambda x: x[lane_child])
+            if ctx is not None:
+                logits, _ = fused_masked_forward(ctx, obs, mask, with_value=False)
             else:
-                det = determinize_fn(repeat_rows(state, k_r), generator,
-                                     u=draws["det"][r] if "det" in draws else None)
-                # Lane (b, a, k) expands candidate a in world (b, k).
-                world = rows[:, :, None] * k_r + torch.arange(k_r, device=dev)[None, None, :]
-                world = world.expand(B, n_alive, k_r).reshape(-1)
-                act = cand.gather(1, order).repeat_interleave(k_r, dim=1).reshape(-1)
-                flat = R.apply_action(det.map(lambda x: x[world]), act, rng_mode=rng_mode)
-            me_flat = me.repeat_interleave(n_alive * k_r)
-            vals = rollout_values(
-                flat, me_flat, ctx, generator, horizon, rng_mode=rng_mode, guided=guided,
-                draws=draws["playout"][r] if "playout" in draws else None,
-            ).reshape(B, n_alive, k_r)
-            # The survivors' sums go back to their own slots.
-            add_sum = torch.zeros((B, m), device=dev).scatter_add(1, order, sum_last(vals))
-            add_cnt = torch.zeros((B, m), device=dev).scatter_add(
-                1, order, torch.full((B, n_alive), float(k_r), device=dev))
-            q_sum = q_sum + torch.where(alive, add_sum, 0.0)
-            n_cnt = n_cnt + torch.where(alive, add_cnt, 0.0)
+                logits = torch.zeros((B, A), device=dev)
+            g = draws["g"] if "g" in draws else gumbel_noise((B, A), generator, dev)
+            gscore = torch.where(mask, g + logits, _NEG)
+            cand = _root_candidates(gscore, logits, mask, m)  # [B, m]
+            cand_live = mask.gather(1, cand)
+            cand_g = gscore.gather(1, cand)  # g + logits, -inf in padded slots
 
-            if r < rounds - 1:
-                q_hat = q_sum / torch.clamp(n_cnt, min=1.0)
-                score = torch.where(alive, cand_g + c_scale * q_hat, _NEG)
-                keep = m >> (r + 1)
-                # The top `keep` slots by rank, not by a threshold: a tie at
-                # the threshold must not keep extra slots.
-                top = torch.argsort(-score, dim=-1, stable=True)[:, :keep]
-                cuts.append((score, keep))
-                in_top = torch.zeros((B, m), dtype=torch.bool, device=dev).scatter(
-                    1, top, torch.ones_like(top, dtype=torch.bool))
-                alive = alive & in_top
+            if determinize_fn is None:
+                # Root children once per candidate: child[b * m + j].
+                child = R.apply_action(repeat_rows(state, m), cand.reshape(-1), rng_mode=rng_mode)
 
-        # Never a padded slot: alive is a subset of cand_live, and slot 0 is
-        # legal whenever any action is.
-        q_hat = q_sum / torch.clamp(n_cnt, min=1.0)
-        if greedy_final:
-            final = torch.where(alive, q_hat + 1e-3 * logits.gather(1, cand), _NEG)
-        else:
-            final = torch.where(alive, cand_g + c_scale * q_hat, _NEG)
-        best_slot = torch.argmax(final, dim=-1)
-        if info is not None:
-            info.update(cand=cand, alive=alive, q_hat=q_hat, final=final, cuts=cuts)
-        return cand.gather(1, best_slot[:, None])[:, 0]
+            q_sum = torch.zeros((B, m), device=dev)
+            n_cnt = torch.zeros((B, m), device=dev)
+            alive = cand_live
+            lanes = m * k0  # the lane budget of every round
+            cuts = []  # (scores, slots kept) of every halving
+
+            for r in range(rounds):
+                with trace.span("search.round"):
+                    n_alive = m >> r
+                    k_r = lanes // n_alive
+                    # Survivors packed into the first n_alive slots, in slot order.
+                    order = torch.argsort((~alive).to(torch.int8), dim=-1, stable=True)[:, :n_alive]
+                    if determinize_fn is None:
+                        lane_child = (rows * m + order).reshape(-1).repeat_interleave(k_r)
+                        flat = child.map(lambda x: x[lane_child])
+                    else:
+                        det = determinize_fn(repeat_rows(state, k_r), generator,
+                                             u=draws["det"][r] if "det" in draws else None)
+                        # Lane (b, a, k) expands candidate a in world (b, k).
+                        world = (rows[:, :, None] * k_r
+                                 + torch.arange(k_r, device=dev)[None, None, :])
+                        world = world.expand(B, n_alive, k_r).reshape(-1)
+                        act = cand.gather(1, order).repeat_interleave(k_r, dim=1).reshape(-1)
+                        flat = R.apply_action(det.map(lambda x: x[world]), act, rng_mode=rng_mode)
+                    me_flat = me.repeat_interleave(n_alive * k_r)
+                    vals = rollout_values(
+                        flat, me_flat, ctx, generator, horizon, rng_mode=rng_mode, guided=guided,
+                        draws=draws["playout"][r] if "playout" in draws else None,
+                    ).reshape(B, n_alive, k_r)
+                    # The survivors' sums go back to their own slots.
+                    add_sum = torch.zeros((B, m), device=dev).scatter_add(1, order, sum_last(vals))
+                    add_cnt = torch.zeros((B, m), device=dev).scatter_add(
+                        1, order, torch.full((B, n_alive), float(k_r), device=dev))
+                    q_sum = q_sum + torch.where(alive, add_sum, 0.0)
+                    n_cnt = n_cnt + torch.where(alive, add_cnt, 0.0)
+
+                    if r < rounds - 1:
+                        q_hat = q_sum / torch.clamp(n_cnt, min=1.0)
+                        score = torch.where(alive, cand_g + c_scale * q_hat, _NEG)
+                        keep = m >> (r + 1)
+                        # The top `keep` slots by rank, not by a threshold: a tie at
+                        # the threshold must not keep extra slots.
+                        top = torch.argsort(-score, dim=-1, stable=True)[:, :keep]
+                        cuts.append((score, keep))
+                        in_top = torch.zeros((B, m), dtype=torch.bool, device=dev).scatter(
+                            1, top, torch.ones_like(top, dtype=torch.bool))
+                        alive = alive & in_top
+
+            # Never a padded slot: alive is a subset of cand_live, and slot 0 is
+            # legal whenever any action is.
+            q_hat = q_sum / torch.clamp(n_cnt, min=1.0)
+            if greedy_final:
+                final = torch.where(alive, q_hat + 1e-3 * logits.gather(1, cand), _NEG)
+            else:
+                final = torch.where(alive, cand_g + c_scale * q_hat, _NEG)
+            best_slot = torch.argmax(final, dim=-1)
+            if info is not None:
+                info.update(cand=cand, alive=alive, q_hat=q_hat, final=final, cuts=cuts)
+            return cand.gather(1, best_slot[:, None])[:, 0]
 
     censored = determinize_fn is not None
     fn.__name__ = (f"{'censored_' if censored else ''}gumbel_search_m{m}_k{k0}_h{horizon}"

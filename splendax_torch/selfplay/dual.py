@@ -18,6 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import trace
 from ..engine import rules
 from ..engine.encode import encode_observation
 from ..engine.state import GameState
@@ -42,40 +43,43 @@ class DualStepOutput:
 
 
 def _turn(state: GameState, agent_action, opponent_policy: Callable, rng_mode: str):
-    """Both plies of a turn; returns (next_state, output without obs/mask)."""
+    """Both plies of a turn; returns (next_state, output without obs/mask).
+    Each ply is an "engine.ply" span; the opponent's policy runs between."""
     # Phase 1: the agent moves; the opponent acts on its obs and mask.
-    state1, out_a = core.step(state, agent_action, rng_mode=rng_mode)
-    done_a = out_a.terminated
-    # Phase 2 counts only where the game goes on and it is the opponent's
-    # turn (after an illegal agent action the turn ends as a -0.01 no-op).
-    opp_phase = ~done_a & (state1.to_play == 1)
+    with trace.span("engine.ply"):
+        state1, out_a = core.step(state, agent_action, rng_mode=rng_mode)
+        done_a = out_a.terminated
+        # Phase 2 counts only where the game goes on and it is the opponent's
+        # turn (after an illegal agent action the turn ends as a -0.01 no-op).
+        opp_phase = ~done_a & (state1.to_play == 1)
     opp_action = opponent_policy(out_a.obs, out_a.action_mask, state1)
-    state2, fields_b = core.step_core(state1, opp_action, rng_mode=rng_mode)
-    term_b = fields_b["terminated"]
-    done = done_a | (opp_phase & term_b)
 
     def sel(one_move, two_move):
         return torch.where(opp_phase.view((-1,) + (1,) * (one_move.dim() - 1)), two_move, one_move)
 
-    next_state = GameState(**{k: sel(v, getattr(state2, k)) for k, v in state1.items()})
-    agent_reward = torch.where(
-        opp_phase,
-        torch.where(term_b, fields_b["final_rewards"][:, 0], 0.0),
-        out_a.reward,
-    )
-    opp_reward = torch.where(opp_phase, fields_b["reward"], out_a.final_rewards[:, 1])
-    out = DualStepOutput(
-        agent_obs=None,
-        agent_reward=agent_reward.to(torch.float32),
-        opp_obs=None,
-        opp_reward=opp_reward.to(torch.float32),
-        done=done,
-        action_mask=None,
-        opp_action=opp_action,
-        ended_on_agent=done_a,
-        illegal_agent=out_a.illegal_action,
-        turn_limit=sel(out_a.turn_limit, fields_b["turn_limit"]),
-    )
+    with trace.span("engine.ply"):
+        state2, fields_b = core.step_core(state1, opp_action, rng_mode=rng_mode)
+        term_b = fields_b["terminated"]
+        done = done_a | (opp_phase & term_b)
+        next_state = GameState(**{k: sel(v, getattr(state2, k)) for k, v in state1.items()})
+        agent_reward = torch.where(
+            opp_phase,
+            torch.where(term_b, fields_b["final_rewards"][:, 0], 0.0),
+            out_a.reward,
+        )
+        opp_reward = torch.where(opp_phase, fields_b["reward"], out_a.final_rewards[:, 1])
+        out = DualStepOutput(
+            agent_obs=None,
+            agent_reward=agent_reward.to(torch.float32),
+            opp_obs=None,
+            opp_reward=opp_reward.to(torch.float32),
+            done=done,
+            action_mask=None,
+            opp_action=opp_action,
+            ended_on_agent=done_a,
+            illegal_agent=out_a.illegal_action,
+            turn_limit=sel(out_a.turn_limit, fields_b["turn_limit"]),
+        )
     return next_state, out
 
 
@@ -84,9 +88,10 @@ def dual_step(state: GameState, agent_action, opponent_policy: Callable, rng_mod
     next_state, out = _turn(state, agent_action, opponent_policy, rng_mode)
     # encode and legal_mask are per-game functions, so computing them on the
     # selected state equals selecting between the two plies' values.
-    obs = encode_observation(next_state)
-    out.agent_obs = out.opp_obs = obs
-    out.action_mask = rules.legal_mask(next_state) & ~out.done[:, None]
+    with trace.span("engine.ply"):
+        obs = encode_observation(next_state)
+        out.agent_obs = out.opp_obs = obs
+        out.action_mask = rules.legal_mask(next_state) & ~out.done[:, None]
     return next_state, out
 
 
@@ -101,16 +106,17 @@ def dual_step_autoreset(state: GameState, agent_action, opponent_policy: Callabl
     terminal data for GAE; obs_next and mask_next feed the next policy call.
     """
     next_state, out = dual_step(state, agent_action, opponent_policy, rng_mode)
-    if fresh is None:
-        B, dp = agent_action.shape[0], 1 if mesh is None else mesh.dp
-        fresh = core.reset(B * dp, generator, state.to_play.device)
-        if dp > 1:
-            fresh = (fresh[0].map(mesh.rows), mesh.rows(fresh[1]), mesh.rows(fresh[2]))
-    fresh_state, fresh_obs, fresh_mask = fresh
-    done = out.done
-    return (core.select(done, fresh_state, next_state), out,
-            core.select(done, fresh_obs, out.agent_obs),
-            core.select(done, fresh_mask, out.action_mask), done)
+    with trace.span("engine.reset"):
+        if fresh is None:
+            B, dp = agent_action.shape[0], 1 if mesh is None else mesh.dp
+            fresh = core.reset(B * dp, generator, state.to_play.device)
+            if dp > 1:
+                fresh = (fresh[0].map(mesh.rows), mesh.rows(fresh[1]), mesh.rows(fresh[2]))
+        fresh_state, fresh_obs, fresh_mask = fresh
+        done = out.done
+        return (core.select(done, fresh_state, next_state), out,
+                core.select(done, fresh_obs, out.agent_obs),
+                core.select(done, fresh_mask, out.action_mask), done)
 
 
 def dual_step_autoreset_ring(state: GameState, agent_action, opponent_policy: Callable,
@@ -122,8 +128,9 @@ def dual_step_autoreset_ring(state: GameState, agent_action, opponent_policy: Ca
     mask_next are those of the carried state, fresh where done.
     """
     next_state, out = _turn(state, agent_action, opponent_policy, rng_mode)
-    fresh_state, _, ring = ring_lib.take(ring, out.done, mesh)
-    carry = core.select(out.done, fresh_state, next_state)
-    obs_next = encode_observation(carry)
-    mask_next = rules.legal_mask(carry)
+    with trace.span("engine.reset"):
+        fresh_state, _, ring = ring_lib.take(ring, out.done, mesh)
+        carry = core.select(out.done, fresh_state, next_state)
+        obs_next = encode_observation(carry)
+        mask_next = rules.legal_mask(carry)
     return carry, out, obs_next, mask_next, out.done, ring

@@ -40,6 +40,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import trace
 from ..models.actor_critic import ActorCritic, kernel_weights
 from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward, read_versions
 from ..parallel import collectives
@@ -121,8 +122,12 @@ def _write_slot(pool: OpponentPool, slot: int, model: ActorCritic) -> OpponentPo
         if i != slot:
             h.carry(before[i])
     wins, games = pool.wins.clone(), pool.games.clone()
-    wins[slot] = 0.0
-    games[slot] = 0.0
+
+    def reset_counts():  # a Python number written into a device tensor blocks
+        wins[slot] = 0.0
+        games[slot] = 0.0
+
+    trace.sync("pool.slot_reset", reset_counts)
     return pool.replace(wins=wins, games=games)
 
 
@@ -190,22 +195,25 @@ def pool_greedy_policy(pool: OpponentPool, opp_idx: torch.Tensor):
     overwrites it."""
 
     def policy(obs, mask, state):
-        order = torch.argsort(opp_idx, stable=True)
-        # The one host sync of a turn: the per-slot row counts decide which
-        # kernel launches to make and on how many rows.
-        counts = torch.bincount(opp_idx, minlength=pool.pool_size + 1).tolist()
-        action = torch.empty(obs.shape[0], dtype=torch.int64, device=obs.device)
-        start = 0
-        for s, c in enumerate(counts[: pool.pool_size + 1]):
-            if c == 0:
-                continue
-            rows = order[start : start + c]
-            start += c
-            logits, _ = fused_masked_forward(pool.slot(s), obs[rows], mask[rows], with_value=False)
-            action[rows] = torch.argmax(logits, dim=-1)  # logits come masked
-        if start < obs.shape[0]:
-            rows = order[start:]
-            action[rows] = first_legal(mask[rows])
-        return action
+        with trace.span("pool"):
+            order = torch.argsort(opp_idx, stable=True)
+            # A host sync a turn: the per-slot row counts decide which kernel
+            # launches to make and on how many rows.
+            counts = trace.sync("pool.counts", lambda: torch.bincount(
+                opp_idx, minlength=pool.pool_size + 1).tolist())
+            action = torch.empty(obs.shape[0], dtype=torch.int64, device=obs.device)
+            start = 0
+            for s, c in enumerate(counts[: pool.pool_size + 1]):
+                if c == 0:
+                    continue
+                rows = order[start : start + c]
+                start += c
+                logits, _ = fused_masked_forward(pool.slot(s), obs[rows], mask[rows],
+                                                 with_value=False)
+                action[rows] = torch.argmax(logits, dim=-1)  # logits come masked
+            if start < obs.shape[0]:
+                rows = order[start:]
+                action[rows] = first_legal(mask[rows])
+            return action
 
     return policy

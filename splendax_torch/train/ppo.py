@@ -58,6 +58,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..engine.state import GameState
 from ..env import core
@@ -219,13 +220,15 @@ def _opponent_policy(cfg: PPOConfig, pool, opp_idx, generator=None, search_draws
 
     def policy(obs, mask, state):
         action = base(obs, mask, state)
-        rows = torch.nonzero(opp_idx == pool.pool_size + 1)[:, 0]
+        rows = trace.sync("ppo.league_rows",
+                          lambda: torch.nonzero(opp_idx == pool.pool_size + 1)[:, 0])
         c = rows.numel()
         draws = search_draws
         if draws is None and dp > 1:
             counts = torch.zeros(dp, dtype=torch.int64, device=obs.device)
             counts[mesh.dp_rank] = c
-            counts = collectives.all_reduce(counts, mesh.dp_group).tolist()
+            counts = trace.sync("ppo.dp_counts",
+                                collectives.all_reduce(counts, mesh.dp_group).tolist)
             j0 = sum(counts[:mesh.dp_rank])
             if sum(counts) > 0:
                 draws = global_draws(sum(counts), j0, j0 + c, obs.device)
@@ -278,10 +281,11 @@ def rollout_turn(cfg: PPOConfig, weights, pool, env_state, obs, mask, opp_idx, r
     """
     rows = _rows_of(mesh)
     n = obs.shape[0] * (1 if mesh is None else mesh.dp)  # the global batch
-    logits, value = fused_masked_forward(weights, obs, mask)
-    if noise is None:
-        noise = rows(ac.gumbel_noise((n, ACT_DIM), generator, obs.device))
-    action, logp = ac.sample_action(logits, mask, generator=generator, noise=noise)
+    with trace.span("agent"):
+        logits, value = fused_masked_forward(weights, obs, mask)
+        if noise is None:
+            noise = rows(ac.gumbel_noise((n, ACT_DIM), generator, obs.device))
+        action, logp = ac.sample_action(logits, mask, generator=generator, noise=noise)
     policy = _opponent_policy(cfg, pool, opp_idx, generator, search_draws, mesh)
     if ring is None:
         env_state, out, obs_next, mask_next, done = dual.dual_step_autoreset(
@@ -440,20 +444,23 @@ def _ppo_epochs(cfg: PPOConfig, ts: TrainState, batch, lr: float, ent_coef_now: 
         perm = (torch.randperm(B, generator=ts.generator, device=dev) if perms is None
                 else perms[epoch])
         for idxs in perm[: n_mb * mb].reshape(n_mb, mb):
-            if dp > 1:
-                idxs = _local_rows(idxs, ts.obs.shape[0], mesh)
-            loss, aux = ppo_loss(cfg, ent_coef_now, model, *(x[idxs] for x in batch),
-                                 denom=mb if dp > 1 else None)
-            grads = torch.autograd.grad(loss, params)
-            if dp > 1:
-                grads = _sum_over(grads, mesh.dp_group)
-            optim.step(params, grads, ts.opt_state, lr, tp_group=tp_group, sharded=sharded)
-            metrics = dict(zip(METRIC_KEYS, (*(a.detach() for a in aux), loss.detach())))
-            if mesh is not None and mesh.size > 1:
-                metrics = dict(zip(METRIC_KEYS, _mesh_sum(torch.stack(list(metrics.values())),
-                                                          mesh)))
-            # The one host read of a minibatch; the step above is kept.
-            if cfg.target_kl > 0 and metrics["approx_kl"].item() > cfg.target_kl:
+            with trace.span("epochs.step"):
+                if dp > 1:
+                    idxs = _local_rows(idxs, ts.obs.shape[0], mesh)
+                loss, aux = ppo_loss(cfg, ent_coef_now, model, *(x[idxs] for x in batch),
+                                     denom=mb if dp > 1 else None)
+                grads = torch.autograd.grad(loss, params)
+                if dp > 1:
+                    grads = _sum_over(grads, mesh.dp_group)
+                optim.step(params, grads, ts.opt_state, lr, tp_group=tp_group, sharded=sharded)
+                metrics = dict(zip(METRIC_KEYS, (*(a.detach() for a in aux), loss.detach())))
+                if mesh is not None and mesh.size > 1:
+                    metrics = dict(zip(METRIC_KEYS, _mesh_sum(
+                        torch.stack(list(metrics.values())), mesh)))
+                # The one host read of a minibatch; the step above is kept.
+                stop = cfg.target_kl > 0 and trace.sync(
+                    "ppo.kl", metrics["approx_kl"].item) > cfg.target_kl
+            if stop:
                 break
     return ts, metrics
 
@@ -496,40 +503,48 @@ def _normalise(adv: torch.Tensor, mesh) -> torch.Tensor:
 def update_step(cfg: PPOConfig, ts: TrainState):
     """One full PPO update: rollout, GAE, epochs and pool maintenance ->
     (new TrainState, metrics dict of device scalars)."""
-    lr, ent_coef_now = _anneal(cfg, ts.update_idx)
+    with trace.span("update"):
+        lr, ent_coef_now = _anneal(cfg, ts.update_idx)
 
-    ts, traj = rollout(cfg, ts)
-    with torch.no_grad():
-        # The CURRENT slot still holds the params the rollout ran.
-        _, last_value = fused_masked_forward(ts.pool.slot(ts.pool.pool_size), ts.obs, ts.mask)
-        adv, returns = _gae(cfg, traj, last_value)
-        b_adv = _normalise(adv.reshape(-1), ts.mesh)
-        batch = tuple(x.reshape((-1,) + tuple(x.shape[2:])) for x in (
-            traj.obs, traj.mask, traj.action, traj.logp, traj.value)) + (
-            b_adv, returns.reshape(-1))
-    ts, metrics = _ppo_epochs(cfg, ts, batch, lr, ent_coef_now)
+        with trace.span("rollout"):
+            ts, traj = rollout(cfg, ts)
+        with torch.no_grad(), trace.span("gae"):
+            # The CURRENT slot still holds the params the rollout ran.
+            _, last_value = fused_masked_forward(ts.pool.slot(ts.pool.pool_size), ts.obs, ts.mask)
+            adv, returns = _gae(cfg, traj, last_value)
+            b_adv = _normalise(adv.reshape(-1), ts.mesh)
+            batch = tuple(x.reshape((-1,) + tuple(x.shape[2:])) for x in (
+                traj.obs, traj.mask, traj.action, traj.logp, traj.value)) + (
+                b_adv, returns.reshape(-1))
+        with trace.span("epochs"):
+            ts, metrics = _ppo_epochs(cfg, ts, batch, lr, ent_coef_now)
 
-    pool = ts.pool
-    if cfg.self_play and (ts.update_idx + 1) % max(1, cfg.snapshot_every_updates) == 0:
-        pool = pool_lib.push_snapshot(pool, ts.params)
+        pool = ts.pool
+        if cfg.self_play and (ts.update_idx + 1) % max(1, cfg.snapshot_every_updates) == 0:
+            with trace.span("pool.push"):
+                pool = pool_lib.push_snapshot(pool, ts.params)
 
-    dev = traj.reward.device
-    ep_done = traj.done.sum()
-    ep_won = ((traj.reward > 0.5) & traj.done).sum()
-    mean_reward = traj.reward.mean()
-    if ts.mesh is not None and ts.mesh.dp > 1:  # over the global batch
-        tot = collectives.all_reduce(torch.stack([ep_done.double(), ep_won.double(),
-                                                  traj.reward.double().sum()]), ts.mesh.dp_group)
-        ep_done, ep_won = tot[0].long(), tot[1].long()
-        mean_reward = (tot[2] / (traj.reward.numel() * ts.mesh.dp)).float()
-    metrics = dict(
-        metrics,
-        lr=torch.tensor(lr, device=dev),
-        ent_coef=torch.tensor(ent_coef_now, device=dev),
-        episodes=ep_done,
-        rollout_win_rate=ep_won / torch.clamp(ep_done, min=1),
-        mean_reward=mean_reward,
-    )
-    ts = dataclasses.replace(ts, pool=pool, update_idx=ts.update_idx + 1,
-                             global_step=ts.global_step + cfg.num_envs * cfg.num_steps)
-    return ts, metrics
+        dev = traj.reward.device
+        ep_done = traj.done.sum()
+        ep_won = ((traj.reward > 0.5) & traj.done).sum()
+        mean_reward = traj.reward.mean()
+        if ts.mesh is not None and ts.mesh.dp > 1:  # over the global batch
+            tot = collectives.all_reduce(torch.stack([ep_done.double(), ep_won.double(),
+                                                      traj.reward.double().sum()]),
+                                         ts.mesh.dp_group)
+            ep_done, ep_won = tot[0].long(), tot[1].long()
+            mean_reward = (tot[2] / (traj.reward.numel() * ts.mesh.dp)).float()
+        # Two pageable host-to-device copies, which block.
+        lr_t, ent_t = trace.sync("ppo.scalars", lambda: (
+            torch.tensor(lr, device=dev), torch.tensor(ent_coef_now, device=dev)))
+        metrics = dict(
+            metrics,
+            lr=lr_t,
+            ent_coef=ent_t,
+            episodes=ep_done,
+            rollout_win_rate=ep_won / torch.clamp(ep_done, min=1),
+            mean_reward=mean_reward,
+        )
+        ts = dataclasses.replace(ts, pool=pool, update_idx=ts.update_idx + 1,
+                                 global_step=ts.global_step + cfg.num_envs * cfg.num_steps)
+        return ts, metrics

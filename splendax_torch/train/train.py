@@ -26,6 +26,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..eval.suite import run_evaluation_suite
 from ..models.actor_critic import whole_model
 from ..parallel import mesh as mesh_lib
@@ -77,8 +78,9 @@ def parse_args(argv=None) -> PPOConfig:
     p.add_argument("--resume", action="store_true",
                    help="resume from <log_dir>/ppo_splendor_latest.pt")
     p.add_argument("--profile-updates", type=int, default=0,
-                   help="capture a torch.profiler trace of this many updates "
-                        "into <log_dir>/profile (a Chrome trace)")
+                   help="capture a torch.profiler trace of this many updates, with "
+                        "the program's spans on the same timeline, into "
+                        "<log_dir>/profile/trace.json (a Chrome trace)")
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel mesh axis: shard the env batch over "
                         "this many devices (0 = single device, -1 = all/tp)")
@@ -213,12 +215,14 @@ def train(cfg: PPOConfig, eval_fn=None, device="cuda") -> ppo.TrainState:
             os.makedirs(trace_dir, exist_ok=True)
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        with profile(activities=activities) as prof:
+        with profile(activities=activities) as prof, trace.recording() as spans:
             for _ in range(cfg.profile_updates):
                 ts, _ = ppo.update_step(cfg, ts)
             _sync(device)
         if coord:
-            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            path = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            _add_spans(path, spans)
             print(f"[profile] wrote {cfg.profile_updates}-update trace to {trace_dir}")
 
     t0 = time.time()
@@ -237,7 +241,8 @@ def train(cfg: PPOConfig, eval_fn=None, device="cuda") -> ppo.TrainState:
         upd, dev_metrics = pending
         pending = None
         keys = list(dev_metrics)
-        values = torch.stack([dev_metrics[k].to(torch.float64) for k in keys]).tolist()
+        values = trace.sync("train.metrics",
+                            torch.stack([dev_metrics[k].to(torch.float64) for k in keys]).tolist)
         m = dict(zip(keys, values))
         logger.log_training_metrics(
             (upd + 1) * cfg.batch_size, m["lr"], m["pg_loss"], m["v_loss"],
@@ -283,6 +288,17 @@ def train(cfg: PPOConfig, eval_fn=None, device="cuda") -> ppo.TrainState:
         print(f"Saved final {latest} and {ts_path}")
     logger.close()
     return ts
+
+
+def _add_spans(path: str, spans: list) -> None:
+    """Add the program's `spans` (`trace.recording()`'s) to the profiler's
+    Chrome trace at `path`, on the profiler's clock: its events' `ts` are
+    microseconds from its `baseTimeNanoseconds`, as are theirs."""
+    with open(path) as f:
+        doc = json.load(f)
+    doc["traceEvents"].extend(trace.chrome_events(doc.get("baseTimeNanoseconds", 0), spans))
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def _sync(device: torch.device) -> None:

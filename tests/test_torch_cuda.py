@@ -731,3 +731,78 @@ def test_ladder_pair_card_plays_the_cpu_games(cuda):
         for s in (ladder_seed, *range(1, 17))]
     print(f"{a}:{b} on the card, {a}'s points of {2 * n}: seed {ladder_seed} {points[0]}, "
           f"seeds 1-16 {points[1:]}")
+
+
+def unrouted_syncs(fn) -> dict:
+    """Run `fn()` under CUDA's synchronisation debug mode -> {port file:line:
+    count} of the synchronising calls (device-to-host reads, pageable
+    host-to-device copies, stream synchronisations) made outside
+    `splendax_torch.trace.sync`, each at the innermost frame of the port."""
+    import traceback
+    import warnings
+
+    trace_py = os.path.join("splendax_torch", "trace.py")
+    found = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "prototype" in str(message):  # the mode's one note that it is a prototype
+            return
+        stack = traceback.extract_stack()
+        if any(f.name == "sync" and f.filename.endswith(trace_py) for f in stack):
+            return
+        port = [f for f in stack if os.sep + "splendax_torch" + os.sep in f.filename]
+        key = (f"{os.path.relpath(port[-1].filename, ROOT)}:{port[-1].lineno}" if port
+               else str(message)[:80])
+        found[key] = found.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return found
+
+
+SYNC_PATHS = {
+    "static": dict(search_opponent=True, search_static=True),
+    "bernoulli": dict(search_opponent=True, p_search=0.25),
+    "noslot": dict(),
+    "parity": dict(rng_mode="parity"),
+    "no_ring": dict(reset_ring_mult=0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [*SYNC_PATHS, "eval"])
+def test_every_blocking_read_goes_through_trace_sync(cuda, path):
+    """Every synchronising call of an update (each slot mode, parity mode,
+    the ring-less reset) and of a Gumbel eval, after a first run that makes
+    the cached tables, goes through `trace.sync`, so the per-update records
+    count every place the host waits on the device."""
+    from splendax_torch.eval import suite
+    from splendax_torch.search import gumbel
+
+    if path == "eval":
+        params = ac.ActorCritic(64, torch.Generator(device=cuda).manual_seed(0), cuda)
+        bot = gumbel.gumbel_search_policy(m=4, k0=2, horizon=2,
+                                          params=fac.PreparedWeights(ac.kernel_weights(params)))
+        opp = suite.model_greedy_policy(params)
+
+        def run():
+            suite.eval_vs_opponent(bot, opp, 16, seed=1, device=cuda)
+    else:
+        cfg = PPOConfig(num_envs=256, num_steps=4, hidden=64, update_epochs=1,
+                        minibatch_size=256, snapshot_every_updates=1, target_kl=0.02,
+                        total_timesteps=256 * 4 * 8, **SYNC_PATHS[path])
+        state = [ppo.init_train_state(cfg, device=cuda)]
+
+        def run():
+            state[0], _ = ppo.update_step(cfg, state[0])
+    run()
+    torch.cuda.synchronize()
+    found = unrouted_syncs(run)
+    print(f"{path}: synchronising calls outside trace.sync {found}")
+    assert found == {}

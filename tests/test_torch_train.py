@@ -297,11 +297,24 @@ def test_logging_copy_matches_the_original():
 
 def test_profile_updates_writes_a_trace(tmp_path):
     """--profile-updates N: one warm-up update, then N under torch.profiler
-    into <log_dir>/profile; training goes on from there."""
+    into <log_dir>/profile; training goes on from there.  The trace holds the
+    program's spans on the profiler's timeline: the traced update's span
+    holds every operation the profiler saw in it."""
     log_dir = str(tmp_path / "run")
     cfg = train.parse_args(["--total-timesteps", "512", "--num-envs", "8", "--num-steps", "16",
                             "--eval-every-updates", "100", "--hidden", "16", "--profile-updates", "1",
                             "--log-dir", log_dir])
     ts = train.train(cfg, eval_fn=lambda params, seed: {}, device="cpu")
-    assert os.path.getsize(os.path.join(log_dir, "profile", "trace.json")) > 0
+    path = os.path.join(log_dir, "profile", "trace.json")
+    assert os.path.getsize(path) > 0
     assert ts.update_idx == 4 + 2  # the warm-up and the traced update come on top, as in JAX
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    (update,) = [e for e in events if e.get("cat") == "splendax_torch" and e["name"] == "update"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    assert len(ops) > 100
+    lo, hi = update["ts"], update["ts"] + update["dur"]
+    eps = 0.002  # the trace's microseconds carry three decimals
+    assert all(lo - eps <= e["ts"] and e["ts"] + e["dur"] <= hi + eps for e in ops)
+    spans = {e["args"]["path"] for e in events if e.get("cat") == "splendax_torch"}
+    assert {"update/rollout/engine.ply", "update/epochs/epochs.step"} <= spans
