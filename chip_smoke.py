@@ -52,7 +52,9 @@ Phases, in order; any failure exits non-zero:
      one (built with PROBE_OLD_PREP beside the libraries in phase 1), equal the
      plain preparation bit for bit at H = 64, 256, 768, 769, 1024, 1280 and
      2048, with and without the critic, and are timed in turns at H = 768,
-     1024 and 1280;
+     1024 and 1280.  The token-return kernel equals its plain version on
+     fuzzed hands at B = 8192 and 36,000 and on 8192 games in play, and is
+     timed beside it;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
   9. the searches: without a network, `determinize`, the Gumbel search
@@ -811,7 +813,66 @@ def phase_kernels(device) -> dict:
           f"index_select {library_ms:.5f} ms; bound {results['ring_take']['bound_ms']:.5f} ms "
           f"by bytes; host {host_ms:.4f} ms per call (index_select {library_host_ms:.4f})",
           flush=True)
+    results["token_return"] = kernel_token_return(device)
     return results
+
+
+def kernel_token_return(device) -> dict:
+    """The token-return kernel exact against its plain version on fuzzed
+    hands (every k from 0 to 12, gold-only hands, hands past 22) at
+    B = 8192 (the league's plies) and 36,000 (flat MC's lanes at 100 games),
+    and on the post-move states of 8192 games in play; each timed on the
+    device clock and on the host's beside the plain version.  Bound: each
+    lane's 80 bytes read and 72 written once, HBM3."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from splendax_torch.engine import rules
+    from splendax_torch.env import core
+    from splendax_torch.ops import token_return as tr
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _token_hands import fuzzed_hands
+
+    def post_move(B, plies, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        st, _, mask = core.reset(B, g, device)
+        for _ in range(plies):
+            st, out = core.step(st, uniform_legal_action(mask, g), mask=mask)
+            mask = out.action_mask
+        moved = rules._grant_noble(rules._apply_move(st, uniform_legal_action(mask, g).long()))
+        return {"tokens": moved.tokens, "bank": moved.bank, "to_play": moved.to_play,
+                "turn_count": moved.turn_count}
+
+    shapes = []
+    for label, B, h in (
+            ("fuzzed", 8192, None), ("fuzzed", 36000, None), ("in play", 8192, post_move(8192, 24, 5))):
+        if h is None:
+            h = {k: torch.from_numpy(v).to(device)
+                 for k, v in fuzzed_hands(np.random.RandomState(B), B).items()}
+        before = tr.launches
+        got, want = tr.return_tokens(**h), tr.return_tokens_plain(**h)
+        check(tr.launches == before + 1, "token return: not one launch a call")
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"token return: the kernel differs from the plain version ({label}, B={B})")
+        k = (h["tokens"][torch.arange(B, device=device), h["to_play"].long()].sum(1) - 10).clamp(min=0)
+        if label == "fuzzed":
+            check(set(range(13)) <= set(k.tolist()), f"token return: fuzzed k {sorted(set(k.tolist()))}")
+        ms, host_ms = device_ms(lambda: tr.return_tokens(**h), 100)
+        plain_ms, plain_host_ms = device_ms(lambda: tr.return_tokens_plain(**h), 5)
+        bound_ms = B * (80 + 72) / H100_BYTES_PER_S * 1e3
+        shapes.append(dict(inputs=label, B=B, over_cap=int((k > 0).sum()), ms=ms, host_ms=host_ms,
+                           plain_ms=plain_ms, plain_host_ms=plain_host_ms, bound_ms=bound_ms))
+        print(f"token return {label} B={B} ({shapes[-1]['over_cap']} over the cap): exact; "
+              f"{ms:.5f} ms (device clock), host {host_ms:.4f} ms a call; plain {plain_ms:.5f} ms, "
+              f"host {plain_host_ms:.4f} ms; bound {bound_ms:.5f} ms by bytes", flush=True)
+    print(f"token return: checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
+    first = shapes[0]
+    return dict(max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"], library_ms=None,
+                bound_ms=first["bound_ms"], bound_by="bytes", host_ms=first["host_ms"],
+                bound_peak="HBM3, 3.35 TB/s", by_shape=shapes)
 
 
 def phase_engine_agreement(device) -> None:
@@ -2710,6 +2771,8 @@ def run_phases() -> int:
         "fused_actor_critic_wide_pass": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_wide_half": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "ring_take": ("splendax_torch/csrc/ring_take.cu", "splendax/ops/ring_take.py:38"),
+        "token_return": ("splendax_torch/csrc/token_return.cu",
+                         "none: a port kernel (splendax/engine/rules.py:342, fast mode)"),
     }
     rows = []
     for name, (source, replaces) in meta.items():

@@ -92,6 +92,7 @@ from .env import core
 from .env import ring as ring_lib
 from .ops import fused_actor_critic as fac
 from .ops import ring_take as rt
+from .ops import token_return as tr
 from .selfplay.opponents import uniform_legal_action
 from .train.config import PPOConfig
 
@@ -169,20 +170,22 @@ def derived_modes():
 def kernel_launches() -> dict:
     """The kernels' own launch counters (`read_launches` without the
     derived modes)."""
-    return {**fac.launch_counts(), "ring_take": rt.launches}
+    return {**fac.launch_counts(), "ring_take": rt.launches, "token_return": tr.launches}
 
 
 def read_launches() -> dict:
     """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
     by route and by the wgmma and wide routes' modes, its weight
-    preparations, and kernel B; and the modes derived from the forwards' B
-    and the preparations derived from their weights."""
+    preparations, kernel B and the token return's kernel; and the modes
+    derived from the forwards' B and the preparations derived from their
+    weights."""
     return {**kernel_launches(), **{f"derived_{m}": n for m, n in DERIVED.items()}}
 
 
 def zero_launches() -> None:
     trace.zero("kernel_a.")
     trace.zero("kernel_b.")
+    trace.zero("token_return.")
     for k in DERIVED:
         DERIVED[k] = 0
 

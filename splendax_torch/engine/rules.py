@@ -7,9 +7,10 @@ and are not carried over.  Actions are int tensors [B] in the 45-wide layout
 below.
 
 The token return that enforces the 10-token cap draws, in fast mode, its
-uniforms from a threefry key derived from the game state and, in parity mode,
-from CPython's MT19937 under the same seed (`mt19937`), bit for bit as in the
-JAX engine in both modes.
+uniforms from a threefry key derived from the game state (`ops/token_return`,
+one kernel launch on the card) and, in parity mode, from CPython's MT19937
+under the same seed (`mt19937`), bit for bit as in the JAX engine in both
+modes.
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ import functools
 import torch
 
 from .. import trace
+from ..ops import token_return
 from . import data as D
 from . import mt19937
 from .state import GameState, NUM_PLAYERS, TOKEN_CAP, TURN_LIMIT
-from .threefry import M32, uniform_from_key_words
 
 TAKE3_OFFSET, TAKE3_COUNT = 0, 10
 TAKE2_OFFSET, TAKE2_COUNT = 10, 5
@@ -31,8 +32,6 @@ RESERVE_VISIBLE_OFFSET, RESERVE_VISIBLE_COUNT = 27, 12
 RESERVE_BLIND_OFFSET, RESERVE_BLIND_COUNT = 39, 3
 BUY_RESERVED_OFFSET, BUY_RESERVED_COUNT = 42, 3
 TOTAL_ACTIONS = 45
-
-_MAX_RETURNS = 12  # draws per token return; a hand never exceeds 22 tokens
 
 
 class _Tables:
@@ -242,27 +241,6 @@ def _grant_noble(state: GameState) -> GameState:
     )
 
 
-def _state_hash_seed(state: GameState, tokens_p: torch.Tensor):
-    """The integer seed of the token return, as uint32 words (lo, hi) held
-    in int64:
-
-        seed = (turn_count*1315423911) ^ (to_play*2654435761)
-             ^ (sum(player tokens)*97531) ^ (sum(bank)*31337)
-
-    turn_count*1315423911 is split into 16-bit limbs exactly as the JAX
-    engine does with wrapping uint32 products; the other terms only touch the
-    low word."""
-    t = state.turn_count.long() & M32
-    a = (t * (1315423911 >> 16)) & M32
-    b = (t * (1315423911 & 0xFFFF)) & M32
-    lo = ((a << 16) + b) & M32
-    hi = ((a + (b >> 16)) & M32) >> 16
-    lo = lo ^ ((state.to_play.long() * 2654435761) & M32)
-    lo = lo ^ ((tokens_p.sum(1) & M32) * 97531 & M32)
-    lo = lo ^ ((state.bank.long().sum(1) & M32) * 31337 & M32)
-    return lo, hi
-
-
 def _return_tokens_mt(tokens, bank, k, lo, hi):
     """The parity-mode token return: CPython's `random.Random(seed)` seeded
     from the state hash, one `_randbelow(n)` per returned token over the n
@@ -299,35 +277,25 @@ def _auto_return_tokens(state: GameState, p: torch.Tensor, rng_mode: str) -> Gam
     """Return tokens until the mover holds at most 10: each draw returns one
     token of a uniformly chosen color among those held (gold only when no
     other color is left).  Fast mode draws from threefry seeded by the state
-    hash; every lane runs all 12 draw steps, masked once it is done.  Parity
-    mode draws from MT19937 under the same seed (`_return_tokens_mt`)."""
+    hash (`ops/token_return`: one kernel launch on the card, the plain
+    version on the CPU).  Parity mode draws from MT19937 under the same seed
+    (`_return_tokens_mt`)."""
     if rng_mode not in ("fast", "parity"):
         raise ValueError(f"unknown rng_mode {rng_mode!r}")
+    if rng_mode == "fast":
+        # tokens and bank are _apply_move's fresh tensors; the caller's
+        # to_play and turn_count may be strided views.
+        tokens, bank = token_return.return_tokens(
+            state.tokens, state.bank, state.to_play.contiguous(), state.turn_count.contiguous())
+        return state.replace(tokens=tokens, bank=bank)
     T = tables(state.bank.device)
     B = p.shape[0]
     ar = torch.arange(B, device=p.device)
     tokens = state.tokens[ar, p].long()
     bank = state.bank.long()
     k = torch.clamp(tokens.sum(1) - TOKEN_CAP, min=0)
-    lo, hi = _state_hash_seed(state, tokens)
-    if rng_mode == "parity":
-        tokens, bank, returned = _return_tokens_mt(tokens, bank, k, lo, hi)
-    else:
-        u = uniform_from_key_words(hi, lo, _MAX_RETURNS)  # [B, 12] f32
-        returned = torch.zeros_like(k)
-        for i in range(_MAX_RETURNS):
-            nonzero = tokens[:, :5] > 0
-            n = nonzero.sum(1)
-            active = (returned < k) & (n > 0)
-            # float32 product, truncated, as the JAX engine computes it
-            r = torch.minimum((u[:, i] * n.to(torch.float32)).to(torch.int64),
-                              torch.clamp(n - 1, min=0))
-            cum = torch.cumsum(nonzero, 1)
-            color = torch.argmax((cum == (r + 1)[:, None]).to(torch.int32), 1)
-            delta = _onehot(color, 6, T.ar6) & active[:, None]
-            tokens = tokens - delta.long()
-            bank = bank + delta.long()
-            returned = returned + active.long()
+    lo, hi = token_return.hash_seed(state.turn_count, state.to_play, tokens, bank)
+    tokens, bank, returned = _return_tokens_mt(tokens, bank, k, lo, hi)
     give = torch.minimum(torch.clamp(k - returned, min=0), tokens[:, D.GOLD])
     gold_row = (T.ar6 == D.GOLD).long()[None]
     tokens = tokens - gold_row * give[:, None]

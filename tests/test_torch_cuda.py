@@ -15,6 +15,7 @@ import torch
 from splendax_torch.models import actor_critic as ac
 from splendax_torch.ops import fused_actor_critic as fac
 from splendax_torch.ops import ring_take as rt
+from splendax_torch.ops import token_return as tr
 from splendax_torch.train import ppo
 from splendax_torch.train.config import PPOConfig
 
@@ -337,6 +338,107 @@ def test_parity_mode_on_the_card_equals_the_cpu(cuda):
         for name, x in st_c.items():
             assert torch.equal(x, getattr(st_g, name).cpu()), f"{name} at ply {ply}"
     assert returns > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 255, 8192, 36000])
+def test_token_return_kernel_matches_plain(cuda, B):
+    """Exact: the token-return kernel against its plain version on fuzzed
+    hands (`_token_hands`: every k from 0 to 12 at the larger B, gold-only
+    hands, colours that run out, hands past 22 that use up all 12 draws,
+    either player to move, turns up to 2**20), one launch a call, into fresh
+    tensors."""
+    from _token_hands import fuzzed_hands
+
+    h = {k: torch.from_numpy(v).to(cuda) for k, v in fuzzed_hands(np.random.RandomState(B), B).items()}
+    keep = {k: v.clone() for k, v in h.items()}
+    want = tr.return_tokens_plain(**h)
+    before = tr.launches
+    got = tr.return_tokens(**h)
+    assert tr.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.equal(h[k], keep[k]) for k in h)  # nothing written in place
+    if B >= 8192:
+        k = (h["tokens"][torch.arange(B, device=cuda), h["to_play"].long()].sum(1) - 10).clamp(min=0)
+        assert set(range(13)) <= set(k.tolist()) and int((k > 12).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_token_return_kernel_refuses_bad_input(cuda):
+    """A CUDA tensor goes to the kernel or raises; it never falls back: a
+    non-contiguous input, another dtype, or inputs on two devices raise."""
+    from _token_hands import fuzzed_hands
+
+    h = {k: torch.from_numpy(v).to(cuda) for k, v in fuzzed_hands(np.random.RandomState(0), 64).items()}
+    wide = torch.zeros((64, 2, 12), dtype=torch.int32, device=cuda)
+    wide[:, :, :6] = h["tokens"]
+    for bad in (dict(h, tokens=wide[:, :, :6]), dict(h, bank=h["bank"].long()),
+                dict(h, to_play=h["to_play"].cpu())):
+        before = tr.launches
+        with pytest.raises(ValueError, match="return_tokens"):
+            tr.return_tokens(**bad)
+        assert tr.launches == before
+
+
+@pytest.mark.cuda
+def test_fast_mode_on_the_card_equals_the_cpu(cuda):
+    """The engine in fast mode (threefry token return, the kernel on the
+    card) on the card against the CPU: 60 plies x 128 games, every field
+    exact, with token returns, and one kernel launch a ply."""
+    from splendax_torch.engine.state import initial_state
+    from splendax_torch.engine import rules
+    from splendax_torch.env import core
+
+    B = 128
+    st_c = initial_state(B, torch.Generator().manual_seed(9), "cpu")
+    st_g = st_c.map(lambda x: x.to(cuda))
+    rng = np.random.RandomState(9)
+    returns = 0
+    before = tr.launches
+    for ply in range(60):
+        mask = rules.legal_mask(st_c)
+        m = mask.numpy()
+        a = torch.as_tensor(np.where(m.any(1), (rng.rand(B, 45) * m).argmax(1), 0))
+        held = st_c.tokens[torch.arange(B), st_c.to_play.long()].sum(1)
+        returns += int(((held == 10) & (a < 15) & mask.any(1)).sum())
+        st_c, _ = core.step(st_c, a, mask=mask)
+        st_g, _ = core.step(st_g, a.to(cuda))
+        for name, x in st_c.items():
+            assert torch.equal(x, getattr(st_g, name).cpu()), f"{name} at ply {ply}"
+    assert returns > 0
+    assert tr.launches - before == 60
+
+
+@pytest.mark.cuda
+def test_token_return_launches_once_per_fast_apply(cuda, monkeypatch):
+    """`token_return.launches` rises by one for each fast-mode
+    `apply_action` on the card, over one league update with the static
+    search slot (the plies, the search's children and playouts); a parity
+    update launches none."""
+    from splendax_torch.engine import rules
+
+    calls = []
+    inner = rules._auto_return_tokens
+
+    def counted(state, p, rng_mode):
+        calls.append(rng_mode == "fast" and state.bank.is_cuda and p.shape[0] > 0)
+        return inner(state, p, rng_mode)
+
+    monkeypatch.setattr(rules, "_auto_return_tokens", counted)
+    for mode, extra in (("fast", dict(search_opponent=True, search_static=True)),
+                        ("parity", dict(rng_mode="parity"))):
+        cfg = PPOConfig(num_envs=256, num_steps=4, hidden=64, pool_size=3, minibatch_size=512,
+                        update_epochs=1, total_timesteps=256 * 4 * 4, search_m=4, search_k0=2,
+                        search_horizon=2, **extra)
+        ts = ppo.init_train_state(cfg, device=cuda)
+        calls.clear()
+        before = tr.launches
+        ppo.update_step(cfg, ts)
+        assert tr.launches - before == sum(calls)
+        if mode == "fast":
+            assert sum(calls) > 2 * cfg.num_steps
+        else:
+            assert len(calls) > 0 and sum(calls) == 0
 
 
 def check_wgmma(w, obs, mask, route="wgmma"):
