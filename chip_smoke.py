@@ -55,6 +55,10 @@ Phases, in order; any failure exits non-zero:
      1024 and 1280.  The token-return kernel equals its plain version on
      fuzzed hands at B = 8192 and 36,000 and on 8192 games in play, and is
      timed beside it;
+     Then the plies' CUDA graphs (`env/graphed`): the agent's ply and a
+     playout step at B = 8,192 and 32,768 on fuzzed games, each replay bit
+     for bit against the eager function, both timed (host ms to issue, wall
+     ms, device ms, kernels a call) with the memory a graph holds;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
   9. the searches: without a network, `determinize`, the Gumbel search
@@ -149,7 +153,8 @@ behind in them.  A profile of one distillation ply at 737,280 lanes comes
 last.
 
 Prints the card's name and power limit first, the bench's seven lines in
-phase 3, a JSON line with each kernel's numbers second to last, and
+phase 3, a JSON line of the graphs' numbers in phase 7, a JSON line with
+each kernel's numbers second to last, and
 `{"ok": true, "device": ...}` last.
 Imports nothing of JAX.
 """
@@ -873,6 +878,95 @@ def kernel_token_return(device) -> dict:
     return dict(max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"], library_ms=None,
                 bound_ms=first["bound_ms"], bound_by="bytes", host_ms=first["host_ms"],
                 bound_peak="HBM3, 3.35 TB/s", by_shape=shapes)
+
+
+def phase_graphs(device) -> dict:
+    """The plies' CUDA graphs (`env/graphed`) against the eager functions:
+    the agent's ply (`core.step` from its mask) and a playout step, at
+    B = 8,192 and 32,768 on games 0 to 199 random plies deep.  Three calls
+    each (eager; capture and replay; replay) equal the eager function bit
+    for bit, checked after the last replay, and a replay adds one
+    token-return launch.  Each is timed eager and replayed: the host's ms to
+    issue a call, the wall ms a call with its device work (`device_ms`),
+    the device ms, and the kernels a call as the profiler counts them; the
+    memory a graph holds (allocated once its outputs are dropped)."""
+    import torch
+
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state
+    from splendax_torch.env import core, graphed
+    from splendax_torch.ops import token_return as tr
+    from splendax_torch.search import mc
+    from splendax_torch.selfplay import dual
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    def leaves(x):
+        out = []
+        graphed._flatten(x, out)
+        return out
+
+    def issue_ms(fn, n=20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt * 1e3 / n
+
+    def kernels_a_call(fn, n=5):
+        k = profiled_kernels(lambda: [fn() for _ in range(n)])
+        return sum(e.count for e in k) / n
+
+    t0 = time.perf_counter()
+    rows = []
+    for B in (8192, 32768):
+        g = torch.Generator(device=device).manual_seed(B)
+        st = initial_state(B, g, device)
+        stop = torch.randint(0, 200, (B,), generator=g, device=device)
+        for ply in range(200):
+            mask = rules.legal_mask(st)
+            nxt, _ = core.step(st, uniform_legal_action(mask, g), mask=mask)
+            st = core.select(stop > ply, nxt, st)
+        for site, fn in (("smoke.ply", dual._agent_ply), ("smoke.playout", mc.playout_step)):
+            calls = []
+            for _ in range(3):
+                perm = torch.randperm(B, generator=g, device=device)
+                s = st.map(lambda x: x[perm])
+                m = rules.legal_mask(s)
+                calls.append((s, uniform_legal_action(m, g), m))
+            torch.cuda.synchronize()
+            alloc0 = torch.cuda.memory_allocated()
+            outs = []
+            for a in calls:
+                before = tr.launches
+                outs.append(graphed.call(site, fn, *a))
+                check(tr.launches == before + 1, f"{site} B={B}: not one token return a call")
+            for a, out in zip(calls, outs):
+                want, got = leaves(fn(*a)), leaves(out)
+                check(len(want) == len(got) and all(
+                    x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want)),
+                      f"{site} B={B}: the replay differs from the eager function")
+            del outs
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - alloc0
+            eager, replay = (lambda: fn(*calls[0])), (lambda: graphed.call(site, fn, *calls[0]))
+            row = dict(site=site, B=B, graph_bytes_held=held)
+            for name, f in (("eager", eager), ("replay", replay)):
+                row[name + "_issue_ms"] = issue_ms(f)
+                row[name + "_ms"], row[name + "_wall_ms"] = device_ms(f, 20)
+                row[name + "_kernels"] = kernels_a_call(f)
+            rows.append(row)
+            print(f"graph {site} B={B}: exact over 3 calls; eager: host {row['eager_issue_ms']:.3f}"
+                  f" ms to issue, {row['eager_wall_ms']:.3f} ms wall, {row['eager_ms']:.3f} ms "
+                  f"device, {row['eager_kernels']:.0f} kernels; replay: host "
+                  f"{row['replay_issue_ms']:.3f} ms, {row['replay_wall_ms']:.3f} ms wall, "
+                  f"{row['replay_ms']:.3f} ms device, {row['replay_kernels']:.0f} kernels; "
+                  f"the graph holds {held} bytes", flush=True)
+    print(f"graphs: {len(graphed.captured())} held by the process; checked and timed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"graphs": rows}), flush=True)
+    return rows
 
 
 def phase_engine_agreement(device) -> None:
@@ -2759,6 +2853,7 @@ def run_phases() -> int:
     by_path["ladder"] = phase_ladder(device)  # both routes: checked per net inside
     by_path["duel replay"] = phase_duel_replay(device)
     kern = phase_kernels(device)
+    phase_graphs(device)
     phase_profile(cfg, ts)
     phase_profile(cfg_league, ts_league, label="profile (league slot)")
     profile_distill_ply(device)

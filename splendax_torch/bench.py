@@ -169,23 +169,26 @@ def derived_modes():
 
 def kernel_launches() -> dict:
     """The kernels' own launch counters (`read_launches` without the
-    derived modes)."""
+    derived modes and the graphs)."""
     return {**fac.launch_counts(), "ring_take": rt.launches, "token_return": tr.launches}
 
 
 def read_launches() -> dict:
     """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
     by route and by the wgmma and wide routes' modes, its weight
-    preparations, kernel B and the token return's kernel; and the modes
-    derived from the forwards' B and the preparations derived from their
-    weights."""
-    return {**kernel_launches(), **{f"derived_{m}": n for m, n in DERIVED.items()}}
+    preparations, kernel B, the token return's kernel and the plies' CUDA
+    graphs (captures, replays); and the modes derived from the forwards' B
+    and the preparations derived from their weights."""
+    return {**kernel_launches(), **{f"derived_{m}": n for m, n in DERIVED.items()},
+            "graph_capture": sum(trace.counters("graph.capture.").values()),
+            "graph_replay": sum(trace.counters("graph.replay.").values())}
 
 
 def zero_launches() -> None:
     trace.zero("kernel_a.")
     trace.zero("kernel_b.")
     trace.zero("token_return.")
+    trace.zero("graph.")
     for k in DERIVED:
         DERIVED[k] = 0
 

@@ -113,6 +113,8 @@ def _play_matches(agent_fn, agent_ctx, opp_fn, opp_ctx, n_games: int, generator,
     for _ in range(TURN_LIMIT):
         with trace.span("eval.turn"):
             a = agent_fn(agent_ctx, obs, mask, state, generator)
+            # Not given `mask`: a finished game keeps an all-False one, and
+            # the opponent still sees its ply from the state's own mask.
             next_state, out = dual.dual_step(state, a, opp_policy, rng_mode)
             checks = checks + active
             illegal = illegal + (active & out.illegal_agent)

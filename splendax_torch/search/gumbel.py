@@ -15,6 +15,10 @@ tree.
 3. The last survivor is the move: the argmax of `g + logits + c_scale * q`,
    or of `q` alone under `greedy_final`.
 
+On the card in fast mode the root children, each round's lanes (their
+states, obs and masks) and every playout step are CUDA graph replays
+(`env/graphed`); kernel A, the samples and the halving run eagerly.
+
 Halving is by rank with stable sorts, so which of two equal scores survives
 is fixed: the lower slot.  Games with fewer than `m` legal actions pad with
 -inf-scored slots, which sort last and never win.
@@ -38,9 +42,11 @@ import torch
 
 from .. import trace
 from ..engine import rules as R
+from ..engine.state import GameState
+from ..env import graphed
 from ..models.actor_critic import gumbel_noise
 from ..ops.fused_actor_critic import fused_masked_forward
-from .mc import _NEG, as_ctx, repeat_rows, rollout_values, sum_last
+from .mc import _NEG, as_ctx, observe, repeat_rows, rollout_values, sum_last
 
 A = R.TOTAL_ACTIONS
 
@@ -53,6 +59,20 @@ def _root_candidates(gscore, logits, mask, m: int) -> torch.Tensor:
     is_amax = torch.arange(gscore.shape[1], device=gscore.device)[None] == amax[:, None]
     sel = torch.where(is_amax, float("inf"), gscore)
     return torch.argsort(-sel, dim=-1, stable=True)[:, :m]
+
+
+def children(state: GameState, actions: torch.Tensor, rng_mode: str = "fast") -> GameState:
+    """child[b * m + j] = apply(state[b], actions[b, j]) for actions [B, m]."""
+    return R.apply_action(repeat_rows(state, actions.shape[1]), actions.reshape(-1),
+                          rng_mode=rng_mode)
+
+
+def _lanes(child: GameState, lane_child: torch.Tensor, rng_mode: str = "fast",
+           with_obs: bool = True):
+    """The playout lanes' states, `child[lane_child]`, with their obs (or
+    None) and legal masks."""
+    flat = child.map(lambda x: x[lane_child])
+    return (flat,) + observe(flat, with_obs=with_obs)
 
 
 def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float = 10.0,
@@ -103,7 +123,7 @@ def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float 
 
             if determinize_fn is None:
                 # Root children once per candidate: child[b * m + j].
-                child = R.apply_action(repeat_rows(state, m), cand.reshape(-1), rng_mode=rng_mode)
+                child = graphed.call("gumbel.children", children, state, cand, rng_mode=rng_mode)
 
             q_sum = torch.zeros((B, m), device=dev)
             n_cnt = torch.zeros((B, m), device=dev)
@@ -117,9 +137,12 @@ def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float 
                     k_r = lanes // n_alive
                     # Survivors packed into the first n_alive slots, in slot order.
                     order = torch.argsort((~alive).to(torch.int8), dim=-1, stable=True)[:, :n_alive]
+                    f_obs = f_mask = None
                     if determinize_fn is None:
                         lane_child = (rows * m + order).reshape(-1).repeat_interleave(k_r)
-                        flat = child.map(lambda x: x[lane_child])
+                        flat, f_obs, f_mask = graphed.call(
+                            "gumbel.lanes", _lanes, child, lane_child, rng_mode=rng_mode,
+                            with_obs=ctx is not None)
                     else:
                         det = determinize_fn(repeat_rows(state, k_r), generator,
                                              u=draws["det"][r] if "det" in draws else None)
@@ -133,6 +156,7 @@ def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float 
                     vals = rollout_values(
                         flat, me_flat, ctx, generator, horizon, rng_mode=rng_mode, guided=guided,
                         draws=draws["playout"][r] if "playout" in draws else None,
+                        obs=f_obs, mask=f_mask,
                     ).reshape(B, n_alive, k_r)
                     # The survivors' sums go back to their own slots.
                     add_sum = torch.zeros((B, m), device=dev).scatter_add(1, order, sum_last(vals))

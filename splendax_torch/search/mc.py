@@ -18,6 +18,10 @@ search prepares them once; every forward runs the fused actor-critic
 kernel: playout moves without the value, leaves with it (the kernel has no
 critic-only mode, so the logits are computed and dropped).
 
+On the card in fast mode the flat batch of root children and each playout
+step (the ply, the frozen lanes, the next obs and mask) are CUDA graph
+replays (`env/graphed`).
+
 A search is `fn(ctx, obs, mask, state, generator=None, draws=None)`.  Its
 random inputs come from `generator` unless `draws` gives them: for each ply
 of the playouts the Gumbel noise f32 [N, 45] of the guided move sample, or
@@ -37,6 +41,7 @@ from ..engine import rules as R
 from ..engine.encode import encode_observation
 from ..engine.state import GameState
 from ..env import core
+from ..env import graphed
 from ..env.core import select
 from ..models import actor_critic as ac
 from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward
@@ -95,16 +100,17 @@ def _by_seat(vec2: torch.Tensor, seat: torch.Tensor) -> torch.Tensor:
     return vec2.gather(1, seat.long()[:, None])[:, 0]
 
 
-def leaf_values(states: GameState, me: torch.Tensor, ctx=None) -> torch.Tensor:
+def leaf_values(states: GameState, me: torch.Tensor, ctx=None, obs=None) -> torch.Tensor:
     """f32 [N]: each leaf scored from player `me`'s point of view in
-    [-1, 1]."""
+    [-1, 1].  `obs` may pass in the leaves' observations."""
     term = R.is_terminal(states)
     term_v = _by_seat(core.final_rewards_of(states), me)
     if ctx is None:
         lead = _by_seat(states.prestige, me) - _by_seat(states.prestige, 1 - me)
         live = div_const(lead.to(torch.float32), 15.0)
     else:
-        obs = encode_observation(states)  # from the point of view of to_play
+        if obs is None:
+            obs = encode_observation(states)  # from the point of view of to_play
         every = torch.ones((obs.shape[0], R.TOTAL_ACTIONS), dtype=torch.bool, device=obs.device)
         _, v = fused_masked_forward(ctx, obs, every, with_value=True)
         live = torch.where(states.to_play == me, v, -v)
@@ -112,25 +118,46 @@ def leaf_values(states: GameState, me: torch.Tensor, ctx=None) -> torch.Tensor:
     return torch.where(term, term_v, live)
 
 
+def observe(states: GameState, rng_mode: str = "fast", with_obs: bool = True):
+    """(obs or None, legal mask) of each state."""
+    return (encode_observation(states) if with_obs else None), R.legal_mask(states)
+
+
+def playout_step(states: GameState, action: torch.Tensor, mask: torch.Tensor,
+                 rng_mode: str = "fast", with_obs: bool = True):
+    """One ply of every lane, a finished lane frozen, from the lanes' legal
+    `mask` -> (successor, its obs or None, its legal mask): one graph
+    replay on the card (`env/graphed`)."""
+    term = R.is_terminal(states)
+    nxt, _ = core.step_core(states, action, rng_mode=rng_mode, mask=mask)
+    nxt = select(term, states, nxt)  # a finished lane stays as it is
+    return (nxt,) + observe(nxt, with_obs=with_obs)
+
+
 def rollout_values(flat_states: GameState, me_flat: torch.Tensor, ctx, generator,
-                   horizon: int, rng_mode: str = "fast", guided: bool = True, draws=None):
+                   horizon: int, rng_mode: str = "fast", guided: bool = True, draws=None,
+                   obs=None, mask=None):
     """Play `horizon` plies from each of a flat batch of states and score
     the leaves from `me_flat`'s point of view.  Moves are sampled from the
     actor when `ctx` is given and `guided`, else uniformly over the legal
-    actions.  `draws[k]` is ply k's random input (module docstring)."""
+    actions.  `draws[k]` is ply k's random input (module docstring).
+    `mask` and `obs` may pass in the states' legal masks and, with `ctx`,
+    observations.  Each ply is kernel A and the sample, then one
+    `playout_step`, which yields the next ply's obs and mask."""
+    with_obs = ctx is not None  # the actor's and the critic's input
     st = flat_states
+    if mask is None:
+        obs, mask = graphed.call("mc.observe", observe, st, rng_mode=rng_mode, with_obs=with_obs)
     for k in range(horizon):
-        term = R.is_terminal(st)
-        pmask = R.legal_mask(st)
         d = None if draws is None else draws[k]
         if ctx is not None and guided:
-            logits, _ = fused_masked_forward(ctx, encode_observation(st), pmask, with_value=False)
-            a, _ = ac.sample_action(logits, pmask, generator=generator, noise=d)
+            logits, _ = fused_masked_forward(ctx, obs, mask, with_value=False)
+            a, _ = ac.sample_action(logits, mask, generator=generator, noise=d)
         else:
-            a = uniform_legal_action(pmask, generator, u=d)
-        nxt, _ = core.step_core(st, a, rng_mode=rng_mode, mask=pmask)
-        st = select(term, st, nxt)  # a finished lane stays as it is
-    return leaf_values(st, me_flat, ctx)
+            a = uniform_legal_action(mask, generator, u=d)
+        st, obs, mask = graphed.call("mc.playout", playout_step, st, a, mask, rng_mode=rng_mode,
+                                     with_obs=with_obs)
+    return leaf_values(st, me_flat, ctx, obs=obs)
 
 
 def root_children(state: GameState, rng_mode: str) -> GameState:
@@ -139,6 +166,14 @@ def root_children(state: GameState, rng_mode: str) -> GameState:
     B = state.batch_size
     acts = torch.arange(R.TOTAL_ACTIONS, device=state.to_play.device).repeat(B)
     return R.apply_action(repeat_rows(state, R.TOTAL_ACTIONS), acts, rng_mode=rng_mode)
+
+
+def _flat_children(state: GameState, rng_mode: str = "fast", rollouts: int = 1,
+                   with_obs: bool = True):
+    """`root_children`, each `rollouts` times in a row, with their obs (or
+    None) and legal masks."""
+    flat = repeat_rows(root_children(state, rng_mode), rollouts)
+    return (flat,) + observe(flat, with_obs=with_obs)
 
 
 def mc_search_q(rollouts: int = 8, horizon: int = 24, rng_mode: str = "fast",
@@ -151,10 +186,12 @@ def mc_search_q(rollouts: int = 8, horizon: int = 24, rng_mode: str = "fast",
     @torch.no_grad()
     def fn(ctx, obs, mask, state, generator=None, draws=None):
         B = mask.shape[0]
-        flat = repeat_rows(root_children(state, rng_mode), rollouts)  # [B * A * K]
+        flat, f_obs, f_mask = graphed.call("mc.children", _flat_children, state,
+                                           rng_mode=rng_mode, rollouts=rollouts,
+                                           with_obs=ctx is not None)  # [B * A * K]
         me_flat = state.to_play.repeat_interleave(A * rollouts)
         vals = rollout_values(flat, me_flat, ctx, generator, horizon, rng_mode=rng_mode,
-                              guided=guided, draws=draws)
+                              guided=guided, draws=draws, obs=f_obs, mask=f_mask)
         q = div_const(sum_last(vals.reshape(B, A, rollouts)), rollouts)
         return torch.where(mask, q, _NEG)
 

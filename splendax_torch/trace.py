@@ -129,6 +129,11 @@ def counter(name: str) -> int:
     return _counters.get(name, 0)
 
 
+def counters(prefix: str) -> dict:
+    """Every counter whose name starts with `prefix`: {name: total}."""
+    return {k: v for k, v in _counters.items() if k.startswith(prefix)}
+
+
 def zero(prefix: str) -> None:
     """Set every counter whose name starts with `prefix` to 0."""
     for k in _counters:

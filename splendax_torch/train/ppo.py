@@ -289,10 +289,10 @@ def rollout_turn(cfg: PPOConfig, weights, pool, env_state, obs, mask, opp_idx, r
     policy = _opponent_policy(cfg, pool, opp_idx, generator, search_draws, mesh)
     if ring is None:
         env_state, out, obs_next, mask_next, done = dual.dual_step_autoreset(
-            env_state, action, policy, generator, cfg.rng_mode, fresh=fresh, mesh=mesh)
+            env_state, action, policy, generator, cfg.rng_mode, fresh=fresh, mesh=mesh, mask=mask)
     else:
         env_state, out, obs_next, mask_next, done, ring = dual.dual_step_autoreset_ring(
-            env_state, action, policy, ring, cfg.rng_mode, mesh=mesh)
+            env_state, action, policy, ring, cfg.rng_mode, mesh=mesh, mask=mask)
     # Per-slot outcome counts only where PFSP reads them; against a heuristic
     # the credit would go to pool slots that did not play.
     if cfg.opponent_sampling == "pfsp" and cfg.self_play:

@@ -412,16 +412,17 @@ def test_fast_mode_on_the_card_equals_the_cpu(cuda):
 @pytest.mark.cuda
 def test_token_return_launches_once_per_fast_apply(cuda, monkeypatch):
     """`token_return.launches` rises by one for each fast-mode
-    `apply_action` on the card, over one league update with the static
-    search slot (the plies, the search's children and playouts); a parity
-    update launches none."""
+    `apply_action` on the card, eager or in a graph replay, over one league
+    update with the static search slot (the plies, the search's children
+    and playouts); a parity update launches none."""
     from splendax_torch.engine import rules
 
     calls = []
     inner = rules._auto_return_tokens
 
     def counted(state, p, rng_mode):
-        calls.append(rng_mode == "fast" and state.bank.is_cuda and p.shape[0] > 0)
+        if not torch.cuda.is_current_stream_capturing():  # an eager apply
+            calls.append(rng_mode == "fast" and state.bank.is_cuda and p.shape[0] > 0)
         return inner(state, p, rng_mode)
 
     monkeypatch.setattr(rules, "_auto_return_tokens", counted)
@@ -432,13 +433,21 @@ def test_token_return_launches_once_per_fast_apply(cuda, monkeypatch):
                         search_horizon=2, **extra)
         ts = ppo.init_train_state(cfg, device=cuda)
         calls.clear()
-        before = tr.launches
+        before, replayed = tr.launches, graph_token_returns()
         ppo.update_step(cfg, ts)
-        assert tr.launches - before == sum(calls)
+        # A capture runs nothing; each replay runs the applies its graph holds.
+        assert tr.launches - before == sum(calls) + graph_token_returns() - replayed
         if mode == "fast":
-            assert sum(calls) > 2 * cfg.num_steps
+            assert tr.launches - before > 2 * cfg.num_steps and graph_token_returns() > replayed
         else:
-            assert len(calls) > 0 and sum(calls) == 0
+            assert len(calls) > 0 and sum(calls) == 0 and graph_token_returns() == replayed
+
+
+def graph_token_returns() -> int:
+    """The token-return launches every graph replay so far has run."""
+    from splendax_torch.env import graphed
+
+    return sum(g["replays"] * g["token_returns"] for g in graphed.captured())
 
 
 def check_wgmma(w, obs, mask, route="wgmma"):
@@ -883,7 +892,8 @@ def test_every_blocking_read_goes_through_trace_sync(cuda, path):
     """Every synchronising call of an update (each slot mode, parity mode,
     the ring-less reset) and of a Gumbel eval, after a first run that makes
     the cached tables, goes through `trace.sync`, so the per-update records
-    count every place the host waits on the device."""
+    count every place the host waits on the device: in a run that captures
+    the CUDA graphs of its plies and in one that replays them."""
     from splendax_torch.eval import suite
     from splendax_torch.search import gumbel
 
@@ -903,8 +913,176 @@ def test_every_blocking_read_goes_through_trace_sync(cuda, path):
 
         def run():
             state[0], _ = ppo.update_step(cfg, state[0])
+    from splendax_torch.env import graphed
+
     run()
     torch.cuda.synchronize()
+    # The graphs captured anew under the mode (each capture a `graph.capture`
+    # sync), then replayed.
+    graphed.reset()
     found = unrouted_syncs(run)
+    replays = sum(g["replays"] for g in graphed.captured())
+    found.update((f"replaying: {k}", n) for k, n in unrouted_syncs(run).items())
     print(f"{path}: synchronising calls outside trace.sync {found}")
     assert found == {}
+    if path != "parity":  # parity mode runs eagerly
+        assert sum(g["replays"] for g in graphed.captured()) > replays > 0
+
+
+# ---- CUDA graphs over the fast-mode plies (env/graphed) ---------------------
+
+def _fuzzed_states(B: int, seed: int, cuda):
+    """B games on the card after 0 to 199 uniformly random legal plies each
+    (eager): token returns, nobles, reserves, games over, turn-limit draws."""
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state
+    from splendax_torch.env import core
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    st = initial_state(B, g, cuda)
+    stop = torch.randint(0, 200, (B,), generator=g, device=cuda)
+    for ply in range(200):
+        mask = rules.legal_mask(st)
+        nxt, _ = core.step(st, uniform_legal_action(mask, g), mask=mask)
+        st = core.select(stop > ply, nxt, st)
+    return st, g
+
+
+def _graph_sites(B: int, st, g, cuda) -> dict:
+    """{site: (fn, inputs of 3 calls)} at lane batch B: the dual turn's
+    plies and reset, the Gumbel search's children (m 8, or 16 at B = 9,600)
+    and lanes, a playout step; each call on other games, ~3% of the actions
+    illegal."""
+    from splendax_torch.engine import rules
+    from splendax_torch.search import gumbel, mc
+    from splendax_torch.selfplay import dual
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    m = 16 if B == 9600 else 8
+
+    def games(n):
+        rows = torch.randint(0, B, (n,), generator=g, device=cuda)
+        return st.map(lambda x: x[rows])
+
+    def actions(mask):
+        a = uniform_legal_action(mask, g)
+        wild = torch.rand(a.shape, generator=g, device=cuda) < 0.03
+        return torch.where(wild, torch.randint(0, 45, a.shape, generator=g, device=cuda), a)
+
+    sites = {}
+    calls = {k: [] for k in ("dual.agent", "dual.opponent", "dual.reset", "gumbel.children",
+                             "gumbel.lanes", "mc.playout")}
+    for _ in range(3):
+        s = games(B)
+        mask = rules.legal_mask(s)
+        a = actions(mask)
+        calls["dual.agent"].append((s, a, mask))
+        s1, out = dual._agent_ply(s, a, mask)
+        calls["dual.opponent"].append((s1, actions(out.action_mask), out.action_mask,
+                                       out.terminated, out.reward, out.final_rewards,
+                                       out.turn_limit))
+        calls["dual.reset"].append((torch.rand(B, generator=g, device=cuda) < 0.1, games(B), s))
+        root = games(B // m)
+        calls["gumbel.children"].append((root, torch.randint(0, 45, (B // m, m), generator=g,
+                                                             device=cuda)))
+        calls["gumbel.lanes"].append((s, torch.randint(0, B, (B,), generator=g, device=cuda)))
+        calls["mc.playout"].append((s, a, mask))
+    fns = {"dual.agent": dual._agent_ply, "dual.opponent": dual._opponent_ply,
+           "dual.reset": dual._reset, "gumbel.children": gumbel.children,
+           "gumbel.lanes": gumbel._lanes, "mc.playout": mc.playout_step}
+    return {k: (fns[k], calls[k]) for k in fns}
+
+
+def _same(got, want) -> None:
+    from splendax_torch.env import graphed
+
+    g_leaves, w_leaves = [], []
+    assert graphed._flatten(got, g_leaves) == graphed._flatten(want, w_leaves)
+    for i, (x, y) in enumerate(zip(g_leaves, w_leaves)):
+        assert x.dtype == y.dtype and torch.equal(x, y), f"output {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8192, 32768, 9600])
+def test_graphed_plies_equal_the_eager_functions(cuda, B):
+    """At the dual turn's B (8,192), the static slot's search lanes (32,768)
+    and the eval's (9,600), on fuzzed games: each graphed site's first call
+    (eager), second (capture and replay) and third (replay) equal the eager
+    function bit for bit, every state field, obs, mask and field; outputs
+    held across later replays stay intact and share no memory with the
+    graph; a ply's replay adds one token-return launch."""
+    from splendax_torch.env import graphed
+
+    graphed.reset()
+    st, g = _fuzzed_states(B, B, cuda)
+    for site, (fn, calls) in _graph_sites(B, st, g, cuda).items():
+        outs = []
+        for i, args in enumerate(calls):
+            before = tr.launches
+            outs.append(graphed.call(site, fn, *args))
+            if i == 2:
+                applies = site in ("dual.agent", "dual.opponent", "gumbel.children", "mc.playout")
+                assert tr.launches - before == applies, site
+        held = [g for g in graphed._graphs.values() if g.site == site]
+        assert len(held) == 1 and held[0].replays == 2, site
+        static = {t.data_ptr() for t in held[0].outputs + held[0].inputs}
+        for args, out in zip(calls, outs):  # after every replay of the site
+            _same(out, fn(*args))
+            leaves = []
+            graphed._flatten(out, leaves)
+            assert not static & {t.data_ptr() for t in leaves}, site
+    print(f"B={B}: " + "; ".join(f"{c['site']} {c['token_returns']} token return(s) a replay"
+                                 for c in graphed.captured()))
+
+
+@pytest.mark.cuda
+def test_graphs_are_captured_in_the_first_operation_only(cuda):
+    """A league update with the static slot captures every graph of its
+    plies, search children, lanes and playouts; a second and a third update
+    replay them and capture nothing.  Likewise a second Gumbel eval."""
+    from splendax_torch import trace
+    from splendax_torch.env import graphed
+    from splendax_torch.eval import suite
+    from splendax_torch.search import gumbel
+
+    def sites():
+        out = {}
+        for c in graphed.captured():
+            out[c["site"]] = out.get(c["site"], 0) + 1
+        return out
+
+    def replays():
+        return sum(c["replays"] for c in graphed.captured())
+
+    graphed.reset()
+    cfg = PPOConfig(num_envs=256, num_steps=4, hidden=64, pool_size=3, minibatch_size=512,
+                    update_epochs=1, total_timesteps=256 * 4 * 8, search_opponent=True,
+                    search_static=True, search_m=4, search_k0=2, search_horizon=2)
+    ts = ppo.init_train_state(cfg, device=cuda)
+    ts, _ = ppo.update_step(cfg, ts)
+    first = sites()
+    assert first == {"dual.agent": 1, "dual.opponent": 1, "dual.reset": 1,
+                     "gumbel.children": 1, "gumbel.lanes": 1, "mc.playout": 1}, first
+    for _ in range(2):
+        r = replays()
+        ts, _ = ppo.update_step(cfg, ts)
+        rec = trace.records("update")[-1]["counters"]
+        assert sites() == first and replays() > r
+        assert not any(k.startswith("graph.capture.") for k in rec), rec
+        assert rec["graph.replay.dual.agent"] == cfg.num_steps, rec
+
+    graphed.reset()
+    params = ac.ActorCritic(64, torch.Generator(device=cuda).manual_seed(0), cuda)
+    bot = gumbel.gumbel_search_policy(m=4, k0=2, horizon=2,
+                                      params=fac.PreparedWeights(ac.kernel_weights(params)))
+    opp = suite.model_greedy_policy(params)
+    suite.eval_vs_opponent(bot, opp, 16, seed=1, device=cuda)
+    first = sites()
+    assert first == {"dual.agent": 1, "dual.opponent": 1, "dual.observe": 1,
+                     "gumbel.children": 1, "gumbel.lanes": 1, "mc.playout": 1}, first
+    r = replays()
+    suite.eval_vs_opponent(bot, opp, 16, seed=2, device=cuda)
+    rec = trace.records("eval")[-1]["counters"]
+    assert sites() == first and replays() > r
+    assert not any(k.startswith("graph.capture.") for k in rec), rec
