@@ -52,13 +52,17 @@ Phases, in order; any failure exits non-zero:
      one (built with PROBE_OLD_PREP beside the libraries in phase 1), equal the
      plain preparation bit for bit at H = 64, 256, 768, 769, 1024, 1280 and
      2048, with and without the critic, and are timed in turns at H = 768,
-     1024 and 1280.  The token-return kernel equals its plain version on
-     fuzzed hands at B = 8192 and 36,000 and on 8192 games in play, and is
-     timed beside it;
-     Then the plies' CUDA graphs (`env/graphed`): the agent's ply and a
-     playout step at B = 8,192 and 32,768 on fuzzed games, each replay bit
-     for bit against the eager function, both timed (host ms to issue, wall
-     ms, device ms, kernels a call) with the memory a graph holds;
+     1024 and 1280.  The step kernel's token return equals the plain
+     version on fuzzed hands at B = 8192 and 36,000 and on 8192 games in
+     play.  The ply's kernels (`ops/engine_ply`) equal the plain
+     functions at the static league cell's calls (the agent's ply, a
+     playout step, the search's children; the reset, the lanes, the turn's
+     observation) and are timed beside them;
+     Then the plies' CUDA graphs (`env/graphed`): each graph site at the
+     static league cell's shapes, with the ply's kernels and, as before
+     them, with the plain functions, each replay bit for bit against the
+     eager function and the two against each other, both timed (host ms to
+     issue, device ms, kernels a replay) with the memory a graph holds;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
   9. the searches: without a network, `determinize`, the Gumbel search
@@ -818,23 +822,132 @@ def phase_kernels(device) -> dict:
           f"index_select {library_ms:.5f} ms; bound {results['ring_take']['bound_ms']:.5f} ms "
           f"by bytes; host {host_ms:.4f} ms per call (index_select {library_host_ms:.4f})",
           flush=True)
-    results["token_return"] = kernel_token_return(device)
+    kernel_token_return(device)
+    results.update(kernel_engine_ply(device))
     return results
 
 
-def kernel_token_return(device) -> dict:
-    """The token-return kernel exact against its plain version on fuzzed
-    hands (every k from 0 to 12, gold-only hands, hands past 22) at
-    B = 8192 (the league's plies) and 36,000 (flat MC's lanes at 100 games),
-    and on the post-move states of 8192 games in play; each timed on the
-    device clock and on the host's beside the plain version.  Bound: each
-    lane's 80 bytes read and 72 written once, HBM3."""
+def kernel_engine_ply(device) -> dict:
+    """The fast-mode ply's kernels (`ops/engine_ply`) bit for bit against the
+    plain functions on the card, at the static league cell's calls
+    (`_site_inputs`): the step kernel as the agent's ply (mask given, obs,
+    live mask; 8,192 games), a playout step (frozen lanes, obs and mask;
+    32,768) and the search's children (apply only, 1,024 x 8); the observe
+    kernel as the reset (select; 8,192), the lanes (gathered rows, obs and
+    mask; 8,192 of 8,192) and the turn's observation (mask & ~done; 8,192).
+    Each timed on the device clock and the host's beside the plain
+    functions, eagerly.  Bound: each call's bytes read and written once,
+    HBM3."""
+    import torch
+
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.encode import encode_observation
+    from splendax_torch.env import core
+    from splendax_torch.ops import engine_ply as ep
+    from splendax_torch.search.mc import repeat_rows
+
+    t0 = time.perf_counter()
+    site = _site_inputs(device, 23)
+    st, a, mask = site["dual.agent"]
+    lanes, la, lmask = site["mc.playout"]
+    root, cand = site["gumbel.children"]
+    done, fresh, cur = site["dual.reset"]
+    child, lane_child = site["gumbel.lanes"]
+    state_b, deck_b, obs_b = 74 * 4, 120 * 4, 297 * 4  # a game's record, deck_perm, obs
+
+    def leaves(x):
+        out = []
+        for v in (x if isinstance(x, tuple) else (x,)):
+            out += [t for _, t in v.items()] if hasattr(v, "items") else [v]
+        return out
+
+    def playout_plain():
+        nxt = core.select(rules.is_terminal(lanes), lanes,
+                          core.step_core_plain(lanes, la, mask=lmask)[0])
+        return nxt, encode_observation(nxt), rules.legal_mask(nxt)
+
+    def reset_plain():
+        carry = core.select(done, fresh, cur)
+        return carry, encode_observation(carry), rules.legal_mask(carry)
+
+    def lanes_plain():
+        flat = child.map(lambda x: x[lane_child])
+        return flat, encode_observation(flat), rules.legal_mask(flat)
+
+    cases = {
+        "engine_ply_step": [
+            ("agent ply B=8192", 8192,
+             lambda: ep.step(st, a, mask, with_obs=True, with_mask=True, mask_live=True),
+             lambda: core.step_plain(st, a, mask=mask),
+             lambda got: (got[0], got[1]["reward"], got[2], got[3]),
+             lambda want: (want[0], want[1].reward, want[1].obs, want[1].action_mask),
+             state_b + 4 + 8 + 45 + state_b + 16 + obs_b + 45),
+            ("playout step B=32768", 32768,
+             lambda: ep.step(lanes, la, lmask, freeze_terminal=True, with_obs=True,
+                             with_mask=True),
+             playout_plain, lambda got: (got[0], got[2], got[3]), lambda want: want,
+             state_b + 4 + 8 + 45 + state_b + 16 + obs_b + 45),
+            ("children 1024 x 8", 8192,
+             lambda: ep.step(root, cand.reshape(-1), apply_only=True, repeat=8),
+             lambda: rules.apply_action_plain(repeat_rows(root, 8), cand.reshape(-1)),
+             lambda got: got[0], lambda want: want,
+             (state_b + deck_b) / 8 + 8 + state_b + deck_b),
+        ],
+        "engine_ply_observe": [
+            # A lane reads the one row it selects (fresh or the state), and done.
+            ("reset select B=8192", 8192, lambda: ep.observe(cur, fresh=fresh, done=done),
+             reset_plain, lambda got: got, lambda want: want,
+             (state_b + deck_b) + 1 + state_b + deck_b + obs_b + 45),
+            ("lanes gather B=8192", 8192, lambda: ep.observe(child, rows=lane_child),
+             lanes_plain, lambda got: got, lambda want: want,
+             state_b + deck_b + 8 + state_b + deck_b + obs_b + 45),
+            ("observation B=8192", 8192, lambda: ep.observe(cur, done=done, mask_off=True),
+             lambda: (encode_observation(cur), rules.legal_mask(cur) & ~done[:, None]),
+             lambda got: got[1:], lambda want: want, state_b + 1 + obs_b + 45),
+        ],
+    }
+    results = {}
+    for name, rows in cases.items():
+        shapes = []
+        for label, n, run, plain, pick, pick_plain, per_lane in rows:
+            got, want = leaves(pick(run())), leaves(pick_plain(plain()))
+            check(len(got) == len(want) and all(
+                x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want)),
+                f"{name} {label}: the kernel differs from the plain functions")
+            ms, host_ms = device_ms(run, 100)
+            plain_ms, plain_host_ms = device_ms(plain, 5)
+            bound_ms = n * per_lane / H100_BYTES_PER_S * 1e3
+            shapes.append(dict(call=label, lanes=n, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                               plain_host_ms=plain_host_ms, bound_ms=bound_ms))
+            print(f"{name} {label}: exact; {ms:.5f} ms (device clock), host {host_ms:.4f} ms a "
+                  f"call; plain {plain_ms:.5f} ms, host {plain_host_ms:.4f} ms; bound "
+                  f"{bound_ms:.5f} ms by bytes ({per_lane:.0f} a lane)", flush=True)
+        first = shapes[0]
+        results[name] = dict(max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
+                             library_ms=None, bound_ms=first["bound_ms"], bound_by="bytes",
+                             host_ms=first["host_ms"], bound_peak="HBM3, 3.35 TB/s",
+                             by_shape=shapes)
+    print(f"the ply's kernels: checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
+def kernel_token_return(device) -> None:
+    """The step kernel's token return (`csrc/token_return.cuh`) exact
+    against `return_tokens_plain` on fuzzed hands (every k from 0 to 12,
+    gold-only hands, hands past 22) at B = 8192 (the league's plies) and
+    36,000 (flat MC's lanes at 100 games), and on the post-move hands of
+    8192 games in play.  Each hand's game reserves a visible card with no
+    gold in the bank, a move that leaves the tokens as they are, so the
+    kernel's return is of the hand itself."""
     t0 = time.perf_counter()
     import numpy as np
     import torch
 
+    from splendax_torch.engine import data as D
     from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state
     from splendax_torch.env import core
+    from splendax_torch.ops import engine_ply as ep
     from splendax_torch.ops import token_return as tr
     from splendax_torch.selfplay.opponents import uniform_legal_action
 
@@ -848,62 +961,107 @@ def kernel_token_return(device) -> dict:
             st, out = core.step(st, uniform_legal_action(mask, g), mask=mask)
             mask = out.action_mask
         moved = rules._grant_noble(rules._apply_move(st, uniform_legal_action(mask, g).long()))
-        return {"tokens": moved.tokens, "bank": moved.bank, "to_play": moved.to_play,
+        return {"tokens": moved.tokens, "bank": moved.bank.clone(), "to_play": moved.to_play,
                 "turn_count": moved.turn_count}
 
-    shapes = []
     for label, B, h in (
             ("fuzzed", 8192, None), ("fuzzed", 36000, None), ("in play", 8192, post_move(8192, 24, 5))):
         if h is None:
             h = {k: torch.from_numpy(v).to(device)
                  for k, v in fuzzed_hands(np.random.RandomState(B), B).items()}
-        before = tr.launches
-        got, want = tr.return_tokens(**h), tr.return_tokens_plain(**h)
-        check(tr.launches == before + 1, "token return: not one launch a call")
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"token return: the kernel differs from the plain version ({label}, B={B})")
+        h["bank"][:, D.GOLD] = 0
+        st = initial_state(B, torch.Generator(device=device).manual_seed(B), device).replace(**h)
+        a = torch.full((B,), rules.RESERVE_VISIBLE_OFFSET, dtype=torch.int64, device=device)
+        before = ep.launches["step"]
+        got, want = rules.apply_action(st, a), tr.return_tokens_plain(**h)
+        check(ep.launches["step"] == before + 1, "token return: not one step launch a call")
+        check(torch.equal(got.tokens, want[0]) and torch.equal(got.bank, want[1]),
+              f"token return: the step kernel differs from the plain version ({label}, B={B})")
         k = (h["tokens"][torch.arange(B, device=device), h["to_play"].long()].sum(1) - 10).clamp(min=0)
         if label == "fuzzed":
             check(set(range(13)) <= set(k.tolist()), f"token return: fuzzed k {sorted(set(k.tolist()))}")
-        ms, host_ms = device_ms(lambda: tr.return_tokens(**h), 100)
-        plain_ms, plain_host_ms = device_ms(lambda: tr.return_tokens_plain(**h), 5)
-        bound_ms = B * (80 + 72) / H100_BYTES_PER_S * 1e3
-        shapes.append(dict(inputs=label, B=B, over_cap=int((k > 0).sum()), ms=ms, host_ms=host_ms,
-                           plain_ms=plain_ms, plain_host_ms=plain_host_ms, bound_ms=bound_ms))
-        print(f"token return {label} B={B} ({shapes[-1]['over_cap']} over the cap): exact; "
-              f"{ms:.5f} ms (device clock), host {host_ms:.4f} ms a call; plain {plain_ms:.5f} ms, "
-              f"host {plain_host_ms:.4f} ms; bound {bound_ms:.5f} ms by bytes", flush=True)
-    print(f"token return: checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
-    first = shapes[0]
-    return dict(max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"], library_ms=None,
-                bound_ms=first["bound_ms"], bound_by="bytes", host_ms=first["host_ms"],
-                bound_peak="HBM3, 3.35 TB/s", by_shape=shapes)
+        print(f"token return {label} B={B} ({int((k > 0).sum())} over the cap): the step kernel's "
+              "exact", flush=True)
+    print(f"token return: checked in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def phase_graphs(device) -> dict:
-    """The plies' CUDA graphs (`env/graphed`) against the eager functions:
-    the agent's ply (`core.step` from its mask) and a playout step, at
-    B = 8,192 and 32,768 on games 0 to 199 random plies deep.  Three calls
-    each (eager; capture and replay; replay) equal the eager function bit
-    for bit, checked after the last replay, and a replay adds one
-    token-return launch.  Each is timed eager and replayed: the host's ms to
-    issue a call, the wall ms a call with its device work (`device_ms`),
-    the device ms, and the kernels a call as the profiler counts them; the
-    memory a graph holds (allocated once its outputs are dropped)."""
+def _site_inputs(device, seed: int) -> dict:
+    """{site: args} of one call of each graphed site at the static league
+    cell's shapes: the dual turn's plies and reset at 8,192 games, the
+    Gumbel search's children (1,024 games x m 8) and lanes (8,192 from
+    them), a playout step at 32,768 lanes; games 0 to 199 random plies deep,
+    ~3% of the actions illegal."""
     import torch
 
     from splendax_torch.engine import rules
     from splendax_torch.engine.state import initial_state
-    from splendax_torch.env import core, graphed
-    from splendax_torch.ops import token_return as tr
-    from splendax_torch.search import mc
+    from splendax_torch.env import core
     from splendax_torch.selfplay import dual
     from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    st = initial_state(32768, g, device)
+    stop = torch.randint(0, 200, (32768,), generator=g, device=device)
+    for ply in range(200):
+        mask = rules.legal_mask(st)
+        nxt, _ = core.step(st, uniform_legal_action(mask, g), mask=mask)
+        st = core.select(stop > ply, nxt, st)
+
+    def games(n):
+        rows = torch.randint(0, 32768, (n,), generator=g, device=device)
+        return st.map(lambda x: x[rows])
+
+    def actions(mask):
+        a = uniform_legal_action(mask, g)
+        wild = torch.rand(a.shape, generator=g, device=device) < 0.03
+        return torch.where(wild, torch.randint(0, 45, a.shape, generator=g, device=device), a)
+
+    s = games(8192)
+    mask = rules.legal_mask(s)
+    a = actions(mask)
+    s1, out = dual._agent_ply(s, a, mask)
+    lanes = games(32768)
+    lane_mask = rules.legal_mask(lanes)
+    return {
+        "dual.agent": (s, a, mask),
+        "dual.opponent": (s1, actions(out.action_mask), out.action_mask, out.terminated,
+                          out.reward, out.final_rewards, out.turn_limit),
+        "dual.reset": (torch.rand(8192, generator=g, device=device) < 0.1, games(8192), s),
+        "gumbel.children": (games(1024), torch.randint(0, 45, (1024, 8), generator=g,
+                                                       device=device)),
+        "gumbel.lanes": (games(8192), torch.randint(0, 8192, (8192,), generator=g,
+                                                    device=device)),
+        "mc.playout": (lanes, actions(lane_mask), lane_mask),
+    }
+
+
+def phase_graphs(device) -> dict:
+    """The plies' CUDA graphs (`env/graphed`) at each site, with the ply's
+    kernels (`ops/engine_ply`) and, as before them, with the plain functions
+    (the dispatch `engine_ply.takes` held false): at the static league cell's
+    shapes (`_site_inputs`), three calls each (eager; capture and replay;
+    replay) equal the eager function bit for bit, checked after the last
+    replay, and the kernels' outputs equal the plain functions'; a replay
+    with the kernels adds one launch of them.  Each graph is timed: the
+    host's ms to issue a replay, the device ms and the kernels a replay as
+    the profiler counts them, and the memory a graph holds (allocated once
+    its outputs are dropped)."""
+    import torch
+
+    from splendax_torch.env import graphed
+    from splendax_torch.ops import engine_ply as ep
+    from splendax_torch.search import gumbel, mc
+    from splendax_torch.selfplay import dual
 
     def leaves(x):
         out = []
         graphed._flatten(x, out)
         return out
+
+    def same(a, b):
+        la, lb = leaves(a), leaves(b)
+        return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                          for x, y in zip(la, lb))
 
     def issue_ms(fn, n=20):
         torch.cuda.synchronize()
@@ -918,54 +1076,59 @@ def phase_graphs(device) -> dict:
         k = profiled_kernels(lambda: [fn() for _ in range(n)])
         return sum(e.count for e in k) / n
 
+    fns = {"dual.agent": dual._agent_ply, "dual.opponent": dual._opponent_ply,
+           "dual.reset": dual._reset, "gumbel.children": gumbel.children,
+           "gumbel.lanes": gumbel._lanes, "mc.playout": mc.playout_step}
+    takes = ep.takes
     t0 = time.perf_counter()
     rows = []
-    for B in (8192, 32768):
-        g = torch.Generator(device=device).manual_seed(B)
-        st = initial_state(B, g, device)
-        stop = torch.randint(0, 200, (B,), generator=g, device=device)
-        for ply in range(200):
-            mask = rules.legal_mask(st)
-            nxt, _ = core.step(st, uniform_legal_action(mask, g), mask=mask)
-            st = core.select(stop > ply, nxt, st)
-        for site, fn in (("smoke.ply", dual._agent_ply), ("smoke.playout", mc.playout_step)):
-            calls = []
-            for _ in range(3):
-                perm = torch.randperm(B, generator=g, device=device)
-                s = st.map(lambda x: x[perm])
-                m = rules.legal_mask(s)
-                calls.append((s, uniform_legal_action(m, g), m))
-            torch.cuda.synchronize()
-            alloc0 = torch.cuda.memory_allocated()
-            outs = []
-            for a in calls:
-                before = tr.launches
-                outs.append(graphed.call(site, fn, *a))
-                check(tr.launches == before + 1, f"{site} B={B}: not one token return a call")
-            for a, out in zip(calls, outs):
-                want, got = leaves(fn(*a)), leaves(out)
-                check(len(want) == len(got) and all(
-                    x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want)),
-                      f"{site} B={B}: the replay differs from the eager function")
-            del outs
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated() - alloc0
-            eager, replay = (lambda: fn(*calls[0])), (lambda: graphed.call(site, fn, *calls[0]))
-            row = dict(site=site, B=B, graph_bytes_held=held)
-            for name, f in (("eager", eager), ("replay", replay)):
-                row[name + "_issue_ms"] = issue_ms(f)
-                row[name + "_ms"], row[name + "_wall_ms"] = device_ms(f, 20)
-                row[name + "_kernels"] = kernels_a_call(f)
-            rows.append(row)
-            print(f"graph {site} B={B}: exact over 3 calls; eager: host {row['eager_issue_ms']:.3f}"
-                  f" ms to issue, {row['eager_wall_ms']:.3f} ms wall, {row['eager_ms']:.3f} ms "
-                  f"device, {row['eager_kernels']:.0f} kernels; replay: host "
-                  f"{row['replay_issue_ms']:.3f} ms, {row['replay_wall_ms']:.3f} ms wall, "
-                  f"{row['replay_ms']:.3f} ms device, {row['replay_kernels']:.0f} kernels; "
-                  f"the graph holds {held} bytes", flush=True)
+    graphed.reset()
+    sites = _site_inputs(device, 22)
+    for site, args in sites.items():
+        fn = fns[site]
+        row = dict(site=site, rows=leaves(args)[0].shape[0])
+        outs = {}
+        for when in ("before", "after"):
+            name = f"smoke.{when}.{site}"
+            plain = when == "before"
+            ep.takes = (lambda x, rng_mode: False) if plain else takes
+            try:
+                got = []
+                torch.cuda.synchronize()
+                alloc0 = torch.cuda.memory_allocated()
+                for i in range(3):
+                    before = sum(ep.launches.values())
+                    got.append(graphed.call(name, fn, *args))
+                    if i == 2:
+                        check(sum(ep.launches.values()) - before == (0 if plain else 1),
+                              f"graph {site}: the replay's launches of the ply's kernels")
+                for out in got:
+                    check(same(out, fn(*args)), f"graph {site} ({when}): a replay differs from "
+                          "the eager function")
+                outs[when] = got[-1]
+                del got
+                torch.cuda.synchronize()
+                row[when + "_graph_bytes_held"] = torch.cuda.memory_allocated() - alloc0
+                replay = (lambda: graphed.call(name, fn, *args))
+                row[when + "_issue_ms"] = issue_ms(replay)
+                row[when + "_ms"], row[when + "_wall_ms"] = device_ms(replay, 20)
+                row[when + "_kernels"] = kernels_a_call(replay)
+            finally:
+                ep.takes = takes
+        check(same(outs["after"], outs["before"]),
+              f"graph {site}: the kernels' replay differs from the plain functions'")
+        rows.append(row)
+        print(f"graph {site} ({row['rows']} rows in): exact, the kernels equal to the plain "
+              f"functions; before (plain): {row['before_ms']:.4f} ms device in "
+              f"{row['before_kernels']:.0f} kernels, host {row['before_issue_ms']:.3f} ms to "
+              f"issue; after (kernels): {row['after_ms']:.4f} ms device in "
+              f"{row['after_kernels']:.0f} kernels, host {row['after_issue_ms']:.3f} ms; the "
+              f"graph holds {row['after_graph_bytes_held']} bytes "
+              f"({row['before_graph_bytes_held']} before)", flush=True)
     print(f"graphs: {len(graphed.captured())} held by the process; checked and timed in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"graphs": rows}), flush=True)
+    graphed.reset()
     return rows
 
 
@@ -1000,6 +1163,8 @@ def phase_engine_agreement(device) -> None:
         for name, x in st_c.items():
             check(torch.equal(x, getattr(st_g, name).cpu()), f"engine: {name} differs at ply {ply}")
         for name, x, y in (("obs", obs_c, obs_g), ("mask", mask_c, mask_g),
+                           ("terminal obs", out_c.obs, out_g.obs),
+                           ("terminal mask", out_c.action_mask, out_g.action_mask),
                            ("reward", out_c.reward, out_g.reward),
                            ("final_rewards", out_c.final_rewards, out_g.final_rewards),
                            ("ptr", cpu_ring.ptr, gpu_ring.ptr)):
@@ -2866,8 +3031,11 @@ def run_phases() -> int:
         "fused_actor_critic_wide_pass": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_wide_half": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "ring_take": ("splendax_torch/csrc/ring_take.cu", "splendax/ops/ring_take.py:38"),
-        "token_return": ("splendax_torch/csrc/token_return.cu",
-                         "none: a port kernel (splendax/engine/rules.py:342, fast mode)"),
+        "engine_ply_step": ("splendax_torch/csrc/engine_ply.cu",
+                            "none: a port kernel (splendax/env/core.py step, XLA-fused)"),
+        "engine_ply_observe": ("splendax_torch/csrc/engine_ply.cu",
+                               "none: a port kernel (splendax/engine/encode.py and "
+                               "rules.legal_mask, XLA-fused)"),
     }
     rows = []
     for name, (source, replaces) in meta.items():

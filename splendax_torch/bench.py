@@ -92,7 +92,7 @@ from .env import core
 from .env import ring as ring_lib
 from .ops import fused_actor_critic as fac
 from .ops import ring_take as rt
-from .ops import token_return as tr
+from .ops import engine_ply as ep
 from .selfplay.opponents import uniform_legal_action
 from .train.config import PPOConfig
 
@@ -170,14 +170,16 @@ def derived_modes():
 def kernel_launches() -> dict:
     """The kernels' own launch counters (`read_launches` without the
     derived modes and the graphs)."""
-    return {**fac.launch_counts(), "ring_take": rt.launches, "token_return": tr.launches}
+    return {**fac.launch_counts(), "ring_take": rt.launches,
+            **{f"engine_ply_{k}": n for k, n in ep.launches.items()}}
 
 
 def read_launches() -> dict:
     """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
     by route and by the wgmma and wide routes' modes, its weight
-    preparations, kernel B, the token return's kernel and the plies' CUDA
-    graphs (captures, replays); and the modes derived from the forwards' B
+    preparations, kernel B, the ply's kernels
+    (`engine_ply_step`, `engine_ply_observe`) and the plies' CUDA graphs
+    (captures, replays); and the modes derived from the forwards' B
     and the preparations derived from their weights."""
     return {**kernel_launches(), **{f"derived_{m}": n for m, n in DERIVED.items()},
             "graph_capture": sum(trace.counters("graph.capture.").values()),
@@ -187,7 +189,7 @@ def read_launches() -> dict:
 def zero_launches() -> None:
     trace.zero("kernel_a.")
     trace.zero("kernel_b.")
-    trace.zero("token_return.")
+    trace.zero("engine_ply.")
     trace.zero("graph.")
     for k in DERIVED:
         DERIVED[k] = 0

@@ -7,10 +7,14 @@ and are not carried over.  Actions are int tensors [B] in the 45-wide layout
 below.
 
 The token return that enforces the 10-token cap draws, in fast mode, its
-uniforms from a threefry key derived from the game state (`ops/token_return`,
-one kernel launch on the card) and, in parity mode, from CPython's MT19937
+uniforms from a threefry key derived from the game state (`ops/token_return`)
+and, in parity mode, from CPython's MT19937
 under the same seed (`mt19937`), bit for bit as in the JAX engine in both
 modes.
+
+On the card in fast mode `apply_action` is one launch of the ply's kernel
+(`ops/engine_ply`); `apply_action_plain` is the same function in plain
+PyTorch, the CPU's and parity mode's path, which the kernel is held against.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import functools
 import torch
 
 from .. import trace
-from ..ops import token_return
+from ..ops import engine_ply, token_return
 from . import data as D
 from . import mt19937
 from .state import GameState, NUM_PLAYERS, TOKEN_CAP, TURN_LIMIT
@@ -277,16 +281,13 @@ def _auto_return_tokens(state: GameState, p: torch.Tensor, rng_mode: str) -> Gam
     """Return tokens until the mover holds at most 10: each draw returns one
     token of a uniformly chosen color among those held (gold only when no
     other color is left).  Fast mode draws from threefry seeded by the state
-    hash (`ops/token_return`: one kernel launch on the card, the plain
-    version on the CPU).  Parity mode draws from MT19937 under the same seed
+    hash (`ops/token_return`).  Parity mode draws from MT19937 under the same seed
     (`_return_tokens_mt`)."""
     if rng_mode not in ("fast", "parity"):
         raise ValueError(f"unknown rng_mode {rng_mode!r}")
     if rng_mode == "fast":
-        # tokens and bank are _apply_move's fresh tensors; the caller's
-        # to_play and turn_count may be strided views.
         tokens, bank = token_return.return_tokens(
-            state.tokens, state.bank, state.to_play.contiguous(), state.turn_count.contiguous())
+            state.tokens, state.bank, state.to_play, state.turn_count)
         return state.replace(tokens=tokens, bank=bank)
     T = tables(state.bank.device)
     B = p.shape[0]
@@ -323,7 +324,16 @@ def compute_winner(state: GameState) -> torch.Tensor:
 
 def apply_action(state: GameState, action: torch.Tensor, rng_mode: str = "fast") -> GameState:
     """The transition for LEGAL actions [B]; total for illegal ones, which
-    the env layer filters."""
+    the env layer filters.  On the card in fast mode one kernel launch
+    (`ops/engine_ply`), else `apply_action_plain`."""
+    if engine_ply.takes(state.to_play, rng_mode):
+        return engine_ply.step(state, action, apply_only=True)[0]
+    return apply_action_plain(state, action, rng_mode)
+
+
+def apply_action_plain(state: GameState, action: torch.Tensor,
+                       rng_mode: str = "fast") -> GameState:
+    """`apply_action` in plain PyTorch."""
     a = action.long()
     p = state.to_play.long()
     state = _apply_move(state, a)

@@ -1,7 +1,7 @@
 """Threefry-2x32 and `jax.random.uniform`'s bit-to-float rule, in torch.
 
-The fast-mode token return (`ops/token_return.return_tokens_plain`; its
-kernel, `csrc/token_return.cu`, draws the same bits) seeds a threefry key
+The fast-mode token return (`ops/token_return.return_tokens_plain`; on the
+card the ply's kernel, `csrc/engine_ply.cu`, draws the same bits) seeds a threefry key
 from the game state and draws its uniforms from it.  This module reproduces
 `jax.random.uniform(wrap_key_data([hi, lo], impl="threefry2x32"), (n,))` bit
 for bit, so the port's engine matches the JAX engine exactly in fast mode.

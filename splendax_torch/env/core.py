@@ -13,6 +13,11 @@ Edge cases, as in the JAX package:
   * the terminal reward is from the point of view of the player who just
     moved: +1/-1/0, or -0.1 for a turn-limit draw;
   * `final_rewards` holds both players' rewards once the game ends.
+
+On the card in fast mode `step_core` and `step` are one launch of the ply's
+kernel (`ops/engine_ply`); `step_core_plain` and `step_plain` are the same
+functions in plain PyTorch, the CPU's and parity mode's path, which the
+kernel is held against.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from ..engine import rules
 from ..engine.encode import encode_observation
 from ..engine.rules import TOTAL_ACTIONS
 from ..engine.state import GameState, initial_state
+from ..ops import engine_ply
 
 
 @dataclass
@@ -60,13 +66,20 @@ def step_core(state: GameState, action: torch.Tensor, rng_mode: str = "fast", ma
     """The transition with its reward and flags, without the observation
     encode or the next mask.  Returns (next_state, fields), where `fields`
     are the StepOutput fields other than obs and action_mask."""
+    if engine_ply.takes(state.to_play, rng_mode):
+        return engine_ply.step(state, action, mask)[:2]
+    return step_core_plain(state, action, rng_mode, mask)
+
+
+def step_core_plain(state: GameState, action: torch.Tensor, rng_mode: str = "fast", mask=None):
+    """`step_core` in plain PyTorch."""
     action = action.long().clamp(0, TOTAL_ACTIONS - 1)
     if mask is None:
         mask = rules.legal_mask(state)
     any_legal = mask.any(1)
     legal = mask.gather(1, action[:, None])[:, 0] & any_legal
 
-    applied = rules.apply_action(state, action, rng_mode=rng_mode)
+    applied = rules.apply_action_plain(state, action, rng_mode=rng_mode)
     no_move = ~any_legal
 
     def pick(name, cur, new):
@@ -112,7 +125,16 @@ def step_core(state: GameState, action: torch.Tensor, rng_mode: str = "fast", ma
 def step(state: GameState, action: torch.Tensor, rng_mode: str = "fast", mask=None):
     """One transition for each of B games.  `mask` may pass in the state's
     legal mask when the caller has it."""
-    next_state, fields = step_core(state, action, rng_mode=rng_mode, mask=mask)
+    if engine_ply.takes(state.to_play, rng_mode):
+        next_state, fields, obs, next_mask = engine_ply.step(
+            state, action, mask, with_obs=True, with_mask=True, mask_live=True)
+        return next_state, StepOutput(obs=obs, action_mask=next_mask, **fields)
+    return step_plain(state, action, rng_mode, mask)
+
+
+def step_plain(state: GameState, action: torch.Tensor, rng_mode: str = "fast", mask=None):
+    """`step` in plain PyTorch."""
+    next_state, fields = step_core_plain(state, action, rng_mode=rng_mode, mask=mask)
     obs = encode_observation(next_state)
     next_mask = rules.legal_mask(next_state) & ~fields["terminated"][:, None]
     return next_state, StepOutput(obs=obs, action_mask=next_mask, **fields)

@@ -1,9 +1,10 @@
 """CUDA graphs over the engine's fast-mode plies.
 
 A fast-mode ply -- the transition (`core.step_core`, `rules.apply_action`),
-the observation encode and the next legal mask -- is some 600 small kernels,
-each issued by the host.  `call(site, fn, *args)` runs `fn(*args)` on CUDA
-tensors as the replay of one `torch.cuda.CUDAGraph`:
+the observation encode and the next legal mask -- is one or two launches of
+the ply's kernels (`ops/engine_ply`) and the few selects and copies around
+them, each issued by the host.  `call(site, fn, *args)` runs `fn(*args)` on
+CUDA tensors as the replay of one `torch.cuda.CUDAGraph`:
 
   * a graph is captured lazily per key: the site, the arguments' structure,
     each tensor's shape, dtype and device, and the keyword arguments.  A
@@ -24,11 +25,11 @@ tensors as the replay of one `torch.cuda.CUDAGraph`:
 `fn(*args, rng_mode=..., **static)` must be a function of its tensor
 arguments alone: no blocking read (`trace.sync` inside a capture raises), no
 random draw, no tensor kept for later.  Kernel A stays outside every graph:
-its callers read and count each of its launches.  The token-return kernel
-launches on the current stream, so a capture records it; the capture runs
-nothing, so its launch counter is given back, and each replay adds the
-launches its graph holds to `token_return.launches`.  A span inside `fn`
-(`engine.token_return`) closes at the capture, not at a replay.
+its callers read and count each of its launches.  The ply's kernels
+(`engine_ply.launches.*`) launch on the current stream, so a capture records
+them; the capture runs nothing, so their launch counters are given back, and
+each replay adds the launches its graph holds.  A span inside `fn` closes at
+the capture, not at a replay.
 
 Counters (`splendax_torch.trace`): `graph.capture.<site>` and
 `graph.replay.<site>`; a capture blocks on the device (`torch.cuda.graph`
@@ -44,6 +45,7 @@ import torch
 from .. import trace
 
 MAX_GRAPHS = 4  # graphs a site keeps; a further key runs eagerly
+LAUNCHES = "engine_ply.launches."  # the ply kernels' counters
 
 _graphs: dict = {}  # key -> _Graph
 _seen: set = set()  # keys called once, eagerly
@@ -97,7 +99,7 @@ class _Graph:
         if _pool is None:
             _pool = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph()
-        launches = trace.counter("token_return.launches")
+        before = trace.counters(LAUNCHES)
 
         def capture():
             with torch.no_grad(), torch.cuda.graph(self.graph, pool=_pool):
@@ -108,8 +110,10 @@ class _Graph:
                 return out_spec, [t.contiguous() for t in flat]
 
         self.out_spec, self.outputs = trace.sync("graph.capture", capture)
-        self.token_returns = trace.counter("token_return.launches") - launches
-        trace.count("token_return.launches", -self.token_returns)  # the capture ran nothing
+        self.launches = {k: n - before.get(k, 0) for k, n in trace.counters(LAUNCHES).items()
+                         if n != before.get(k, 0)}
+        for k, n in self.launches.items():
+            trace.count(k, -n)  # the capture ran nothing
         self.out_groups = [([self.outputs[i] for i in idx], idx)
                            for _, idx in _by_dtype(self.outputs)]
         self.replays = 0
@@ -124,8 +128,8 @@ class _Graph:
             torch._foreach_copy_([fresh[i] for i in idx], static)
         self.replays += 1
         trace.count("graph.replay." + self.site)
-        if self.token_returns:
-            trace.count("token_return.launches", self.token_returns)
+        for k, n in self.launches.items():
+            trace.count(k, n)
         return _unflatten(self.out_spec, iter(fresh))
 
 
@@ -160,10 +164,10 @@ def call(site: str, fn, *args, rng_mode: str = "fast", **static):
 
 
 def captured() -> list:
-    """One dict per graph held: site, input shapes, the token-return
-    launches a replay adds, replays so far."""
+    """One dict per graph held: site, input shapes, the ply's kernel
+    launches a replay adds (`launches`, by counter), replays so far."""
     return [{"site": g.site, "shapes": [tuple(t.shape) for t in g.inputs],
-             "token_returns": g.token_returns, "replays": g.replays}
+             "launches": dict(g.launches), "replays": g.replays}
             for g in _graphs.values()]
 
 

@@ -39,6 +39,7 @@ from ..engine import data as D
 from ..engine import rules
 from ..engine.encode import encode_observation
 from ..engine.state import GameState, blank_batch, initial_state
+from ..ops import engine_ply
 from ..ops.ring_take import take_rows
 from ..parallel import collectives
 from . import core
@@ -148,16 +149,23 @@ def step_autoreset_ring(state: GameState, action: torch.Tensor, ring: FreshGameR
     terminal observation, reward and final rewards of each lane, while the
     carried state, obs and mask are the fresh game's where the lane is done.
     """
-    next_state, fields = core.step_core(state, action, rng_mode=rng_mode, mask=mask)
+    kernels = engine_ply.takes(state.to_play, rng_mode)
+    if kernels:
+        next_state, fields, obs, _ = engine_ply.step(state, action, mask, with_obs=True)
+    else:
+        next_state, fields = core.step_core_plain(state, action, rng_mode=rng_mode, mask=mask)
+        obs = encode_observation(next_state)
     done = fields["terminated"]
     fresh_state, _, ring = take(ring, done, mesh)
-    carry = core.select(done, fresh_state, next_state)
     # The encode and the mask are per-game functions, so computing them on
     # the selected carry equals selecting between fresh and stepped values.
-    obs_next = encode_observation(carry)
-    mask_next = rules.legal_mask(carry)
+    if kernels:
+        carry, obs_next, mask_next = engine_ply.observe(next_state, fresh=fresh_state, done=done)
+    else:
+        carry = core.select(done, fresh_state, next_state)
+        obs_next, mask_next = encode_observation(carry), rules.legal_mask(carry)
     out = core.StepOutput(
-        obs=encode_observation(next_state),
+        obs=obs,
         action_mask=mask_next & ~done[:, None],
         **fields,
     )

@@ -3,8 +3,11 @@
 Each source in `splendax_torch/csrc/` is compiled by `nvcc` for `sm_90a`
 into its own shared library with a plain C interface, under `build/kernels/`
 at the root of the checkout, and loaded with `ctypes`.  A library is built
-on first use, or again when its source is newer.  `build` starts one `nvcc`
-per source, all at once (`compile_many`).
+on first use, or again when its source, a header of `csrc/` or a generated
+header is newer.  `build` starts one `nvcc` per source, all at once
+(`compile_many`).  The generated header, `engine_tables.h` (the card and
+noble tables, `ops/engine_tables`), is written into `build/kernels/`, which
+is on nvcc's include path, before any compile.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("fused_actor_critic", "fused_actor_critic_wgmma", "ring_take", "token_return")
+SOURCES = ("fused_actor_critic", "fused_actor_critic_wgmma", "ring_take", "engine_ply")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,9 +45,19 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _write_headers() -> None:
+    from . import engine_tables
+
+    engine_tables.write(BUILD_DIR)
+
+
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    if not lib.exists():
+        return True
+    _write_headers()
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh"), BUILD_DIR / "engine_tables.h"]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def compile_many(jobs: dict) -> dict:
@@ -53,8 +66,10 @@ def compile_many(jobs: dict) -> dict:
     output, the ptxas report}; raises with the output of every nvcc that
     failed."""
     nvcc = _nvcc()
+    _write_headers()
     procs = {
-        n: subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-o", str(out), str(src)],
+        n: subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(BUILD_DIR), *flags, "-o", str(out),
+                             str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for n, (src, out, flags) in jobs.items()
     }

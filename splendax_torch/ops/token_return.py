@@ -3,36 +3,24 @@
 held, gold only once no other colour is left.
 
 The draws come from threefry, keyed by a hash of the game state
-(`hash_seed`), bit for bit as in the JAX engine's fast mode.  On a CUDA
-tensor `return_tokens` launches the hand-written kernel in
-`csrc/token_return.cu`; on a CPU tensor it runs `return_tokens_plain`, the
-same function in plain PyTorch, which is also what the kernel is held
-against.  `launches` counts kernel launches (counter `token_return.launches`
-of `splendax_torch.trace`).  Parity mode's token return (MT19937) stays in
+(`hash_seed`), bit for bit as in the JAX engine's fast mode.
+`return_tokens` checks its inputs and runs `return_tokens_plain`, in plain
+PyTorch, on the CPU or the card; it is the path of `rules.apply_action_plain`.
+On the card in fast mode the ply's kernel (`ops/engine_ply`) draws the same
+bits inside its launch (`csrc/token_return.cuh`), and is held against
+`return_tokens_plain`.  Parity mode's token return (MT19937) stays in
 `engine/rules.py`.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from .. import trace
 from ..engine import data as D
 from ..engine.state import NUM_PLAYERS, TOKEN_CAP
 from ..engine.threefry import M32, uniform_from_key_words
-from . import _build
 
 MAX_RETURNS = 12  # draws per token return; a hand never exceeds 22 tokens
-
-
-def __getattr__(name: str):
-    """`launches`, read from `splendax_torch.trace`."""
-    if name == "launches":
-        return trace.counter("token_return.launches")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def hash_seed(turn_count: torch.Tensor, to_play: torch.Tensor, tokens_p: torch.Tensor,
@@ -92,48 +80,18 @@ def return_tokens_plain(tokens: torch.Tensor, bank: torch.Tensor, to_play: torch
     return torch.where(prow, tok[:, None, :].to(torch.int32), tokens), bnk.to(torch.int32)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("token_return")
-    fn = lib.token_return
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def return_tokens(tokens: torch.Tensor, bank: torch.Tensor, to_play: torch.Tensor,
                   turn_count: torch.Tensor):
     """The token return of the player to move in each of B games: tokens
     int32 [B, 2, 6], bank int32 [B, 6], to_play (0 or 1) and turn_count int32
-    [B], on one device -> fresh (tokens [B, 2, 6], bank [B, 6]) int32.  A
-    CUDA tensor takes the kernel, which needs contiguous inputs; a CPU one
-    the plain version."""
+    [B], on one device, the CPU or the card -> fresh (tokens [B, 2, 6],
+    bank [B, 6]) int32, by `return_tokens_plain`."""
     B = tokens.shape[0] if tokens.dim() else -1
     for name, t, shape in (("tokens", tokens, (B, NUM_PLAYERS, 6)), ("bank", bank, (B, 6)),
                            ("to_play", to_play, (B,)), ("turn_count", turn_count, (B,))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != tokens.device:
             raise ValueError(f"return_tokens: {name} must be int32 {list(shape)} on "
                              f"{tokens.device}, got {t.dtype} {list(t.shape)} on {t.device}")
-    if tokens.device.type == "cpu":
-        return return_tokens_plain(tokens, bank, to_play, turn_count)
-    if tokens.device.type != "cuda":
+    if tokens.device.type not in ("cpu", "cuda"):
         raise ValueError(f"return_tokens: unsupported device {tokens.device}")
-    for name, t in (("tokens", tokens), ("bank", bank), ("to_play", to_play),
-                    ("turn_count", turn_count)):
-        if not t.is_contiguous():
-            raise ValueError(f"return_tokens: {name} must be contiguous")
-    tokens_out, bank_out = torch.empty_like(tokens), torch.empty_like(bank)
-    if B == 0:
-        return tokens_out, bank_out
-    err = _lib()(
-        tokens.data_ptr(), bank.data_ptr(), to_play.data_ptr(), turn_count.data_ptr(), B,
-        tokens_out.data_ptr(), bank_out.data_ptr(),
-        torch.cuda.current_stream(tokens.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"token_return kernel launch failed: CUDA error {err}")
-    trace.count("token_return.launches")
-    return tokens_out, bank_out
+    return return_tokens_plain(tokens, bank, to_play, turn_count)

@@ -17,7 +17,8 @@ tree.
 
 On the card in fast mode the root children, each round's lanes (their
 states, obs and masks) and every playout step are CUDA graph replays
-(`env/graphed`); kernel A, the samples and the halving run eagerly.
+(`env/graphed`), each around one launch of the ply's kernels
+(`ops/engine_ply`); kernel A, the samples and the halving run eagerly.
 
 Halving is by rank with stable sorts, so which of two equal scores survives
 is fixed: the lower slot.  Games with fewer than `m` legal actions pad with
@@ -45,6 +46,7 @@ from ..engine import rules as R
 from ..engine.state import GameState
 from ..env import graphed
 from ..models.actor_critic import gumbel_noise
+from ..ops import engine_ply
 from ..ops.fused_actor_critic import fused_masked_forward
 from .mc import _NEG, as_ctx, observe, repeat_rows, rollout_values, sum_last
 
@@ -63,6 +65,9 @@ def _root_candidates(gscore, logits, mask, m: int) -> torch.Tensor:
 
 def children(state: GameState, actions: torch.Tensor, rng_mode: str = "fast") -> GameState:
     """child[b * m + j] = apply(state[b], actions[b, j]) for actions [B, m]."""
+    if engine_ply.takes(state.to_play, rng_mode):
+        return engine_ply.step(state, actions.reshape(-1), apply_only=True,
+                               repeat=actions.shape[1])[0]
     return R.apply_action(repeat_rows(state, actions.shape[1]), actions.reshape(-1),
                           rng_mode=rng_mode)
 
@@ -71,6 +76,8 @@ def _lanes(child: GameState, lane_child: torch.Tensor, rng_mode: str = "fast",
            with_obs: bool = True):
     """The playout lanes' states, `child[lane_child]`, with their obs (or
     None) and legal masks."""
+    if engine_ply.takes(child.to_play, rng_mode):
+        return engine_ply.observe(child, rows=lane_child, with_obs=with_obs)
     flat = child.map(lambda x: x[lane_child])
     return (flat,) + observe(flat, with_obs=with_obs)
 

@@ -20,7 +20,8 @@ critic-only mode, so the logits are computed and dropped).
 
 On the card in fast mode the flat batch of root children and each playout
 step (the ply, the frozen lanes, the next obs and mask) are CUDA graph
-replays (`env/graphed`).
+replays (`env/graphed`), each around one launch of the ply's kernels
+(`ops/engine_ply`).
 
 A search is `fn(ctx, obs, mask, state, generator=None, draws=None)`.  Its
 random inputs come from `generator` unless `draws` gives them: for each ply
@@ -44,6 +45,7 @@ from ..env import core
 from ..env import graphed
 from ..env.core import select
 from ..models import actor_critic as ac
+from ..ops import engine_ply
 from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward
 from ..selfplay.opponents import uniform_legal_action
 
@@ -120,6 +122,8 @@ def leaf_values(states: GameState, me: torch.Tensor, ctx=None, obs=None) -> torc
 
 def observe(states: GameState, rng_mode: str = "fast", with_obs: bool = True):
     """(obs or None, legal mask) of each state."""
+    if engine_ply.takes(states.to_play, rng_mode):
+        return engine_ply.observe(states, with_obs=with_obs)[1:]
     return (encode_observation(states) if with_obs else None), R.legal_mask(states)
 
 
@@ -128,6 +132,10 @@ def playout_step(states: GameState, action: torch.Tensor, mask: torch.Tensor,
     """One ply of every lane, a finished lane frozen, from the lanes' legal
     `mask` -> (successor, its obs or None, its legal mask): one graph
     replay on the card (`env/graphed`)."""
+    if engine_ply.takes(states.to_play, rng_mode):
+        nxt, _, obs, next_mask = engine_ply.step(states, action, mask, freeze_terminal=True,
+                                                 with_obs=with_obs, with_mask=True)
+        return nxt, obs, next_mask
     term = R.is_terminal(states)
     nxt, _ = core.step_core(states, action, rng_mode=rng_mode, mask=mask)
     nxt = select(term, states, nxt)  # a finished lane stays as it is
@@ -172,6 +180,13 @@ def _flat_children(state: GameState, rng_mode: str = "fast", rollouts: int = 1,
                    with_obs: bool = True):
     """`root_children`, each `rollouts` times in a row, with their obs (or
     None) and legal masks."""
+    if engine_ply.takes(state.to_play, rng_mode):
+        acts = torch.arange(R.TOTAL_ACTIONS, device=state.to_play.device)
+        acts = acts.repeat_interleave(rollouts).repeat(state.batch_size)
+        nxt, _, obs, mask = engine_ply.step(state, acts, apply_only=True,
+                                            repeat=R.TOTAL_ACTIONS * rollouts,
+                                            with_obs=with_obs, with_mask=True)
+        return nxt, obs, mask
     flat = repeat_rows(root_children(state, rng_mode), rollouts)
     return (flat,) + observe(flat, with_obs=with_obs)
 

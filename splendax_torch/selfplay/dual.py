@@ -11,7 +11,10 @@ Counterpart of `splendax/selfplay/dual.py`, with its reward contract:
 `opponent_policy(obs, mask, state) -> action [B]` acts on the whole batch.
 
 On the card in fast mode each ply, and the autoreset's selection, encode
-and mask, is one CUDA graph replay (`env/graphed`); the opponent's policy
+and mask, is one CUDA graph replay (`env/graphed`) around the ply's kernels
+(`ops/engine_ply`: the agent's ply one step launch with its obs and mask,
+the opponent's one step launch that holds the games it does not move, the
+observation and the reset one observe launch each); the opponent's policy
 and the ring take run eagerly between them.
 """
 
@@ -29,6 +32,7 @@ from ..engine.state import GameState
 from ..env import core
 from ..env import graphed
 from ..env import ring as ring_lib
+from ..ops import engine_ply
 
 
 @dataclass
@@ -65,9 +69,12 @@ def _opponent_ply(state1: GameState, opp_action, mask, done_a, reward_a, final_a
     def sel(one_move, two_move):
         return torch.where(opp_phase.view((-1,) + (1,) * (one_move.dim() - 1)), two_move, one_move)
 
-    state2, fields_b = core.step_core(state1, opp_action, rng_mode=rng_mode, mask=mask)
+    if engine_ply.takes(state1.to_play, rng_mode):  # the other rows keep their state
+        next_state, fields_b, _, _ = engine_ply.step(state1, opp_action, mask, hold=~opp_phase)
+    else:
+        state2, fields_b = core.step_core(state1, opp_action, rng_mode=rng_mode, mask=mask)
+        next_state = GameState(**{k: sel(v, getattr(state2, k)) for k, v in state1.items()})
     term_b = fields_b["terminated"]
-    next_state = GameState(**{k: sel(v, getattr(state2, k)) for k, v in state1.items()})
     agent_reward = torch.where(
         opp_phase, torch.where(term_b, fields_b["final_rewards"][:, 0], 0.0), reward_a)
     opp_reward = torch.where(opp_phase, fields_b["reward"], final_a[:, 1])
@@ -77,11 +84,15 @@ def _opponent_ply(state1: GameState, opp_action, mask, done_a, reward_a, final_a
 
 def _observe(state: GameState, done, rng_mode: str = "fast"):
     """The obs and the legal mask of each game, all False where `done`."""
+    if engine_ply.takes(state.to_play, rng_mode):
+        return engine_ply.observe(state, done=done, mask_off=True)[1:]
     return encode_observation(state), rules.legal_mask(state) & ~done[:, None]
 
 
 def _reset(done, fresh: GameState, cur: GameState, rng_mode: str = "fast"):
     """The carried state, `fresh` where `done`, with its obs and mask."""
+    if engine_ply.takes(cur.to_play, rng_mode):
+        return engine_ply.observe(cur, fresh=fresh, done=done)
     carry = core.select(done, fresh, cur)
     return carry, encode_observation(carry), rules.legal_mask(carry)
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from splendax_torch.models import actor_critic as ac
+from splendax_torch.ops import engine_ply as ep
 from splendax_torch.ops import fused_actor_critic as fac
 from splendax_torch.ops import ring_take as rt
 from splendax_torch.ops import token_return as tr
@@ -343,48 +344,42 @@ def test_parity_mode_on_the_card_equals_the_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 255, 8192, 36000])
 def test_token_return_kernel_matches_plain(cuda, B):
-    """Exact: the token-return kernel against its plain version on fuzzed
-    hands (`_token_hands`: every k from 0 to 12 at the larger B, gold-only
-    hands, colours that run out, hands past 22 that use up all 12 draws,
-    either player to move, turns up to 2**20), one launch a call, into fresh
-    tensors."""
+    """Exact: the step kernel's token return (`csrc/token_return.cuh`)
+    against `return_tokens_plain` on fuzzed hands (`_token_hands`: every k
+    from 0 to 12 at the larger B, gold-only hands, colours that run out,
+    hands past 22 that use up all 12 draws, either player to move, turns up
+    to 2**20).  Each hand's game reserves a visible card with no gold in the
+    bank, a move that leaves the tokens as they are, so the kernel's return
+    is of the fuzzed hand itself; the whole next state equals
+    `apply_action_plain`'s.  One launch, nothing written in place."""
     from _token_hands import fuzzed_hands
+    from splendax_torch.engine import data as D
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state
 
     h = {k: torch.from_numpy(v).to(cuda) for k, v in fuzzed_hands(np.random.RandomState(B), B).items()}
-    keep = {k: v.clone() for k, v in h.items()}
+    h["bank"][:, D.GOLD] = 0
+    st = initial_state(B, torch.Generator(device=cuda).manual_seed(B), cuda).replace(**h)
+    keep = st.map(lambda x: x.clone())
+    a = torch.full((B,), rules.RESERVE_VISIBLE_OFFSET, dtype=torch.int64, device=cuda)
     want = tr.return_tokens_plain(**h)
-    before = tr.launches
-    got = tr.return_tokens(**h)
-    assert tr.launches == before + 1
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert all(torch.equal(h[k], keep[k]) for k in h)  # nothing written in place
+    before = ep.launches["step"]
+    got = rules.apply_action(st, a)
+    assert ep.launches["step"] == before + 1
+    assert torch.equal(got.tokens, want[0]) and torch.equal(got.bank, want[1])
+    _same_state(got, rules.apply_action_plain(st, a), "a reserve over fuzzed hands")
+    _same_state(st, keep, "the input")  # nothing written in place
     if B >= 8192:
         k = (h["tokens"][torch.arange(B, device=cuda), h["to_play"].long()].sum(1) - 10).clamp(min=0)
         assert set(range(13)) <= set(k.tolist()) and int((k > 12).sum()) > 0
 
 
 @pytest.mark.cuda
-def test_token_return_kernel_refuses_bad_input(cuda):
-    """A CUDA tensor goes to the kernel or raises; it never falls back: a
-    non-contiguous input, another dtype, or inputs on two devices raise."""
-    from _token_hands import fuzzed_hands
-
-    h = {k: torch.from_numpy(v).to(cuda) for k, v in fuzzed_hands(np.random.RandomState(0), 64).items()}
-    wide = torch.zeros((64, 2, 12), dtype=torch.int32, device=cuda)
-    wide[:, :, :6] = h["tokens"]
-    for bad in (dict(h, tokens=wide[:, :, :6]), dict(h, bank=h["bank"].long()),
-                dict(h, to_play=h["to_play"].cpu())):
-        before = tr.launches
-        with pytest.raises(ValueError, match="return_tokens"):
-            tr.return_tokens(**bad)
-        assert tr.launches == before
-
-
-@pytest.mark.cuda
 def test_fast_mode_on_the_card_equals_the_cpu(cuda):
-    """The engine in fast mode (threefry token return, the kernel on the
-    card) on the card against the CPU: 60 plies x 128 games, every field
-    exact, with token returns, and one kernel launch a ply."""
+    """The engine in fast mode (threefry token return; on the card the ply's
+    kernel) on the card against the CPU: 60 plies x 128 games, every field
+    exact, with token returns, and one kernel launch a ply (the ply's, which
+    draws the token return itself)."""
     from splendax_torch.engine.state import initial_state
     from splendax_torch.engine import rules
     from splendax_torch.env import core
@@ -394,7 +389,7 @@ def test_fast_mode_on_the_card_equals_the_cpu(cuda):
     st_g = st_c.map(lambda x: x.to(cuda))
     rng = np.random.RandomState(9)
     returns = 0
-    before = tr.launches
+    before_ply = ep.launches["step"]
     for ply in range(60):
         mask = rules.legal_mask(st_c)
         m = mask.numpy()
@@ -406,26 +401,62 @@ def test_fast_mode_on_the_card_equals_the_cpu(cuda):
         for name, x in st_c.items():
             assert torch.equal(x, getattr(st_g, name).cpu()), f"{name} at ply {ply}"
     assert returns > 0
-    assert tr.launches - before == 60
+    assert ep.launches["step"] - before_ply == 60
+
+
+@pytest.mark.cuda
+def test_ring_autoreset_on_the_card_equals_the_cpu(cuda):
+    """`env/ring.step_autoreset_ring` in fast mode on the card (the step
+    kernel with the next state's obs, then the observe kernel's select: two
+    launches a ply) against the CPU's plain functions: 150 plies x 256 games
+    through the ring, the carried state, every output field (the terminal
+    obs and mask too), the next obs and mask and the ring's pointer exact,
+    with games ending."""
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state
+    from splendax_torch.env import ring as ring_lib
+
+    B, plies = 256, 150
+    gen = torch.Generator().manual_seed(4)
+    cpu_ring = ring_lib.make_ring(4 * B, gen, "cpu", window=B)
+    st_c = initial_state(B, gen, "cpu")
+    gpu_ring = cpu_ring.replace(**{k: getattr(cpu_ring, k).to(cuda)
+                                   for k in ("packed", "mask0", "ptr", "overflow")})
+    st_g = st_c.map(lambda x: x.to(cuda))
+    rng = np.random.RandomState(4)
+    mask_c, finished = rules.legal_mask(st_c), 0
+    launched = dict(ep.launches)
+    for ply in range(plies):
+        m = mask_c.numpy()
+        a = torch.as_tensor(np.where(m.any(1), (rng.rand(B, 45) * m).argmax(1), 0))
+        st_c, out_c, obs_c, mask_c, cpu_ring = ring_lib.step_autoreset_ring(st_c, a, cpu_ring)
+        st_g, out_g, obs_g, mask_g, gpu_ring = ring_lib.step_autoreset_ring(
+            st_g, a.to(cuda), gpu_ring)
+        _same_state(st_g.map(lambda x: x.cpu()), st_c, f"carry at ply {ply}")
+        for k in vars(out_c):
+            assert torch.equal(getattr(out_g, k).cpu(), getattr(out_c, k)), f"{k} at ply {ply}"
+        assert torch.equal(obs_g.cpu(), obs_c) and torch.equal(mask_g.cpu(), mask_c), ply
+        assert torch.equal(gpu_ring.ptr.cpu(), cpu_ring.ptr), ply
+        finished += int(out_c.terminated.sum())
+    assert finished > 0
+    assert ep.launches == {"step": launched["step"] + plies, "observe": launched["observe"] + plies}
 
 
 @pytest.mark.cuda
 def test_token_return_launches_once_per_fast_apply(cuda, monkeypatch):
-    """`token_return.launches` rises by one for each fast-mode
-    `apply_action` on the card, eager or in a graph replay, over one league
-    update with the static search slot (the plies, the search's children
-    and playouts); a parity update launches none."""
-    from splendax_torch.engine import rules
-
+    """Each fast-mode `apply_action` on the card, eager or in a graph replay,
+    is one launch of the ply's step kernel, which draws the token return
+    itself, over one league update with the static search slot (the plies, the search's children and playouts); a
+    parity update launches neither."""
     calls = []
-    inner = rules._auto_return_tokens
+    inner = ep.step
 
-    def counted(state, p, rng_mode):
-        if not torch.cuda.is_current_stream_capturing():  # an eager apply
-            calls.append(rng_mode == "fast" and state.bank.is_cuda and p.shape[0] > 0)
-        return inner(state, p, rng_mode)
+    def counted(state, *args, **kw):
+        if not torch.cuda.is_current_stream_capturing():  # an eager launch
+            calls.append(state.to_play.shape[0] > 0)
+        return inner(state, *args, **kw)
 
-    monkeypatch.setattr(rules, "_auto_return_tokens", counted)
+    monkeypatch.setattr(ep, "step", counted)
     for mode, extra in (("fast", dict(search_opponent=True, search_static=True)),
                         ("parity", dict(rng_mode="parity"))):
         cfg = PPOConfig(num_envs=256, num_steps=4, hidden=64, pool_size=3, minibatch_size=512,
@@ -433,21 +464,23 @@ def test_token_return_launches_once_per_fast_apply(cuda, monkeypatch):
                         search_horizon=2, **extra)
         ts = ppo.init_train_state(cfg, device=cuda)
         calls.clear()
-        before, replayed = tr.launches, graph_token_returns()
+        before, replayed = ep.launches["step"], graph_launches("engine_ply.launches.step")
         ppo.update_step(cfg, ts)
-        # A capture runs nothing; each replay runs the applies its graph holds.
-        assert tr.launches - before == sum(calls) + graph_token_returns() - replayed
+        # A capture runs nothing; each replay runs the launches its graph holds.
+        ran = graph_launches("engine_ply.launches.step") - replayed
+        assert ep.launches["step"] - before == sum(calls) + ran
         if mode == "fast":
-            assert tr.launches - before > 2 * cfg.num_steps and graph_token_returns() > replayed
+            assert ep.launches["step"] - before > 2 * cfg.num_steps and ran > 0
         else:
-            assert len(calls) > 0 and sum(calls) == 0 and graph_token_returns() == replayed
+            assert len(calls) == 0 and ran == 0
 
 
-def graph_token_returns() -> int:
-    """The token-return launches every graph replay so far has run."""
+def graph_launches(counter: str) -> int:
+    """The launches of one engine kernel counter that every graph replay so
+    far has run."""
     from splendax_torch.env import graphed
 
-    return sum(g["replays"] * g["token_returns"] for g in graphed.captured())
+    return sum(g["replays"] * g["launches"].get(counter, 0) for g in graphed.captured())
 
 
 def check_wgmma(w, obs, mask, route="wgmma"):
@@ -1011,7 +1044,7 @@ def test_graphed_plies_equal_the_eager_functions(cuda, B):
     (eager), second (capture and replay) and third (replay) equal the eager
     function bit for bit, every state field, obs, mask and field; outputs
     held across later replays stay intact and share no memory with the
-    graph; a ply's replay adds one token-return launch."""
+    graph; each site's replay adds one launch of the ply's kernels."""
     from splendax_torch.env import graphed
 
     graphed.reset()
@@ -1019,11 +1052,10 @@ def test_graphed_plies_equal_the_eager_functions(cuda, B):
     for site, (fn, calls) in _graph_sites(B, st, g, cuda).items():
         outs = []
         for i, args in enumerate(calls):
-            before = tr.launches
+            before = sum(ep.launches.values())
             outs.append(graphed.call(site, fn, *args))
             if i == 2:
-                applies = site in ("dual.agent", "dual.opponent", "gumbel.children", "mc.playout")
-                assert tr.launches - before == applies, site
+                assert sum(ep.launches.values()) - before == 1, site
         held = [g for g in graphed._graphs.values() if g.site == site]
         assert len(held) == 1 and held[0].replays == 2, site
         static = {t.data_ptr() for t in held[0].outputs + held[0].inputs}
@@ -1032,7 +1064,7 @@ def test_graphed_plies_equal_the_eager_functions(cuda, B):
             leaves = []
             graphed._flatten(out, leaves)
             assert not static & {t.data_ptr() for t in leaves}, site
-    print(f"B={B}: " + "; ".join(f"{c['site']} {c['token_returns']} token return(s) a replay"
+    print(f"B={B}: " + "; ".join(f"{c['site']} {c['launches']} a replay"
                                  for c in graphed.captured()))
 
 
@@ -1086,3 +1118,267 @@ def test_graphs_are_captured_in_the_first_operation_only(cuda):
     rec = trace.records("eval")[-1]["counters"]
     assert sites() == first and replays() > r
     assert not any(k.startswith("graph.capture.") for k in rec), rec
+
+
+# ---- the fast-mode ply's kernels (ops/engine_ply) ---------------------------
+
+def _edge_games(B: int, seed: int, cuda):
+    """B games on the card played by the plain functions 0 to 199 random
+    legal plies deep, then edited so that every edge case of the ply occurs:
+    games on their last moves before the turn limit, exhausted decks, movers
+    holding 8 to 10 tokens (a take returns some), games already over (with
+    either player to move) and games with no legal move (an empty bank,
+    three unaffordable reserved cards, no bonuses)."""
+    from splendax_torch.engine import rules
+    from splendax_torch.engine.state import initial_state
+    from splendax_torch.env import core
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    st = initial_state(B, g, cuda)
+    stop = torch.randint(0, 200, (B,), generator=g, device=cuda)
+    for ply in range(200):
+        mask = rules.legal_mask(st)
+        nxt, _ = core.step_plain(st, uniform_legal_action(mask, g), mask=mask)
+        st = core.select(stop > ply, nxt, st)
+
+    def rows(p):
+        return torch.rand(B, generator=g, device=cuda) < p
+
+    ar, p = torch.arange(B, device=cuda), st.to_play.long()
+    late = rows(0.05)
+    move = torch.where(late, torch.randint(195, 199, (B,), generator=g, device=cuda)
+                       .to(torch.int32), st.move_count)
+    deck_count = torch.where(rows(0.08)[:, None] & (torch.rand(B, 3, generator=g, device=cuda)
+                                                      < 0.6), 0, st.deck_count)
+    tokens, bank = st.tokens.clone(), st.bank.clone()
+    bonuses, res_cnt, res_ids = st.bonuses.clone(), st.reserved_count.clone(), st.reserved_ids.clone()
+    full = rows(0.15)
+    draws = torch.randint(0, 6, (B, 10), generator=g, device=cuda)
+    kept = torch.arange(10, device=cuda)[None] < torch.randint(8, 11, (B, 1), generator=g,
+                                                               device=cuda)
+    hand = (torch.nn.functional.one_hot(draws, 6) * kept[..., None]).sum(1).to(torch.int32)
+    tokens[ar[full], p[full]] = hand[full]
+    stuck = rows(0.03)
+    bank[stuck, :5] = 0
+    bank[stuck, 5] = 0
+    tokens[ar[stuck], p[stuck]] = 0
+    bonuses[ar[stuck], p[stuck]] = 0
+    res_cnt[ar[stuck], p[stuck]] = 3
+    res_ids[ar[stuck], p[stuck]] = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda)
+    over = rows(0.04)
+    return st.replace(move_count=move, turn_count=move // 2 + 1, deck_count=deck_count,
+                      tokens=tokens, bank=bank, bonuses=bonuses, reserved_count=res_cnt,
+                      reserved_ids=res_ids, game_over=st.game_over | over), g
+
+
+def _fuzzed_actions(mask, g, cuda):
+    """Legal actions, a fifth replaced by any action and 2% by ones outside
+    [0, 45) (the step clamps them)."""
+    from splendax_torch.selfplay.opponents import uniform_legal_action
+
+    a = uniform_legal_action(mask, g)
+    n = a.shape[0]
+    any_a = torch.randint(0, 45, (n,), generator=g, device=cuda)
+    out_a = torch.randint(-6, 52, (n,), generator=g, device=cuda)
+    r = torch.rand(n, generator=g, device=cuda)
+    return torch.where(r < 0.02, out_a, torch.where(r < 0.2, any_a, a))
+
+
+def _same_state(got, want, what):
+    for name, x in want.items():
+        y = getattr(got, name)
+        assert y.dtype == x.dtype and torch.equal(y, x), f"{what}: {name}"
+
+
+def _same_fields(got, want, what):
+    assert set(got) == set(want), what
+    for k, x in want.items():
+        assert got[k].dtype == x.dtype and torch.equal(got[k], x), f"{what}: {k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 100, 8192, 32768])
+def test_engine_step_kernel_equals_the_plain_functions(cuda, B):
+    """The transition kernel bit for bit against the plain functions on the
+    same games on the card (and, at B <= 8192, on the CPU, the token return
+    in plain PyTorch too), on fuzzed legal, illegal and out-of-range actions
+    over `_edge_games`: `step_core` from the given mask (some rows all
+    False; with the next obs alone, as the ring's step takes it) and from
+    its own; `step` with its obs and live mask; a hold;
+    frozen lanes with their obs and mask; `apply_action` alone on every
+    action, on repeated rows with the children's obs and mask and on the
+    games themselves.  At the large B every action kind is played legally, and
+    nobles, exhausted decks, token returns, the turn limit, finished games
+    and rows without a legal move all occur.  One launch a call."""
+    from splendax_torch.engine import rules
+    from splendax_torch.env import core
+    from splendax_torch.search.mc import repeat_rows
+
+    st, g = _edge_games(max(B, 64), B, cuda)
+    st = st.map(lambda x: x[:B])
+    mask = rules.legal_mask(st)
+    mask = mask & ~(torch.rand(B, generator=g, device=cuda) < 0.03)[:, None]
+    a = _fuzzed_actions(mask, g, cuda)
+    launched = ep.launches["step"]
+
+    got_s, got_f, got_obs, none = ep.step(st, a, mask, with_obs=True)
+    want_s, want_f = core.step_core_plain(st, a, mask=mask)
+    _same_state(got_s, want_s, "step_core, given mask")
+    _same_fields(got_f, want_f, "step_core, given mask")
+    assert none is None and torch.equal(got_obs, encode(want_s))
+    assert got_s.deck_perm.data_ptr() == st.deck_perm.data_ptr()
+
+    got_s, got_out = core.step(st, a)  # the dispatch: the kernel
+    want_s, want_out = core.step_plain(st, a)
+    _same_state(got_s, want_s, "step")
+    for k in vars(want_out):
+        assert torch.equal(getattr(got_out, k), getattr(want_out, k)), f"step: {k}"
+
+    hold = torch.rand(B, generator=g, device=cuda) < 0.5
+    got_s, got_f, _, _ = ep.step(st, a, mask, hold=hold)
+    want_s, want_f = core.step_core_plain(st, a, mask=mask)
+    held = core.select(hold, st, want_s)
+    _same_state(got_s, held, "hold")
+    _same_fields(got_f, dict(want_f, to_play=held.to_play), "hold")
+
+    term = rules.is_terminal(st)
+    got_s, _, got_obs, got_m = ep.step(st, a, mask, freeze_terminal=True, with_obs=True,
+                                       with_mask=True)
+    frozen = core.select(term, st, core.step_core_plain(st, a, mask=mask)[0])
+    _same_state(got_s, frozen, "frozen lanes")
+    assert torch.equal(got_obs, encode(frozen)) and torch.equal(got_m, rules.legal_mask(frozen))
+
+    r = 3
+    acts = torch.randint(0, 45, (B * r,), generator=g, device=cuda)
+    acts[:min(45, B * r)] = torch.arange(min(45, B * r), device=cuda)
+    kids, _, k_obs, k_mask = ep.step(st, acts, apply_only=True, repeat=r, with_obs=True,
+                                     with_mask=True)
+    want_k = rules.apply_action_plain(repeat_rows(st, r), acts)
+    _same_state(kids, want_k, "apply_action, repeated rows")
+    assert torch.equal(k_obs, encode(want_k)) and torch.equal(k_mask, rules.legal_mask(want_k))
+    got_k = ep.step(st, acts[:B], apply_only=True)[0]
+    _same_state(got_k, rules.apply_action_plain(st, acts[:B]), "apply_action")
+    assert ep.launches["step"] - launched == 6
+
+    if B <= 8192:  # the same on the CPU
+        st_c, a_c, m_c = st.map(lambda x: x.cpu()), a.cpu(), mask.cpu()
+        want_s, want_f = core.step_core(st_c, a_c, mask=m_c)
+        got_s, got_f, _, _ = ep.step(st, a, mask)
+        _same_state(got_s.map(lambda x: x.cpu()), want_s, "step_core against the CPU")
+        _same_fields({k: v.cpu() for k, v in got_f.items()}, want_f, "step_core against the CPU")
+        _same_state(kids.map(lambda x: x.cpu()),
+                    rules.apply_action(repeat_rows(st_c, r), acts.cpu()), "apply against the CPU")
+    if B >= 8192:
+        legal = mask.gather(1, a.clamp(0, 44)[:, None])[:, 0] & mask.any(1)
+        pre = rules._apply_move(st, a.clamp(0, 44))
+        moved = rules._grant_noble(pre)
+        kinds = set(a.clamp(0, 44)[legal].tolist())
+        assert kinds == set(range(45)), sorted(set(range(45)) - kinds)
+        want_s, want_f = core.step_core_plain(st, a, mask=mask)
+        held = pre.tokens[torch.arange(B, device=cuda), st.to_play.long()].sum(1)
+        assert int(((moved.noble_ids != pre.noble_ids).any(1) & legal).sum()) > 0, "noble"
+        assert int(((held > 10) & legal).sum()) > 0, "token return"
+        assert int((want_f["turn_limit"] & legal).sum()) > 0, "turn limit"
+        assert int(want_f["draw"].sum()) > 0 and int(term.sum()) > 0, "no move, finished"
+        ac = a.clamp(0, 44)
+        off = torch.where(ac < 27, ac - 15, ac - 27).clamp(0, 11)
+        tier = torch.where(ac < 39, off // 4, (ac - 39).clamp(0, 2))
+        empty = st.deck_count.gather(1, tier[:, None])[:, 0] == 0
+        assert int((empty & (ac >= 15) & (ac < 39) & legal).sum()) > 0, "a pop from no deck"
+
+
+def encode(state):
+    from splendax_torch.engine.encode import encode_observation
+
+    return encode_observation(state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 100, 8192, 32768])
+def test_engine_observe_kernel_equals_the_plain_functions(cuda, B):
+    """The observe kernel bit for bit against `encode_observation` and
+    `legal_mask` on `_edge_games` (and on the garbage children of illegal
+    actions): plain; the mask `& ~done`; `select(done, fresh, state)` with
+    the carried state; gathered rows with and without the obs.  One launch a
+    call."""
+    from splendax_torch.engine import rules
+    from splendax_torch.env import core
+
+    st, g = _edge_games(max(B, 64), B + 1, cuda)
+    st = st.map(lambda x: x[:B])
+    kids = rules.apply_action_plain(st, torch.randint(0, 45, (B,), generator=g, device=cuda))
+    launched = ep.launches["observe"]
+    for what, s in (("games", st), ("children", kids)):
+        _, obs, mask = ep.observe(s)
+        assert torch.equal(obs, encode(s)) and torch.equal(mask, rules.legal_mask(s)), what
+    done = torch.rand(B, generator=g, device=cuda) < 0.3
+    none, obs, mask = ep.observe(st, done=done, mask_off=True)
+    assert none is None and torch.equal(obs, encode(st))
+    assert torch.equal(mask, rules.legal_mask(st) & ~done[:, None])
+    fresh = kids
+    carry, obs, mask = ep.observe(st, fresh=fresh, done=done)
+    want = core.select(done, fresh, st)
+    _same_state(carry, want, "select")
+    assert torch.equal(obs, encode(want)) and torch.equal(mask, rules.legal_mask(want))
+    rows = torch.randint(0, B, (3 * B,), generator=g, device=cuda)
+    flat = st.map(lambda x: x[rows])
+    for with_obs in (True, False):
+        got, obs, mask = ep.observe(st, rows=rows, with_obs=with_obs)
+        _same_state(got, flat, "gathered rows")
+        assert (obs is None) != with_obs and torch.equal(mask, rules.legal_mask(flat))
+        if with_obs:
+            assert torch.equal(obs, encode(flat))
+    assert ep.launches["observe"] - launched == 6
+
+
+@pytest.mark.cuda
+def test_engine_ply_kernels_refuse_bad_input(cuda):
+    """A field or the action on another device, a mask with repeated rows, a
+    repeat below 1, apply-only with a mask, a mask of another dtype,
+    observe's fresh without done and int32 rows: refused before any
+    launch."""
+    from splendax_torch.engine import rules
+
+    st, g = _edge_games(64, 3, cuda)
+    mask = rules.legal_mask(st)
+    a = _fuzzed_actions(mask, g, cuda)
+    before = sum(ep.launches.values())
+    for call in (lambda: ep.step(st.replace(bank=st.bank.cpu()), a),
+                 lambda: ep.step(st, a.cpu()),
+                 lambda: ep.step(st, a.repeat(2), mask, repeat=2),
+                 lambda: ep.step(st, a, mask, repeat=0),
+                 lambda: ep.step(st, a, mask, apply_only=True),
+                 lambda: ep.step(st, a, mask=mask.int()),
+                 lambda: ep.observe(st, fresh=st),
+                 lambda: ep.observe(st, rows=torch.zeros(3, dtype=torch.int32, device=cuda))):
+        with pytest.raises(ValueError):
+            call()
+    assert sum(ep.launches.values()) == before
+
+
+@pytest.mark.cuda
+def test_graphed_sites_with_the_kernels_equal_the_plain_functions(cuda):
+    """Each graphed site (the dual turn's plies and reset, the Gumbel
+    search's children and lanes, a playout step), replayed with the ply's
+    kernels on the card, equals the same site run by the plain functions on
+    the CPU on the same inputs, bit for bit, at B = 8,192."""
+    from splendax_torch.env import graphed
+
+    graphed.reset()
+    B = 8192
+    st, g = _fuzzed_states(B, 21, cuda)
+    for site, (fn, calls) in _graph_sites(B, st, g, cuda).items():
+        outs = [graphed.call(site, fn, *args) for args in calls]
+        assert [c["replays"] for c in graphed.captured() if c["site"] == site] == [2], site
+        for args, out in zip(calls, outs):
+            cpu_args = tuple(x.map(lambda t: t.cpu()) if hasattr(x, "map") else x.cpu()
+                             for x in args)
+            want = fn(*cpu_args)
+            leaves = []
+            graphed._flatten(out, leaves)
+            w_leaves = []
+            graphed._flatten(want, w_leaves)
+            assert len(leaves) == len(w_leaves), site
+            for i, (x, y) in enumerate(zip(leaves, w_leaves)):
+                assert x.dtype == y.dtype and torch.equal(x.cpu(), y), f"{site}: output {i}"

@@ -1,7 +1,8 @@
 """The fast-mode token return (`splendax_torch.ops.token_return`) on the CPU:
 its plain version against the JAX engine's on fuzzed, unreachable hands, and
-the wrapper's dispatch and input checks.  The kernel itself is held against
-the plain version on the card (`tests/test_torch_cuda.py`)."""
+the wrapper's input checks.  On the card the ply's kernel draws the token
+return itself and is held against the plain version there
+(`tests/test_torch_cuda.py`)."""
 
 import functools
 
@@ -14,6 +15,7 @@ from _token_hands import fuzzed_hands
 from splendax.engine import rules as jrules
 from splendax.engine.types import GameState as JGameState
 from splendax_torch.engine import rules, state as S
+from splendax_torch.ops import engine_ply as ep
 from splendax_torch.ops import token_return as tr
 
 B = 512
@@ -46,11 +48,11 @@ def test_plain_equals_the_jax_token_return(seed):
 
 
 def test_cpu_tensors_take_the_plain_version():
-    """On CPU tensors `return_tokens` is the plain version: no kernel
-    launch counted, fresh outputs, the other player's row as it was; and a
-    CPU `apply_action` in fast mode goes through it."""
+    """On CPU tensors `return_tokens` is the plain version: fresh outputs,
+    the other player's row as it was; and a CPU `apply_action` in fast mode
+    goes through it, with no kernel launch counted."""
     h = _torch(fuzzed_hands(np.random.RandomState(5), 300))
-    before = tr.launches
+    before = dict(ep.launches)
     tokens, bank = tr.return_tokens(**h)
     want = tr.return_tokens_plain(**h)
     assert torch.equal(tokens, want[0]) and torch.equal(bank, want[1])
@@ -60,7 +62,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(tokens[ar, other], h["tokens"][ar, other])
     st = S.initial_state(4, torch.Generator().manual_seed(0), device="cpu")
     rules.apply_action(st, torch.zeros(4, dtype=torch.int64))
-    assert tr.launches == before
+    assert ep.launches == before
 
 
 BAD_INPUTS = {
@@ -76,7 +78,7 @@ BAD_INPUTS = {
 @pytest.mark.parametrize("case", list(BAD_INPUTS))
 def test_return_tokens_refuses_what_the_kernel_does_not_take(case):
     """Inputs of another dtype, shape or batch, or on a device that is
-    neither the CPU nor CUDA, raise `ValueError` before any work."""
+    neither the CPU nor the card, raise `ValueError` before any work."""
     h = BAD_INPUTS[case](_torch(fuzzed_hands(np.random.RandomState(0), 8)))
     with pytest.raises(ValueError, match="return_tokens"):
         tr.return_tokens(**h)
