@@ -43,26 +43,20 @@ Phases, in order; any failure exits non-zero:
      and 2048 on random weights, B = 1 to 8192 with the wide paths' 16, 512
      and 1024, obs of 4097, its pass and half modes bit for bit against each
      other); at each main-path shape both modes of the wgmma kernel, alone
-     and with their prep, the mma_sync kernel on the same rows, the plain
-     forward and the addmm chain are timed, and so are both modes of the
-     wide route at the wide paths' shapes (H = 1024, B = 16, 50, 100, 256,
-     1024 and 8192; H = 1280, B = 512 and 8192) beside the same yardsticks.
+     and with their prep, the plain forward and the addmm chain are timed,
+     and so are both modes of the wide route at the wide paths' shapes (H =
+     1024, B = 16, 50, 100, 256, 1024 and 8192; H = 1280, B = 512 and 8192)
+     beside the same yardsticks.
      "With the prep" is a forward on a plain list of weights; the paths' handles
-     pay the prep once per weight version.  Its prep kernel, and the earlier
-     one (built with PROBE_OLD_PREP beside the libraries in phase 1), equal the
+     pay the prep once per weight version.  Its prep kernel equals the
      plain preparation bit for bit at H = 64, 256, 768, 769, 1024, 1280 and
-     2048, with and without the critic, and are timed in turns at H = 768,
-     1024 and 1280.  The step kernel's token return equals the plain
+     2048, with and without the critic, and is timed at H = 768, 1024 and
+     1280.  The step kernel's token return equals the plain
      version on fuzzed hands at B = 8192 and 36,000 and on 8192 games in
      play.  The ply's kernels (`ops/engine_ply`) equal the plain
      functions at the static league cell's calls (the agent's ply, a
      playout step, the search's children; the reset, the lanes, the turn's
      observation) and are timed beside them;
-     Then the plies' CUDA graphs (`env/graphed`): each graph site at the
-     static league cell's shapes, with the ply's kernels and, as before
-     them, with the plain functions, each replay bit for bit against the
-     eager function and the two against each other, both timed (host ms to
-     issue, device ms, kernels a replay) with the memory a graph holds;
   8. a profile of four flagship turns: host time per turn, device busy time
      and the kernels that take it;
   9. the searches: without a network, `determinize`, the Gumbel search
@@ -157,8 +151,7 @@ behind in them.  A profile of one distillation ply at 737,280 lanes comes
 last.
 
 Prints the card's name and power limit first, the bench's seven lines in
-phase 3, a JSON line of the graphs' numbers in phase 7, a JSON line with
-each kernel's numbers second to last, and
+phase 3, a JSON line with each kernel's numbers second to last, and
 `{"ok": true, "device": ...}` last.
 Imports nothing of JAX.
 """
@@ -172,7 +165,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -184,9 +176,6 @@ from splendax_torch.bench import (  # noqa: E402  (after the check above)
 )
 from splendax_torch.ops import _build  # noqa: E402
 
-# The earlier weight preparation kernel (the wgmma source built with
-# PROBE_OLD_PREP), timed beside the library's in the kernel phase.
-OLD_PREP_LIB = _build.BUILD_DIR / "libfused_actor_critic_wgmma_old_prep.so"
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 H100_TF32_FLOPS = 494.7e12  # TF32 tensor cores, dense, H100 SXM data sheet
@@ -305,8 +294,6 @@ def bound_a(B: int, H: int, with_value: bool, l1_products: int) -> tuple[float, 
 def phase_kernels(device) -> dict:
     """Each kernel against its plain version; device-clock times at the main
     path's shapes, beside the plain version and one PyTorch library call."""
-    import ctypes
-
     import numpy as np
     import torch
 
@@ -462,11 +449,10 @@ def phase_kernels(device) -> dict:
                         device=device))
         return out
 
-    # The prep kernel, and the earlier one (PROBE_OLD_PREP), against the
-    # plain preparation bit for bit at every width the routes' paths and
-    # tests give it, ragged (769) and 16-byte aligned, with and without the
-    # critic; and on a weight 4 bytes off 16-byte alignment (its 4-byte path).
-    old_lib = fac.bind(ctypes.CDLL(str(OLD_PREP_LIB)), "wgmma")
+    # The prep kernel against the plain preparation bit for bit at every
+    # width the routes' paths and tests give it, ragged (769) and 16-byte
+    # aligned, with and without the critic; and on a weight 4 bytes off
+    # 16-byte alignment (its 4-byte path).
     prep_widths = (64, 256, 768, 769, 1024, 1280, 2048)
     for H_p in prep_widths:
         w_p = random_weights(H_p)
@@ -475,10 +461,9 @@ def phase_kernels(device) -> dict:
         for with_value in (True, False):
             want = fac.prepare_weights_plain(w_p, with_value)
             n = want.numel() if with_value else fac.prepared_layout(H_p)[2][0]
-            for name, lib in (("prep kernel", None), ("old prep kernel", old_lib)):
-                check(torch.equal(fac.prepare_weights(w_p, with_value, lib)[:n], want[:n]),
-                      f"the {name} differs from its plain version at H={H_p} value={with_value}")
-    print(f"kernel A prep: the new and the old kernel equal the plain preparation bit for bit at "
+            check(torch.equal(fac.prepare_weights(w_p, with_value)[:n], want[:n]),
+                  f"the prep kernel differs from its plain version at H={H_p} value={with_value}")
+    print(f"kernel A prep: the kernel equals the plain preparation bit for bit at "
           f"H in {prep_widths}, with and without the critic (H=768 with aw1 off 16-byte "
           f"alignment)", flush=True)
 
@@ -529,7 +514,6 @@ def phase_kernels(device) -> dict:
                 check((outs[0][0][0] > -1e8).all().item(),
                       f"kernel A's wide route masked a row with no legal action at {where}")
     check(fac.launches_by_route["wgmma"] == before["wgmma"]
-          and fac.launches_by_route["mma_sync"] == before["mma_sync"]
           and fac.launches_by_route["wide"] == before["wide"] + n_wide,
           f"kernel A at H > 768 left the wide route: {fac.launches_by_route}")
     print(f"kernel A H=1024, 1280, 2048 (wide route, random weights): max abs err {err_wide:.3g} "
@@ -578,8 +562,7 @@ def phase_kernels(device) -> dict:
         # The wgmma route on a plain list (prep + kernel, in the mode B
         # derives; a path's handle pays the prep once per weight version),
         # each mode's kernel alone and (up to B = 8192) the other mode with
-        # its prep, the mma_sync kernel on the same rows, the
-        # plain forward and the addmm chain.
+        # its prep, the plain forward and the addmm chain.
         mode = fac.wgmma_mode(B, H)
         route_ms, host_ms = device_ms(lambda: fac.fused_masked_forward(w, obs, mask, with_value), n,
                                       per_call=2)
@@ -588,19 +571,18 @@ def phase_kernels(device) -> dict:
         prep_ms = {m: route_ms if m == mode else device_ms(
             lambda: fac._launch("wgmma", w, obs, mask, with_value, mode=m), n, per_call=2)[0]
             for m in modes if m == mode or B <= 8192}
-        mma_sync_ms = device_ms(lambda: fac._launch("mma_sync", w, obs, mask, with_value), n)[0]
         plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w, obs, mask, with_value), n)[0]
         library_ms = device_ms(addmm_chain, n)[0]
         bound_ms, bound_by, bound_f32_ms = bound_a(B, H, with_value, l1_products)
         shapes.append(dict(B=B, with_value=with_value, mode=mode, ms=mode_ms[mode],
                            route_ms=route_ms, mode_ms=mode_ms, mode_prep_ms=prep_ms,
-                           mma_sync_ms=mma_sync_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                            host_ms=host_ms))
         print(f"kernel A B={B} H={H} value={with_value}: wgmma kernel "
               + ", ".join(f"{m} {mode_ms[m]:.4f}" for m in modes) + " ms; with its prep "
               + ", ".join(f"{m} {t:.4f}" for m, t in prep_ms.items()) + f" ms (the path: "
-              f"{mode}); mma_sync (PR 2) {mma_sync_ms:.4f} ms, plain {plain_ms:.4f} ms, addmm "
+              f"{mode}); plain {plain_ms:.4f} ms, addmm "
               f"chain {library_ms:.4f} ms (device clock); bound {bound_ms:.4f} ms by {bound_by} "
               f"(3xTF32, layer 1 in {l1_products} products), {bound_f32_ms:.4f} ms on f32 CUDA "
               f"cores; host {host_ms:.4f} ms per call", flush=True)
@@ -614,7 +596,7 @@ def phase_kernels(device) -> dict:
             mode=m, max_abs_err=err_a, shape=dict(B=row["B"], with_value=row["with_value"]),
             ms=row["mode_ms"][m], route_ms=row["mode_prep_ms"][m],
             **{k: row[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by",
-                                   "bound_f32_ms", "host_ms", "mma_sync_ms")},
+                                   "bound_f32_ms", "host_ms")},
             bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
             checked_against="plain version in float64, rtol/atol 1e-5; the other mode bit for bit",
             by_shape=shapes if m == "tile" else "as fused_actor_critic_tile")
@@ -660,8 +642,7 @@ def phase_kernels(device) -> dict:
               f"{host_ms:.4f} ms per call", flush=True)
 
     # The prep kernel at H = 768, 1024 and 1280, with and without the
-    # critic, beside the earlier prep kernel in turns (new, old, old, new):
-    # its bytes bound reads the first two layers' weights once and writes
+    # critic: its bytes bound reads the first two layers' weights once and writes
     # each prepared matrix (hi and lo, [2, HP, KP]) once.
     preps = []
     for H_p in (768, 1024, 1280):
@@ -670,28 +651,21 @@ def phase_kernels(device) -> dict:
             heads = 2 if with_value else 1
             written = sum(2 * hp * kp for _, hp, kp in fac.prepared_layout(H_p)[:2 * heads])
             nbytes = 4 * (heads * (297 + H_p) * H_p + written)
-            t = {"new": [], "old": []}
-            for name in ("new", "old", "old", "new"):
-                lib = old_lib if name == "old" else None
-                t[name].append(device_ms(lambda: fac.prepare_weights(w_p, with_value, lib), 20))
-            ms, host_ms = (sum(x[i] for x in t["new"]) / 2 for i in (0, 1))
-            earlier_ms = sum(x[0] for x in t["old"]) / 2
+            ms, host_ms = device_ms(lambda: fac.prepare_weights(w_p, with_value), 20)
             plain_ms = device_ms(lambda: fac.prepare_weights_plain(w_p, with_value), 20)[0]
-            preps.append(dict(H=H_p, with_value=with_value, ms=ms, earlier_ms=earlier_ms,
+            preps.append(dict(H=H_p, with_value=with_value, ms=ms,
                               plain_ms=plain_ms, library_ms=None,
                               bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
                               host_ms=host_ms))
-            print(f"kernel A prep H={H_p} value={with_value}: {ms:.5f} ms "
-                  f"({[round(x[0], 5) for x in t['new']]}), the old kernel {earlier_ms:.5f} ms "
-                  f"({[round(x[0], 5) for x in t['old']]}), plain {plain_ms:.5f} ms; bound "
+            print(f"kernel A prep H={H_p} value={with_value}: {ms:.5f} ms, "
+                  f"plain {plain_ms:.5f} ms; bound "
                   f"{preps[-1]['bound_ms']:.5f} ms by bytes ({nbytes} bytes), "
                   f"{preps[-1]['bound_ms'] / ms:.2f} of it; host {host_ms:.4f} ms per call",
                   flush=True)
     results["fused_actor_critic_prep"] = dict(
-        max_abs_err=0.0, **{k: preps[0][k] for k in ("ms", "earlier_ms", "plain_ms", "library_ms",
-                                                     "bound_ms", "bound_by", "host_ms")},
+        max_abs_err=0.0, **{k: preps[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "host_ms")},
         bound_peak="HBM3, 3.35 TB/s", checked_against="plain version, bit for bit",
-        earlier="the earlier prep kernel (PROBE_OLD_PREP), timed in turns with it",
         by_shape=preps)
 
     # The wide route at the wide paths' shapes: H = 1024, B = 1024 with value
@@ -703,8 +677,7 @@ def phase_kernels(device) -> dict:
     # value.  Beside the route on a plain
     # list (prep + kernel, in the mode B derives), in the same call:
     # each mode alone (weights prepared once) and the other mode with its
-    # prep, the mma_sync kernel (`csrc/fused_actor_critic.cu`, H <= 1024
-    # only) on the same rows, the plain forward and the addmm chain.
+    # prep, the plain forward and the addmm chain.
     wides = []
     for H, B, with_value in ((1024, 1024, True), (1024, 1024, False), (1024, 256, False),
                              (1024, 16, False), (1024, 100, False), (1024, 50, False),
@@ -729,23 +702,19 @@ def phase_kernels(device) -> dict:
         prep_ms = {m: route_ms if m == mode else device_ms(
             lambda: fac._launch("wide", w_h, obs, mask, with_value, mode=m), 20, per_call=4)[0]
             for m in wide_modes_}
-        mma_sync_ms = (device_ms(lambda: fac._launch("mma_sync", w_h, obs, mask, with_value),
-                                 20)[0] if H <= 1024 else None)
         plain_ms = device_ms(lambda: fac.fused_masked_forward_plain(w_h, obs, mask,
                                                                     with_value), 20)[0]
         library_ms = device_ms(addmm_wide, 20)[0]
         bound_ms, bound_by, bound_f32_ms = bound_a(B, H, with_value, l1_products)
         wides.append(dict(B=B, H=H, with_value=with_value, mode=mode, ms=mode_ms[mode],
                           route_ms=route_ms, mode_ms=mode_ms, mode_prep_ms=prep_ms,
-                          mma_sync_ms=mma_sync_ms, plain_ms=plain_ms, library_ms=library_ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                           host_ms=host_ms))
         print(f"kernel A wide route B={B} H={H} value={with_value}: "
               + ", ".join(f"{m} {t:.4f}" for m, t in mode_ms.items()) + " ms alone; with its "
               "prep " + ", ".join(f"{m} {t:.4f}" for m, t in prep_ms.items()) + f" ms (the path: "
-              f"{mode}); mma_sync kernel "
-              + (f"{mma_sync_ms:.4f} ms" if mma_sync_ms is not None else "- (H > 1024)")
-              + f", plain {plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); "
+              f"{mode}); plain {plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); "
               f"bound {bound_ms:.4f} ms by {bound_by} (3xTF32, layer 1 in {l1_products} "
               f"products), {bound_f32_ms:.4f} ms on f32 CUDA cores; host {host_ms:.4f} ms per "
               f"call", flush=True)
@@ -759,8 +728,8 @@ def phase_kernels(device) -> dict:
             mode=m, max_abs_err=err_wide,
             shape=dict(B=row["B"], H=row["H"], with_value=row["with_value"]),
             ms=row["mode_ms"][m], route_ms=row["mode_prep_ms"][m],
-            **{k: row[k] for k in ("mma_sync_ms", "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by", "bound_f32_ms", "host_ms")},
+            **{k: row[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "bound_f32_ms", "host_ms")},
             bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
             checked_against="plain version in float64, rtol/atol 1e-5; the other mode bit for bit",
             by_shape=wides if m == "pass" else "as fused_actor_critic_wide_pass")
@@ -986,7 +955,7 @@ def kernel_token_return(device) -> None:
 
 
 def _site_inputs(device, seed: int) -> dict:
-    """{site: args} of one call of each graphed site at the static league
+    """{site: args} of one call of each engine site at the static league
     cell's shapes: the dual turn's plies and reset at 8,192 games, the
     Gumbel search's children (1,024 games x m 8) and lanes (8,192 from
     them), a playout step at 32,768 lanes; games 0 to 199 random plies deep,
@@ -1033,103 +1002,6 @@ def _site_inputs(device, seed: int) -> dict:
                                                     device=device)),
         "mc.playout": (lanes, actions(lane_mask), lane_mask),
     }
-
-
-def phase_graphs(device) -> dict:
-    """The plies' CUDA graphs (`env/graphed`) at each site, with the ply's
-    kernels (`ops/engine_ply`) and, as before them, with the plain functions
-    (the dispatch `engine_ply.takes` held false): at the static league cell's
-    shapes (`_site_inputs`), three calls each (eager; capture and replay;
-    replay) equal the eager function bit for bit, checked after the last
-    replay, and the kernels' outputs equal the plain functions'; a replay
-    with the kernels adds one launch of them.  Each graph is timed: the
-    host's ms to issue a replay, the device ms and the kernels a replay as
-    the profiler counts them, and the memory a graph holds (allocated once
-    its outputs are dropped)."""
-    import torch
-
-    from splendax_torch.env import graphed
-    from splendax_torch.ops import engine_ply as ep
-    from splendax_torch.search import gumbel, mc
-    from splendax_torch.selfplay import dual
-
-    def leaves(x):
-        out = []
-        graphed._flatten(x, out)
-        return out
-
-    def same(a, b):
-        la, lb = leaves(a), leaves(b)
-        return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
-                                          for x, y in zip(la, lb))
-
-    def issue_ms(fn, n=20):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            fn()
-        dt = time.perf_counter() - t
-        torch.cuda.synchronize()
-        return dt * 1e3 / n
-
-    def kernels_a_call(fn, n=5):
-        k = profiled_kernels(lambda: [fn() for _ in range(n)])
-        return sum(e.count for e in k) / n
-
-    fns = {"dual.agent": dual._agent_ply, "dual.opponent": dual._opponent_ply,
-           "dual.reset": dual._reset, "gumbel.children": gumbel.children,
-           "gumbel.lanes": gumbel._lanes, "mc.playout": mc.playout_step}
-    takes = ep.takes
-    t0 = time.perf_counter()
-    rows = []
-    graphed.reset()
-    sites = _site_inputs(device, 22)
-    for site, args in sites.items():
-        fn = fns[site]
-        row = dict(site=site, rows=leaves(args)[0].shape[0])
-        outs = {}
-        for when in ("before", "after"):
-            name = f"smoke.{when}.{site}"
-            plain = when == "before"
-            ep.takes = (lambda x, rng_mode: False) if plain else takes
-            try:
-                got = []
-                torch.cuda.synchronize()
-                alloc0 = torch.cuda.memory_allocated()
-                for i in range(3):
-                    before = sum(ep.launches.values())
-                    got.append(graphed.call(name, fn, *args))
-                    if i == 2:
-                        check(sum(ep.launches.values()) - before == (0 if plain else 1),
-                              f"graph {site}: the replay's launches of the ply's kernels")
-                for out in got:
-                    check(same(out, fn(*args)), f"graph {site} ({when}): a replay differs from "
-                          "the eager function")
-                outs[when] = got[-1]
-                del got
-                torch.cuda.synchronize()
-                row[when + "_graph_bytes_held"] = torch.cuda.memory_allocated() - alloc0
-                replay = (lambda: graphed.call(name, fn, *args))
-                row[when + "_issue_ms"] = issue_ms(replay)
-                row[when + "_ms"], row[when + "_wall_ms"] = device_ms(replay, 20)
-                row[when + "_kernels"] = kernels_a_call(replay)
-            finally:
-                ep.takes = takes
-        check(same(outs["after"], outs["before"]),
-              f"graph {site}: the kernels' replay differs from the plain functions'")
-        rows.append(row)
-        print(f"graph {site} ({row['rows']} rows in): exact, the kernels equal to the plain "
-              f"functions; before (plain): {row['before_ms']:.4f} ms device in "
-              f"{row['before_kernels']:.0f} kernels, host {row['before_issue_ms']:.3f} ms to "
-              f"issue; after (kernels): {row['after_ms']:.4f} ms device in "
-              f"{row['after_kernels']:.0f} kernels, host {row['after_issue_ms']:.3f} ms; the "
-              f"graph holds {row['after_graph_bytes_held']} bytes "
-              f"({row['before_graph_bytes_held']} before)", flush=True)
-    print(f"graphs: {len(graphed.captured())} held by the process; checked and timed in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"graphs": rows}), flush=True)
-    graphed.reset()
-    return rows
 
 
 def phase_engine_agreement(device) -> None:
@@ -2965,14 +2837,8 @@ def run_phases() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     device = torch.device("cuda", 0)
 
-    OLD_PREP_LIB.parent.mkdir(parents=True, exist_ok=True)
-    old_prep = threading.Thread(target=_build.compile_many, args=({"old_prep": (
-        _build.CSRC / "fused_actor_critic_wgmma.cu", OLD_PREP_LIB, ("-DPROBE_OLD_PREP",))},))
-    old_prep.start()
     secs, reports = _build.timed_build()
-    old_prep.join()
-    check(OLD_PREP_LIB.exists(), "the PROBE_OLD_PREP build failed")
-    print(f"build: {secs:.2f} s for {sorted(reports)}, beside the old prep kernel's", flush=True)
+    print(f"build: {secs:.2f} s for {sorted(reports)}", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -3018,7 +2884,6 @@ def run_phases() -> int:
     by_path["ladder"] = phase_ladder(device)  # both routes: checked per net inside
     by_path["duel replay"] = phase_duel_replay(device)
     kern = phase_kernels(device)
-    phase_graphs(device)
     phase_profile(cfg, ts)
     phase_profile(cfg_league, ts_league, label="profile (league slot)")
     profile_distill_ply(device)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where kernel A's time goes on one GPU: variants of both its routes' sources,
+"""Where kernel A's time goes on one GPU: variants of its source (both routes),
 their times beside the `addmm` chain, and the tensor cores' mma.sync TF32 rate.
 
     python3 scripts/torch_kernel_a_probe.py            # everything below, ~2 min
@@ -7,9 +7,8 @@ their times beside the `addmm` chain, and the tensor cores' mma.sync TF32 rate.
     python3 scripts/torch_kernel_a_probe.py --check --parent DIR   # and DIR's wgmma kernel
     python3 scripts/torch_kernel_a_probe.py --wide     # the wide route (H > 768) alone; ~1 min
 
-Builds variants of `splendax_torch/csrc/fused_actor_critic_wgmma.cu` (the
-`wgmma` route, H <= 768) and `fused_actor_critic.cu` (the `mma_sync` route,
-PR 2's kernel) with nvcc (sm_90a, the flags of `splendax_torch/ops/_build.py`)
+Builds variants of `splendax_torch/csrc/fused_actor_critic_wgmma.cu` (both
+routes) with nvcc (sm_90a, the flags of `splendax_torch/ops/_build.py`)
 under `build/probe/`, each with the probe switches its source documents, and
 times each on the device clock as chip_smoke.py's kernel phase does, with the
 committed h768 net on engine obs.  Prints the card's name and power limit
@@ -41,7 +40,7 @@ value and B = 8192 with value, and H = 1280, B = 8192 with value, the
 route's split in the mode B derives: the kernel alone, each of its three
 launches (layer 1, layer 2 with the partial heads, the outputs:
 device-clock sums by kernel), its one_product, no_loads and no_loads_one
-variants, the mma_sync kernel (H <= 1024) and the addmm chain.
+variants and the addmm chain.
 
 --parent DIR: also builds DIR/splendax_torch/csrc/fused_actor_critic_wgmma.cu
 (another tree's wgmma kernel, with this tree's C interface for its tile
@@ -53,7 +52,7 @@ Without --check, after the checks:
 
   wgmma route, B = 8192, 32768, 737280, with and without value: the kernel
   (weights prepared once), the prep kernel alone, the route as the wrapper
-  runs it (prep + kernel), PR 2's kernel, the addmm chain;
+  runs it (prep + kernel), the addmm chain;
   variants at B = 8192 and 32768 with value:
   one_product      one TF32 product per f32 one (wrong numbers: the same
                    loads with a third of the tensor work);
@@ -62,9 +61,8 @@ Without --check, after the checks:
   no_loads_one     both;
   B = 1, 256, 512, 1024, 2048, 3072 without value and 4096 with it (the
   host policies, the eval, a full pool's snapshot slot, the root prior, the
-  pool slots, a dp=2 rank): both routes, both modes and the addmm chain;
-  PR 2's variants at B = 8192 with value (one_product, no_loads,
-  no_loads_one) and its mma.sync TF32 rate per SM clock.
+  pool slots, a dp=2 rank): both modes and the addmm chain; the tensor
+  cores' mma.sync TF32 rate per SM clock (the heads' products).
 """
 
 from __future__ import annotations
@@ -76,12 +74,6 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "probe")
-MMA_SYNC_VARIANTS = {
-    "kernel": (),
-    "one_product": ("-DPROBE_ONE_PRODUCT",),
-    "no_loads": ("-DPROBE_NO_LOADS",),
-    "no_loads_one": ("-DPROBE_NO_LOADS", "-DPROBE_ONE_PRODUCT"),
-}
 WGMMA_VARIANTS = {
     "wgmma": (),
     "wgmma_one_product": ("-DPROBE_ONE_PRODUCT",),
@@ -127,8 +119,8 @@ extern "C" int run(int blocks, int iters, float* out) {
 
 def build(check: bool, parent: str | None = None, wide: bool = False) -> dict:
     """{name: loaded library} for every variant (with --check only the
-    wgmma kernel, its no_loads variants and the mma_sync kernel; with --wide
-    those and one_product), each bound by the wrapper, and the mma loop;
+    wgmma kernel and its no_loads variants; with --wide those and
+    one_product), each bound by the wrapper, and the mma loop;
     prints the wgmma variants' ptxas reports."""
     from splendax_torch.ops import _build
     from splendax_torch.ops import fused_actor_critic as fac
@@ -141,10 +133,6 @@ def build(check: bool, parent: str | None = None, wide: bool = False) -> dict:
         if not check or wide or name in ("wgmma",) + CLOCKS + WGMMA_SPLIT:
             jobs[name] = (_build.CSRC / "fused_actor_critic_wgmma.cu",
                           os.path.join(OUT, f"lib{name}.so"), flags)
-    for name, flags in MMA_SYNC_VARIANTS.items():
-        if not check or name == "kernel":
-            jobs[name] = (_build.CSRC / "fused_actor_critic.cu", os.path.join(OUT, f"lib{name}.so"),
-                          flags)
     if parent is not None:
         jobs["parent"] = (os.path.join(parent, "splendax_torch", "csrc",
                                        "fused_actor_critic_wgmma.cu"),
@@ -166,12 +154,8 @@ def build(check: bool, parent: str | None = None, wide: bool = False) -> dict:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, i, i, ctypes.POINTER(p), p, p, p, i, p]
         fn.restype = i
-    return {name: lib if name in ("mma_loop", "parent") else fac.bind(lib, route_of(name))
+    return {name: lib if name in ("mma_loop", "parent") else fac.bind(lib)
             for name, lib in libs.items()}
-
-
-def route_of(name: str) -> str:
-    return "wgmma" if name.startswith("wgmma") else "mma_sync"
 
 
 def forward(libs, name, w, obs, mask, with_value=True, prepared=None, mode=None):
@@ -179,8 +163,7 @@ def forward(libs, name, w, obs, mask, with_value=True, prepared=None, mode=None)
     derives unless given): (logits, value)."""
     from splendax_torch.ops import fused_actor_critic as fac
 
-    return fac._launch(route_of(name), w, obs, mask, with_value, prepared, lib=libs[name],
-                       mode=mode if route_of(name) == "wgmma" else None)
+    return fac._launch("wgmma", w, obs, mask, with_value, prepared, lib=libs[name], mode=mode)
 
 
 def parent_forward(lib, w, obs, mask, with_value, prepared):
@@ -347,10 +330,6 @@ def wide_probe(libs, cs, dev) -> None:
         parts = {("outputs" if "wide_heads" in e.key else "layer 1"
                   if "<1," in e.key or "Li1E" in e.key else "layer 2"):
                  e.self_device_time_total / 1e3 / 20 for e in kernels}
-        if H <= 1024:
-            out["mma_sync kernel"] = cs.device_ms(
-                lambda: fac._launch("mma_sync", w, obs, mask, with_value, lib=libs["kernel"]),
-                20)[0]
 
         def addmm_chain():
             for o in ((0, 6) if with_value else (0,)):
@@ -422,8 +401,6 @@ def main() -> int:
                 lambda: forward(libs, "wgmma", w, obs, mask, with_value, mode=m), n)[0]
         out["prep"] = cs.device_ms(lambda: fac.prepare_weights(w, with_value, libs["wgmma"]),
                                    n)[0]
-        out["mma_sync (PR 2)"] = cs.device_ms(
-            lambda: forward(libs, "kernel", w, obs, mask, with_value), n)[0]
         out["addmm chain"] = cs.device_ms(lambda: addmm_chain(x32, with_value), n)[0]
         bound = cs.bound_a(B, H, with_value, 2)[0]
         print(f"B={B} H={H} value={with_value} (bound {bound:.4f} ms; the path's mode "
@@ -495,11 +472,6 @@ def main() -> int:
         timings(737280, with_value, obs_big, mask_big, n=5)
     del obs_big, mask_big
 
-    obs, mask = obs_all[:8192].contiguous(), mask_all[:8192].contiguous()
-    for name in ("one_product", "no_loads", "no_loads_one"):
-        ms = cs.device_ms(lambda: forward(libs, name, w, obs, mask), 20)[0]
-        print(f"mma_sync route variant {name}: {ms:.4f} ms (B=8192, H={H}, with value)",
-              flush=True)
     run = libs["mma_loop"].run
     run.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -156,7 +156,7 @@ def derived_modes():
             DERIVED[fac.wgmma_mode(obs.shape[0], weights[0].shape[1])] += 1
         elif r == "wide" and mode is None:
             DERIVED["wide_" + fac.wide_mode(obs.shape[0], weights[0].shape[1], with_value)] += 1
-        if r != "mma_sync" and prepared is None and obs.shape[0] > 0:
+        if prepared is None and obs.shape[0] > 0:
             DERIVED["prep"] += needs_preparation(weights)
         return launch(r, weights, obs, mask, with_value, prepared, lib, mode)
 
@@ -169,7 +169,7 @@ def derived_modes():
 
 def kernel_launches() -> dict:
     """The kernels' own launch counters (`read_launches` without the
-    derived modes and the graphs)."""
+    derived modes)."""
     return {**fac.launch_counts(), "ring_take": rt.launches,
             **{f"engine_ply_{k}": n for k, n in ep.launches.items()}}
 
@@ -177,20 +177,16 @@ def kernel_launches() -> dict:
 def read_launches() -> dict:
     """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
     by route and by the wgmma and wide routes' modes, its weight
-    preparations, kernel B, the ply's kernels
-    (`engine_ply_step`, `engine_ply_observe`) and the plies' CUDA graphs
-    (captures, replays); and the modes derived from the forwards' B
-    and the preparations derived from their weights."""
-    return {**kernel_launches(), **{f"derived_{m}": n for m, n in DERIVED.items()},
-            "graph_capture": sum(trace.counters("graph.capture.").values()),
-            "graph_replay": sum(trace.counters("graph.replay.").values())}
+    preparations, kernel B and the ply's kernels (`engine_ply_step`,
+    `engine_ply_observe`); and the modes derived from the forwards' B and
+    the preparations derived from their weights."""
+    return {**kernel_launches(), **{f"derived_{m}": n for m, n in DERIVED.items()}}
 
 
 def zero_launches() -> None:
     trace.zero("kernel_a.")
     trace.zero("kernel_b.")
     trace.zero("engine_ply.")
-    trace.zero("graph.")
     for k in DERIVED:
         DERIVED[k] = 0
 

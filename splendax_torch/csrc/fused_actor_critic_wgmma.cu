@@ -122,11 +122,11 @@
 // twice 1.2 MB), 8 passes x 2 heads = 16 blocks a layer.  Bound at H = 1024,
 // B = 8192 with the critic: operations, 125.3 GFLOP of TF32 products (two
 // for each f32 one of layer 1, three elsewhere), 0.2535 ms at 494.7 TFLOP/s.
-// Against the mma_sync kernel (fused_actor_critic.cu), which took these
-// widths up to 1024: the weights are split once by the prep kernel, not by
-// every 16- or 32-row block in registers; a block streams 1 / passes
-// of one head's weights, so B = 1024 gives 128 blocks a layer with the
-// critic, not 32-64; and the products are wgmma, not mma.sync.  The wrapper
+// Against the earlier mma.sync kernel, which took these widths up to 1024:
+// the weights are split once by the prep kernel, not by every 16- or 32-row
+// block in registers; a block streams 1 / passes of one head's
+// weights, so B = 1024 gives 128 blocks a layer with the critic, not 32-64;
+// and the products are wgmma, not mma.sync.  The wrapper
 // cuts B into launches of at most 32,768 rows (`WIDE_MAX_ROWS`), which caps
 // the scratch; a row's outputs do not depend on the cut.  Half mode: where
 // a block per pass would leave half the SMs idle (`wide_mode`: at most 66
@@ -146,8 +146,6 @@
 // (the probe reads them; needs B >= 64).  PROBE_SMEM_EXTRA=<bytes> asks for
 // that much more shared memory in cluster mode, past the card's limit: the
 // launch is refused (tests/test_torch_cuda.py holds the wrapper to raising).
-// PROBE_OLD_PREP builds the earlier weight preparation kernel in place of the
-// one below (chip_smoke.py times the two in one run; both give the same bits).
 
 #include <cstdint>
 #include <cuda.h>
@@ -444,7 +442,7 @@ __device__ __forceinline__ void product(float (&d)[F], const uint32_t (&a)[4], u
   if constexpr (F == 64) wgmma_n128<ACC>(d, a, b); else wgmma_n64<ACC>(d, a, b);
 }
 
-// m16n8k8 mma.sync, as in fused_actor_critic.cu: d += a b, and d = a b.
+// m16n8k8 mma.sync: d += a b, and d = a b.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -1440,39 +1438,6 @@ __global__ void __launch_bounds__(PREP_THREADS) prepare_kernel(const PrepParams 
   }
 }
 
-#ifdef PROBE_OLD_PREP
-// The earlier preparation kernel, for the kernel phase to time beside the
-// one above: 32 x 32 tiles moved by 32 x 8 threads in 4-byte loads and
-// stores, a grid sized by the larger K of the two layers.
-struct OldPrepParams {
-  const float* src[4];
-  float* dst[4];
-  int K[4], KP[4];
-};
-
-__global__ void old_prepare_kernel(const OldPrepParams p, int H) {
-  __shared__ float tile[32][33];
-  const int m = blockIdx.z, K = p.K[m], KP = p.KP[m], HP = pad8(H);
-  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
-  if (k0 >= KP) return;
-  for (int r = threadIdx.y; r < 32; r += 8) {
-    const int k = k0 + r, n = n0 + threadIdx.x;
-    tile[r][threadIdx.x] = k < K && n < H ? p.src[m][(size_t)k * H + n] : 0.f;
-  }
-  __syncthreads();
-  float* hi = p.dst[m];
-  float* lo = hi + (size_t)HP * KP;
-  for (int r = threadIdx.y; r < 32; r += 8) {
-    const int n = n0 + r, k = k0 + threadIdx.x;
-    if (n >= HP || k >= KP) continue;
-    uint32_t h, l;
-    split(tile[threadIdx.x][r], h, l);
-    hi[(size_t)n * KP + k] = __uint_as_float(h);
-    lo[(size_t)n * KP + k] = __uint_as_float(l);
-  }
-}
-#endif
-
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no -lcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1603,19 +1568,6 @@ extern "C" int fused_actor_critic_wgmma_prepare(const void* const* weights, int 
   if (H < 1) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)prepared % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const int src[4] = {0, 2, 6, 8};
-#ifdef PROBE_OLD_PREP
-  OldPrepParams o;
-  for (int m = 0; m < 4; ++m) {
-    o.src[m] = (const float*)weights[src[m]];
-    o.dst[m] = (float*)prepared + prepared_offset(H, m);
-    o.K[m] = m & 1 ? H : OBS;
-    o.KP[m] = m & 1 ? pad16(H) : K1P;
-  }
-  const int kmax = K1P > pad16(H) ? K1P : pad16(H);
-  const dim3 grid((kmax + 31) / 32, (pad8(H) + 31) / 32, critic ? 4 : 2);
-  old_prepare_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(o, H);
-  return (int)cudaGetLastError();
-#else
   PrepParams p;
   p.H = H;
   p.HP = pad8(H);
@@ -1637,7 +1589,6 @@ extern "C" int fused_actor_critic_wgmma_prepare(const void* const* weights, int 
   else
     prepare_kernel<false><<<tiles, PREP_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
-#endif
 }
 
 // obs int32 [B, 297], mask uint8 [B, 45], weights as listed in Params (the

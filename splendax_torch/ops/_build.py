@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("fused_actor_critic", "fused_actor_critic_wgmma", "ring_take", "engine_ply")
+SOURCES = ("fused_actor_critic_wgmma", "ring_take", "engine_ply")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -17,9 +17,7 @@ TMA, a block per (128 columns, 128-row tile, head) in each layer (pass
 mode) or, where those would leave half the SMs idle, per (64 columns,
 tile, head) (half mode; `wide_mode(B, H, with_value)`); B is cut into calls
 of at most `WIDE_MAX_ROWS` rows.  All sum in one order, so a row's outputs
-are the same bits in every mode and at every B.  The older
-`mma_sync` kernel (`csrc/fused_actor_critic.cu`) is on no path: it stays
-only to be timed beside them (`_launch("mma_sync", ...)`).  On a CPU
+are the same bits in every mode and at every B.  On a CPU
 tensor it runs `fused_masked_forward_plain`, the same function in plain
 PyTorch.  The kernels are held within rtol/atol 1e-5 of
 the plain version, which computes in the weights' dtype: on the committed
@@ -80,7 +78,7 @@ WIDE_HALF_MAX_BLOCKS = 66
 WIDE_OUT_ROWS = 8  # rows of a block of the wide route's output kernel
 WIDE_HEAD_PAD = 48  # the wide route's partial logits a row: 45 padded to six n-tiles of 8
 
-ROUTES = ("wgmma", "wide", "mma_sync")
+ROUTES = ("wgmma", "wide")
 MODES = {"wgmma": ("tile", "cluster"), "wide": ("pass", "half")}
 
 
@@ -355,22 +353,18 @@ def fused_masked_forward_plain(weights, obs, mask, with_value: bool = True):
     return logits, (v @ cw2 + cb2)[:, 0]
 
 
-SOURCES = {"wgmma": "fused_actor_critic_wgmma", "wide": "fused_actor_critic_wgmma",
-           "mma_sync": "fused_actor_critic"}
+SOURCE = "fused_actor_critic_wgmma"  # both routes' library
 
 
-def bind(lib: ctypes.CDLL, r: str) -> ctypes.CDLL:
-    """Declares the C interface of route `r`'s library `lib`, built from
-    `csrc/<SOURCES[r]>.cu` (with any probe switches), and returns it."""
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of `lib`, built from `csrc/<SOURCE>.cu`
+    (with any probe switches), and returns it."""
     p, i, w = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
-    if SOURCES[r] == "fused_actor_critic_wgmma":
-        fns = [(lib.fused_actor_critic_wgmma_prepare, [w, i, i, p, p]),
-               (lib.fused_actor_critic_wgmma_forward, [p, p, i, i, w, p, p, p, i, p]),
-               (lib.fused_actor_critic_wide_forward,
-                [p, p, i, i, w, p, p, ctypes.c_longlong, p, p, i, p]),
-               (lib.fused_actor_critic_wgmma_max_clusters, [i, ctypes.POINTER(i)])]
-    else:
-        fns = [(lib.fused_actor_critic_forward, [p, p, i, i, w, p, p, p])]
+    fns = [(lib.fused_actor_critic_wgmma_prepare, [w, i, i, p, p]),
+           (lib.fused_actor_critic_wgmma_forward, [p, p, i, i, w, p, p, p, i, p]),
+           (lib.fused_actor_critic_wide_forward,
+            [p, p, i, i, w, p, p, ctypes.c_longlong, p, p, i, p]),
+           (lib.fused_actor_critic_wgmma_max_clusters, [i, ctypes.POINTER(i)])]
     for fn, argtypes in fns:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -378,8 +372,8 @@ def bind(lib: ctypes.CDLL, r: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _route_lib(r: str) -> ctypes.CDLL:
-    return bind(_build.load(SOURCES[r]), r)
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load(SOURCE))
 
 
 def _ptrs(weights):
@@ -403,7 +397,7 @@ def prepare_weights(weights, with_value: bool = True, lib=None) -> torch.Tensor:
             raise ValueError(f"prepare_weights: weights[{i}] must be contiguous float32 on "
                              f"{weights[0].device}")
     prepared = torch.empty(prepared_floats(H), dtype=torch.float32, device=weights[0].device)
-    lib = _route_lib(route(H)) if lib is None else lib
+    lib = _lib() if lib is None else lib
     err = lib.fused_actor_critic_wgmma_prepare(
         _ptrs(weights), H, int(with_value), prepared.data_ptr(), _stream(prepared))
     if err != 0:
@@ -453,7 +447,7 @@ def max_clusters(H: int) -> int:
     """How many cluster-mode clusters at hidden width H the card holds at
     once."""
     n = ctypes.c_int(0)
-    err = _route_lib("wgmma").fused_actor_critic_wgmma_max_clusters(H, ctypes.byref(n))
+    err = _lib().fused_actor_critic_wgmma_max_clusters(H, ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"fused_actor_critic cluster occupancy query failed: CUDA error {err}")
     return n.value
@@ -461,29 +455,26 @@ def max_clusters(H: int) -> int:
 
 def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=None, mode=None):
     """One forward on route `r` of checked CUDA inputs, from `lib` (a
-    library of `bind`; the library's own build unless given one); the
-    `wgmma` and `wide` routes prepare the weights first (a
-    `PreparedWeights` only where it is stale) unless given `prepared`, and
-    run in the mode their shape gives (`wgmma_mode`,
-    `wide_mode`) unless given `mode`.  `route(H)` and the modes name what the path runs;
-    a measurement or a test may force another route or mode, or a probe's
-    build."""
-    if r not in SOURCES:
+    library of `bind`; the library's own build unless given one); it
+    prepares the weights first (a `PreparedWeights` only where it is stale)
+    unless given `prepared`, and runs in the mode the shape gives
+    (`wgmma_mode`, `wide_mode`) unless given `mode`.  `route(H)` and the
+    modes name what the path runs; a measurement or a test may force
+    another route or mode, or a probe's build."""
+    if r not in ROUTES:
         raise ValueError(f"unknown route {r!r}")
     B, H = obs.shape[0], weights[0].shape[1]
-    modes = MODES.get(r)
-    if modes is not None:
-        if mode is None:
-            mode = wgmma_mode(B, H) if r == "wgmma" else wide_mode(B, H, with_value)
-        if mode not in modes:
-            raise ValueError(f"unknown mode {mode!r}")
+    if mode is None:
+        mode = wgmma_mode(B, H) if r == "wgmma" else wide_mode(B, H, with_value)
+    if mode not in MODES[r]:
+        raise ValueError(f"unknown mode {mode!r}")
     logits = torch.empty((B, ACT_DIM), dtype=torch.float32, device=obs.device)
     value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
     if B == 0:
         return logits, value
     value_ptr = value.data_ptr() if with_value else None
-    lib = _route_lib(r) if lib is None else lib
-    if r != "mma_sync" and prepared is None:
+    lib = _lib() if lib is None else lib
+    if prepared is None:
         prepared = (weights.buffer(lib) if isinstance(weights, PreparedWeights)
                     else prepare_weights(weights, with_value, lib))
     if r == "wgmma":
@@ -491,7 +482,7 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
         err = lib.fused_actor_critic_wgmma_forward(
             obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), prepared.data_ptr(),
             logits.data_ptr(), value_ptr, groups, _stream(obs))
-    elif r == "wide":
+    else:
         scratch = torch.empty(wide_scratch_floats(min(B, WIDE_MAX_ROWS), H, with_value),
                               dtype=torch.float32, device=obs.device)
         columns = PASS_COLUMNS if mode == "pass" else PASS_COLUMNS // 2
@@ -504,14 +495,9 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
                 value_ptr + 4 * c0 if with_value else None, columns, _stream(obs))
             if err != 0:
                 break
-    else:
-        err = lib.fused_actor_critic_forward(obs.data_ptr(), mask.data_ptr(), B, H,
-                                             _ptrs(weights), logits.data_ptr(), value_ptr,
-                                             _stream(obs))
     if err != 0:
         raise RuntimeError(f"fused_actor_critic {r} kernel launch failed: CUDA error {err}")
     trace.count("kernel_a.launches")
     trace.count("kernel_a.route." + r)
-    if modes is not None:
-        trace.count(("kernel_a.mode." if r == "wgmma" else "kernel_a.wide_mode.") + mode)
+    trace.count(("kernel_a.mode." if r == "wgmma" else "kernel_a.wide_mode.") + mode)
     return logits, value

@@ -16,9 +16,9 @@ tree.
    or of `q` alone under `greedy_final`.
 
 On the card in fast mode the root children, each round's lanes (their
-states, obs and masks) and every playout step are CUDA graph replays
-(`env/graphed`), each around one launch of the ply's kernels
-(`ops/engine_ply`); kernel A, the samples and the halving run eagerly.
+states, obs and masks) and every playout step are each one launch of the
+ply's kernels (`ops/engine_ply`); kernel A, the samples and the halving
+run between them.
 
 Halving is by rank with stable sorts, so which of two equal scores survives
 is fixed: the lower slot.  Games with fewer than `m` legal actions pad with
@@ -44,7 +44,6 @@ import torch
 from .. import trace
 from ..engine import rules as R
 from ..engine.state import GameState
-from ..env import graphed
 from ..models.actor_critic import gumbel_noise
 from ..ops import engine_ply
 from ..ops.fused_actor_critic import fused_masked_forward
@@ -130,7 +129,7 @@ def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float 
 
             if determinize_fn is None:
                 # Root children once per candidate: child[b * m + j].
-                child = graphed.call("gumbel.children", children, state, cand, rng_mode=rng_mode)
+                child = children(state, cand, rng_mode=rng_mode)
 
             q_sum = torch.zeros((B, m), device=dev)
             n_cnt = torch.zeros((B, m), device=dev)
@@ -147,9 +146,8 @@ def gumbel_search_fn(m: int = 16, k0: int = 6, horizon: int = 4, c_scale: float 
                     f_obs = f_mask = None
                     if determinize_fn is None:
                         lane_child = (rows * m + order).reshape(-1).repeat_interleave(k_r)
-                        flat, f_obs, f_mask = graphed.call(
-                            "gumbel.lanes", _lanes, child, lane_child, rng_mode=rng_mode,
-                            with_obs=ctx is not None)
+                        flat, f_obs, f_mask = _lanes(child, lane_child, rng_mode=rng_mode,
+                                                     with_obs=ctx is not None)
                     else:
                         det = determinize_fn(repeat_rows(state, k_r), generator,
                                              u=draws["det"][r] if "det" in draws else None)

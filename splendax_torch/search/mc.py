@@ -19,9 +19,8 @@ kernel: playout moves without the value, leaves with it (the kernel has no
 critic-only mode, so the logits are computed and dropped).
 
 On the card in fast mode the flat batch of root children and each playout
-step (the ply, the frozen lanes, the next obs and mask) are CUDA graph
-replays (`env/graphed`), each around one launch of the ply's kernels
-(`ops/engine_ply`).
+step (the ply, the frozen lanes, the next obs and mask) are each one
+launch of the ply's kernels (`ops/engine_ply`).
 
 A search is `fn(ctx, obs, mask, state, generator=None, draws=None)`.  Its
 random inputs come from `generator` unless `draws` gives them: for each ply
@@ -42,7 +41,6 @@ from ..engine import rules as R
 from ..engine.encode import encode_observation
 from ..engine.state import GameState
 from ..env import core
-from ..env import graphed
 from ..env.core import select
 from ..models import actor_critic as ac
 from ..ops import engine_ply
@@ -130,8 +128,8 @@ def observe(states: GameState, rng_mode: str = "fast", with_obs: bool = True):
 def playout_step(states: GameState, action: torch.Tensor, mask: torch.Tensor,
                  rng_mode: str = "fast", with_obs: bool = True):
     """One ply of every lane, a finished lane frozen, from the lanes' legal
-    `mask` -> (successor, its obs or None, its legal mask): one graph
-    replay on the card (`env/graphed`)."""
+    `mask` -> (successor, its obs or None, its legal mask): one launch of
+    the step kernel on the card."""
     if engine_ply.takes(states.to_play, rng_mode):
         nxt, _, obs, next_mask = engine_ply.step(states, action, mask, freeze_terminal=True,
                                                  with_obs=with_obs, with_mask=True)
@@ -155,7 +153,7 @@ def rollout_values(flat_states: GameState, me_flat: torch.Tensor, ctx, generator
     with_obs = ctx is not None  # the actor's and the critic's input
     st = flat_states
     if mask is None:
-        obs, mask = graphed.call("mc.observe", observe, st, rng_mode=rng_mode, with_obs=with_obs)
+        obs, mask = observe(st, rng_mode=rng_mode, with_obs=with_obs)
     for k in range(horizon):
         d = None if draws is None else draws[k]
         if ctx is not None and guided:
@@ -163,8 +161,7 @@ def rollout_values(flat_states: GameState, me_flat: torch.Tensor, ctx, generator
             a, _ = ac.sample_action(logits, mask, generator=generator, noise=d)
         else:
             a = uniform_legal_action(mask, generator, u=d)
-        st, obs, mask = graphed.call("mc.playout", playout_step, st, a, mask, rng_mode=rng_mode,
-                                     with_obs=with_obs)
+        st, obs, mask = playout_step(st, a, mask, rng_mode=rng_mode, with_obs=with_obs)
     return leaf_values(st, me_flat, ctx, obs=obs)
 
 
@@ -201,9 +198,8 @@ def mc_search_q(rollouts: int = 8, horizon: int = 24, rng_mode: str = "fast",
     @torch.no_grad()
     def fn(ctx, obs, mask, state, generator=None, draws=None):
         B = mask.shape[0]
-        flat, f_obs, f_mask = graphed.call("mc.children", _flat_children, state,
-                                           rng_mode=rng_mode, rollouts=rollouts,
-                                           with_obs=ctx is not None)  # [B * A * K]
+        flat, f_obs, f_mask = _flat_children(state, rng_mode=rng_mode, rollouts=rollouts,
+                                             with_obs=ctx is not None)  # [B * A * K]
         me_flat = state.to_play.repeat_interleave(A * rollouts)
         vals = rollout_values(flat, me_flat, ctx, generator, horizon, rng_mode=rng_mode,
                               guided=guided, draws=draws, obs=f_obs, mask=f_mask)

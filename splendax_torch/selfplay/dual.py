@@ -11,11 +11,11 @@ Counterpart of `splendax/selfplay/dual.py`, with its reward contract:
 `opponent_policy(obs, mask, state) -> action [B]` acts on the whole batch.
 
 On the card in fast mode each ply, and the autoreset's selection, encode
-and mask, is one CUDA graph replay (`env/graphed`) around the ply's kernels
-(`ops/engine_ply`: the agent's ply one step launch with its obs and mask,
-the opponent's one step launch that holds the games it does not move, the
-observation and the reset one observe launch each); the opponent's policy
-and the ring take run eagerly between them.
+and mask, is one launch of the ply's kernels (`ops/engine_ply`: the agent's
+ply one step launch with its obs and mask, the opponent's one step launch
+that holds the games it does not move, the observation and the reset one
+observe launch each); the opponent's policy and the ring take run between
+them.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from ..engine import rules
 from ..engine.encode import encode_observation
 from ..engine.state import GameState
 from ..env import core
-from ..env import graphed
 from ..env import ring as ring_lib
 from ..ops import engine_ply
 
@@ -99,20 +98,18 @@ def _reset(done, fresh: GameState, cur: GameState, rng_mode: str = "fast"):
 
 def _turn(state: GameState, agent_action, opponent_policy: Callable, rng_mode: str, mask=None):
     """Both plies of a turn; returns (next_state, output without obs/mask).
-    Each ply is an "engine.ply" span and one graph replay
-    (`env/graphed`); the opponent's policy runs between.  `mask` may pass
+    Each ply is an "engine.ply" span and one launch of the ply's kernel;
+    the opponent's policy runs between.  `mask` may pass
     in the state's legal mask."""
     # Phase 1: the agent moves; the opponent acts on its obs and mask.
     with trace.span("engine.ply"):
-        state1, out_a = graphed.call("dual.agent", _agent_ply, state, agent_action, mask,
-                                     rng_mode=rng_mode)
+        state1, out_a = _agent_ply(state, agent_action, mask, rng_mode=rng_mode)
     opp_action = opponent_policy(out_a.obs, out_a.action_mask, state1)
 
     with trace.span("engine.ply"):
-        next_state, agent_reward, opp_reward, done, turn_limit = graphed.call(
-            "dual.opponent", _opponent_ply, state1, opp_action, out_a.action_mask,
-            out_a.terminated, out_a.reward, out_a.final_rewards, out_a.turn_limit,
-            rng_mode=rng_mode)
+        next_state, agent_reward, opp_reward, done, turn_limit = _opponent_ply(
+            state1, opp_action, out_a.action_mask, out_a.terminated, out_a.reward,
+            out_a.final_rewards, out_a.turn_limit, rng_mode=rng_mode)
         out = DualStepOutput(
             agent_obs=None,
             agent_reward=agent_reward,
@@ -136,8 +133,7 @@ def dual_step(state: GameState, agent_action, opponent_policy: Callable, rng_mod
     # encode and legal_mask are per-game functions, so computing them on the
     # selected state equals selecting between the two plies' values.
     with trace.span("engine.ply"):
-        obs, out.action_mask = graphed.call("dual.observe", _observe, next_state, out.done,
-                                            rng_mode=rng_mode)
+        obs, out.action_mask = _observe(next_state, out.done, rng_mode=rng_mode)
         out.agent_obs = out.opp_obs = obs
     return next_state, out
 
@@ -176,12 +172,11 @@ def dual_step_autoreset_ring(state: GameState, agent_action, opponent_policy: Ca
 
     Returns (carry, out, obs_next, mask_next, done, ring); obs_next and
     mask_next are those of the carried state, fresh where done.  The ring
-    take runs eagerly (kernel B); the selection, encode and mask are one
-    graph replay.
+    take is kernel B; the selection, encode and mask one observe launch.
     """
     next_state, out = _turn(state, agent_action, opponent_policy, rng_mode, mask)
     with trace.span("engine.reset"):
         fresh_state, _, ring = ring_lib.take(ring, out.done, mesh)
-        carry, obs_next, mask_next = graphed.call("dual.reset", _reset, out.done, fresh_state,
-                                                  next_state, rng_mode=rng_mode)
+        carry, obs_next, mask_next = _reset(out.done, fresh_state, next_state,
+                                            rng_mode=rng_mode)
     return carry, out, obs_next, mask_next, out.done, ring

@@ -288,8 +288,7 @@ def test_derived_prep_counts_what_the_weights_call_for(monkeypatch):
     """Inside `derived_modes` a forward on a plain list adds one
     preparation; one on a `PreparedWeights` handle adds one only while the
     handle is stale (before its first preparation, after a write to a
-    weight it read); a forward given its buffer, on no rows or on the
-    mma_sync route adds none."""
+    weight it read); a forward given its buffer or on no rows adds none."""
     from splendax_torch.ops import fused_actor_critic as fac
 
     def launch(r, weights, obs, mask, with_value, prepared=None, lib=None, mode=None):
@@ -312,7 +311,6 @@ def test_derived_prep_counts_what_the_weights_call_for(monkeypatch):
         fac._launch("wgmma", h, obs, None, True)
         fac._launch("wgmma", w, obs, None, True, torch.zeros(1))
         fac._launch("wgmma", w, torch.zeros(0, 297), None, True)
-        fac._launch("mma_sync", w, obs, None, True)
     assert bench.read_launches()["derived_prep"] == 3 and h.preparations == 2
     n = dict(dict.fromkeys(bench.read_launches(), 0), fused_actor_critic=3,
              fused_actor_critic_wgmma=3, fused_actor_critic_cluster=3, derived_cluster=3,

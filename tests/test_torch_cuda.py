@@ -444,16 +444,15 @@ def test_ring_autoreset_on_the_card_equals_the_cpu(cuda):
 
 @pytest.mark.cuda
 def test_token_return_launches_once_per_fast_apply(cuda, monkeypatch):
-    """Each fast-mode `apply_action` on the card, eager or in a graph replay,
-    is one launch of the ply's step kernel, which draws the token return
-    itself, over one league update with the static search slot (the plies, the search's children and playouts); a
-    parity update launches neither."""
+    """Each fast-mode `apply_action` on the card is one launch of the ply's
+    step kernel, which draws the token return itself, over one league update
+    with the static search slot (the plies, the search's children and
+    playouts); a parity update launches neither."""
     calls = []
     inner = ep.step
 
     def counted(state, *args, **kw):
-        if not torch.cuda.is_current_stream_capturing():  # an eager launch
-            calls.append(state.to_play.shape[0] > 0)
+        calls.append(state.to_play.shape[0] > 0)
         return inner(state, *args, **kw)
 
     monkeypatch.setattr(ep, "step", counted)
@@ -464,23 +463,13 @@ def test_token_return_launches_once_per_fast_apply(cuda, monkeypatch):
                         search_horizon=2, **extra)
         ts = ppo.init_train_state(cfg, device=cuda)
         calls.clear()
-        before, replayed = ep.launches["step"], graph_launches("engine_ply.launches.step")
+        before = ep.launches["step"]
         ppo.update_step(cfg, ts)
-        # A capture runs nothing; each replay runs the launches its graph holds.
-        ran = graph_launches("engine_ply.launches.step") - replayed
-        assert ep.launches["step"] - before == sum(calls) + ran
+        assert ep.launches["step"] - before == sum(calls)
         if mode == "fast":
-            assert ep.launches["step"] - before > 2 * cfg.num_steps and ran > 0
+            assert ep.launches["step"] - before > 2 * cfg.num_steps
         else:
-            assert len(calls) == 0 and ran == 0
-
-
-def graph_launches(counter: str) -> int:
-    """The launches of one engine kernel counter that every graph replay so
-    far has run."""
-    from splendax_torch.env import graphed
-
-    return sum(g["replays"] * g["launches"].get(counter, 0) for g in graphed.captured())
+            assert len(calls) == 0
 
 
 def check_wgmma(w, obs, mask, route="wgmma"):
@@ -684,7 +673,7 @@ def test_refused_cluster_launch_raises(cuda, tmp_path):
     lib = tmp_path / "libwgmma_refused.so"
     _build.compile_many({"refused": (_build.CSRC / "fused_actor_critic_wgmma.cu", lib,
                                      ("-DPROBE_SMEM_EXTRA=65536",))})
-    refused = fac.bind(ctypes.CDLL(str(lib)), "wgmma")
+    refused = fac.bind(ctypes.CDLL(str(lib)))
     rng = np.random.RandomState(5)
     w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, 768), device=cuda))
     obs = torch.as_tensor(rng.randint(0, 8, size=(256, 297)).astype(np.int32), device=cuda)
@@ -822,7 +811,7 @@ def test_refused_wide_launch_raises(cuda, tmp_path):
     lib = tmp_path / "libwide_refused.so"
     _build.compile_many({"refused": (_build.CSRC / "fused_actor_critic_wgmma.cu", lib,
                                      ("-DPROBE_SMEM_EXTRA=131072",))})
-    refused = fac.bind(ctypes.CDLL(str(lib)), "wide")
+    refused = fac.bind(ctypes.CDLL(str(lib)))
     w = wide_net(cuda, 1024, "random")
     rng = np.random.RandomState(5)
     obs = torch.as_tensor(rng.randint(0, 8, size=(256, 297)).astype(np.int32), device=cuda)
@@ -925,8 +914,7 @@ def test_every_blocking_read_goes_through_trace_sync(cuda, path):
     """Every synchronising call of an update (each slot mode, parity mode,
     the ring-less reset) and of a Gumbel eval, after a first run that makes
     the cached tables, goes through `trace.sync`, so the per-update records
-    count every place the host waits on the device: in a run that captures
-    the CUDA graphs of its plies and in one that replays them."""
+    count every place the host waits on the device."""
     from splendax_torch.eval import suite
     from splendax_torch.search import gumbel
 
@@ -946,23 +934,15 @@ def test_every_blocking_read_goes_through_trace_sync(cuda, path):
 
         def run():
             state[0], _ = ppo.update_step(cfg, state[0])
-    from splendax_torch.env import graphed
 
     run()
     torch.cuda.synchronize()
-    # The graphs captured anew under the mode (each capture a `graph.capture`
-    # sync), then replayed.
-    graphed.reset()
     found = unrouted_syncs(run)
-    replays = sum(g["replays"] for g in graphed.captured())
-    found.update((f"replaying: {k}", n) for k, n in unrouted_syncs(run).items())
     print(f"{path}: synchronising calls outside trace.sync {found}")
     assert found == {}
-    if path != "parity":  # parity mode runs eagerly
-        assert sum(g["replays"] for g in graphed.captured()) > replays > 0
 
 
-# ---- CUDA graphs over the fast-mode plies (env/graphed) ---------------------
+# ---- the engine's call sites on the card ------------------------------------
 
 def _fuzzed_states(B: int, seed: int, cuda):
     """B games on the card after 0 to 199 uniformly random legal plies each
@@ -982,7 +962,7 @@ def _fuzzed_states(B: int, seed: int, cuda):
     return st, g
 
 
-def _graph_sites(B: int, st, g, cuda) -> dict:
+def _site_calls(B: int, st, g, cuda) -> dict:
     """{site: (fn, inputs of 3 calls)} at lane batch B: the dual turn's
     plies and reset, the Gumbel search's children (m 8, or 16 at B = 9,600)
     and lanes, a playout step; each call on other games, ~3% of the actions
@@ -1027,97 +1007,107 @@ def _graph_sites(B: int, st, g, cuda) -> dict:
     return {k: (fns[k], calls[k]) for k in fns}
 
 
-def _same(got, want) -> None:
-    from splendax_torch.env import graphed
+def _to(x, device):
+    """x's tensors (in tuples and `GameState`s) on `device`."""
+    if isinstance(x, tuple):
+        return tuple(_to(v, device) for v in x)
+    return x.map(lambda t: t.to(device)) if hasattr(x, "map") else x.to(device)
 
-    g_leaves, w_leaves = [], []
-    assert graphed._flatten(got, g_leaves) == graphed._flatten(want, w_leaves)
-    for i, (x, y) in enumerate(zip(g_leaves, w_leaves)):
-        assert x.dtype == y.dtype and torch.equal(x, y), f"output {i}"
+
+def _same(got, want, where: str) -> None:
+    """got (on the card) and want (on the CPU) hold the same structure
+    (tensors, None, tuples, dataclasses) and their tensors the same dtypes
+    and bits."""
+    import dataclasses
+
+    if isinstance(got, torch.Tensor):
+        assert isinstance(want, torch.Tensor) and got.dtype == want.dtype, where
+        assert torch.equal(got.cpu(), want), where
+    elif isinstance(got, tuple):
+        assert isinstance(want, tuple) and len(got) == len(want), where
+        for i, (x, y) in enumerate(zip(got, want)):
+            _same(x, y, f"{where}[{i}]")
+    elif dataclasses.is_dataclass(got):
+        assert type(got) is type(want), where
+        for f in dataclasses.fields(got):
+            _same(getattr(got, f.name), getattr(want, f.name), f"{where}.{f.name}")
+    else:
+        assert got is None and want is None, where
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [8192, 32768, 9600])
-def test_graphed_plies_equal_the_eager_functions(cuda, B):
+def test_sites_on_the_card_equal_the_cpu(cuda, B):
     """At the dual turn's B (8,192), the static slot's search lanes (32,768)
-    and the eval's (9,600), on fuzzed games: each graphed site's first call
-    (eager), second (capture and replay) and third (replay) equal the eager
-    function bit for bit, every state field, obs, mask and field; outputs
-    held across later replays stay intact and share no memory with the
-    graph; each site's replay adds one launch of the ply's kernels."""
-    from splendax_torch.env import graphed
-
-    graphed.reset()
+    and the eval's (9,600), on fuzzed games: each engine site (the dual
+    turn's plies and reset, the Gumbel search's children and lanes, a
+    playout step) on the card is one launch of the ply's kernels and equals
+    the same function on a CPU copy of its inputs bit for bit, every state
+    field, obs, mask and field."""
     st, g = _fuzzed_states(B, B, cuda)
-    for site, (fn, calls) in _graph_sites(B, st, g, cuda).items():
-        outs = []
+    for site, (fn, calls) in _site_calls(B, st, g, cuda).items():
         for i, args in enumerate(calls):
             before = sum(ep.launches.values())
-            outs.append(graphed.call(site, fn, *args))
-            if i == 2:
-                assert sum(ep.launches.values()) - before == 1, site
-        held = [g for g in graphed._graphs.values() if g.site == site]
-        assert len(held) == 1 and held[0].replays == 2, site
-        static = {t.data_ptr() for t in held[0].outputs + held[0].inputs}
-        for args, out in zip(calls, outs):  # after every replay of the site
-            _same(out, fn(*args))
-            leaves = []
-            graphed._flatten(out, leaves)
-            assert not static & {t.data_ptr() for t in leaves}, site
-    print(f"B={B}: " + "; ".join(f"{c['site']} {c['launches']} a replay"
-                                 for c in graphed.captured()))
+            out = fn(*args)
+            assert sum(ep.launches.values()) - before == 1, site
+            _same(out, fn(*_to(args, "cpu")), f"{site} call {i}")
 
 
 @pytest.mark.cuda
-def test_graphs_are_captured_in_the_first_operation_only(cuda):
-    """A league update with the static slot captures every graph of its
-    plies, search children, lanes and playouts; a second and a third update
-    replay them and capture nothing.  Likewise a second Gumbel eval."""
-    from splendax_torch import trace
-    from splendax_torch.env import graphed
+def test_each_site_call_is_one_kernel_launch(cuda, monkeypatch):
+    """In a league update with the static slot and in a Gumbel eval, every
+    call of an engine site (the dual turn's plies, observation and reset,
+    the search's children, lanes and playout steps) launches exactly one
+    step or observe kernel, and a second update or eval launches as many as
+    the first."""
     from splendax_torch.eval import suite
-    from splendax_torch.search import gumbel
+    from splendax_torch.search import gumbel, mc
+    from splendax_torch.selfplay import dual
 
-    def sites():
-        out = {}
-        for c in graphed.captured():
-            out[c["site"]] = out.get(c["site"], 0) + 1
-        return out
+    per_call = {}
 
-    def replays():
-        return sum(c["replays"] for c in graphed.captured())
+    def counted(name, fn):
+        def site(*args, **kw):
+            before = sum(ep.launches.values())
+            out = fn(*args, **kw)
+            per_call.setdefault(name, []).append(sum(ep.launches.values()) - before)
+            return out
+        return site
 
-    graphed.reset()
+    for mod, name in ((dual, "_agent_ply"), (dual, "_opponent_ply"), (dual, "_observe"),
+                      (dual, "_reset"), (gumbel, "children"), (gumbel, "_lanes"),
+                      (mc, "playout_step"), (mc, "observe")):
+        monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
+
+    def launched(run):
+        per_call.clear()
+        before = sum(ep.launches.values())
+        run()
+        assert all(n == [1] * len(n) for n in per_call.values()), per_call
+        return sum(ep.launches.values()) - before, {k: len(n) for k, n in per_call.items()}
+
     cfg = PPOConfig(num_envs=256, num_steps=4, hidden=64, pool_size=3, minibatch_size=512,
                     update_epochs=1, total_timesteps=256 * 4 * 8, search_opponent=True,
                     search_static=True, search_m=4, search_k0=2, search_horizon=2)
-    ts = ppo.init_train_state(cfg, device=cuda)
-    ts, _ = ppo.update_step(cfg, ts)
-    first = sites()
-    assert first == {"dual.agent": 1, "dual.opponent": 1, "dual.reset": 1,
-                     "gumbel.children": 1, "gumbel.lanes": 1, "mc.playout": 1}, first
-    for _ in range(2):
-        r = replays()
-        ts, _ = ppo.update_step(cfg, ts)
-        rec = trace.records("update")[-1]["counters"]
-        assert sites() == first and replays() > r
-        assert not any(k.startswith("graph.capture.") for k in rec), rec
-        assert rec["graph.replay.dual.agent"] == cfg.num_steps, rec
+    ts = [ppo.init_train_state(cfg, device=cuda)]
 
-    graphed.reset()
+    def update():
+        ts[0], _ = ppo.update_step(cfg, ts[0])
+
+    first = launched(update)
+    assert set(first[1]) == {"_agent_ply", "_opponent_ply", "_reset", "children", "_lanes",
+                             "playout_step"}, first
+    assert first[1]["_agent_ply"] == cfg.num_steps and first[0] >= sum(first[1].values())
+    assert launched(update) == first
+
     params = ac.ActorCritic(64, torch.Generator(device=cuda).manual_seed(0), cuda)
     bot = gumbel.gumbel_search_policy(m=4, k0=2, horizon=2,
                                       params=fac.PreparedWeights(ac.kernel_weights(params)))
     opp = suite.model_greedy_policy(params)
-    suite.eval_vs_opponent(bot, opp, 16, seed=1, device=cuda)
-    first = sites()
-    assert first == {"dual.agent": 1, "dual.opponent": 1, "dual.observe": 1,
-                     "gumbel.children": 1, "gumbel.lanes": 1, "mc.playout": 1}, first
-    r = replays()
-    suite.eval_vs_opponent(bot, opp, 16, seed=2, device=cuda)
-    rec = trace.records("eval")[-1]["counters"]
-    assert sites() == first and replays() > r
-    assert not any(k.startswith("graph.capture.") for k in rec), rec
+    first = launched(lambda: suite.eval_vs_opponent(bot, opp, 16, seed=1, device=cuda))
+    assert set(first[1]) == {"_agent_ply", "_opponent_ply", "_observe", "children", "_lanes",
+                             "playout_step"}, first
+    assert launched(lambda: suite.eval_vs_opponent(bot, opp, 16, seed=1, device=cuda)) == first
 
 
 # ---- the fast-mode ply's kernels (ops/engine_ply) ---------------------------
@@ -1355,30 +1345,3 @@ def test_engine_ply_kernels_refuse_bad_input(cuda):
         with pytest.raises(ValueError):
             call()
     assert sum(ep.launches.values()) == before
-
-
-@pytest.mark.cuda
-def test_graphed_sites_with_the_kernels_equal_the_plain_functions(cuda):
-    """Each graphed site (the dual turn's plies and reset, the Gumbel
-    search's children and lanes, a playout step), replayed with the ply's
-    kernels on the card, equals the same site run by the plain functions on
-    the CPU on the same inputs, bit for bit, at B = 8,192."""
-    from splendax_torch.env import graphed
-
-    graphed.reset()
-    B = 8192
-    st, g = _fuzzed_states(B, 21, cuda)
-    for site, (fn, calls) in _graph_sites(B, st, g, cuda).items():
-        outs = [graphed.call(site, fn, *args) for args in calls]
-        assert [c["replays"] for c in graphed.captured() if c["site"] == site] == [2], site
-        for args, out in zip(calls, outs):
-            cpu_args = tuple(x.map(lambda t: t.cpu()) if hasattr(x, "map") else x.cpu()
-                             for x in args)
-            want = fn(*cpu_args)
-            leaves = []
-            graphed._flatten(out, leaves)
-            w_leaves = []
-            graphed._flatten(want, w_leaves)
-            assert len(leaves) == len(w_leaves), site
-            for i, (x, y) in enumerate(zip(leaves, w_leaves)):
-                assert x.dtype == y.dtype and torch.equal(x.cpu(), y), f"{site}: output {i}"

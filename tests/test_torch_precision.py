@@ -1,6 +1,5 @@
-"""The numeric design of kernel A (`splendax_torch/csrc/fused_actor_critic.cu`
-and the wgmma and wide routes' `fused_actor_critic_wgmma.cu`), emulated on the
-CPU.
+"""The numeric design of kernel A (the wgmma and wide routes'
+`splendax_torch/csrc/fused_actor_critic_wgmma.cu`), emulated on the CPU.
 
 The kernel takes each f32 product on the tensor cores as three TF32
 products: with hi = tf32(a) and lo = tf32(a - hi), a b ~ hi hi + hi lo + lo hi,
@@ -423,8 +422,7 @@ def test_wgmma_mode_is_a_function_of_b_and_h(hidden):
                                           (2048, "wide")])
 def test_route_follows_the_hidden_width(hidden, want):
     """H <= 768 takes the wgmma route (its 64-row tile holds the first hidden
-    layer in shared memory), wider nets the wide route, at any width; no
-    path takes the mma_sync kernel."""
+    layer in shared memory), wider nets the wide route, at any width."""
     assert fac.route(hidden) == want
 
 

@@ -192,9 +192,9 @@ def test_launch_counters_read_from_the_registry():
 
     assert list(fac.launch_counts()) == [
         "fused_actor_critic", "fused_actor_critic_wgmma", "fused_actor_critic_wide",
-        "fused_actor_critic_mma_sync", "fused_actor_critic_tile", "fused_actor_critic_cluster",
+        "fused_actor_critic_tile", "fused_actor_critic_cluster",
         "fused_actor_critic_wide_pass", "fused_actor_critic_wide_half", "fused_actor_critic_prep"]
-    assert list(fac.launches_by_route) == ["wgmma", "wide", "mma_sync"]
+    assert list(fac.launches_by_route) == ["wgmma", "wide"]
     assert list(fac.launches_by_mode) == ["tile", "cluster"]
     assert list(fac.launches_by_wide_mode) == ["pass", "half"]
     before = (fac.launch_counts(), rt.launches)
