@@ -269,23 +269,26 @@ def realistic_obs(B: int, plies: int, seed: int, device):
     return obs.contiguous(), mask.contiguous()
 
 
-def bound_a(B: int, H: int, with_value: bool, l1_products: int) -> tuple[float, str, float]:
+def bound_a(B: int, H: int, with_value: bool, l1_products: int,
+            actor: bool = True) -> tuple[float, str, float]:
     """Kernel A's least time: (ms on its own route, what bounds it, ms on the
     f32 CUDA cores).  Its route takes `l1_products` TF32 products for each
     f32 one of layer 1 (2 where every obs is exact in TF32, else 3) and 3
     for every other tensor-core product; the one-column value head is f32 on
     the CUDA cores.  Bytes: obs, mask and weights read once, outputs written
-    once."""
-    heads = 2 if with_value else 1
+    once.  `actor` False: the critic alone, which reads no mask."""
+    heads = int(actor) + int(with_value)
     layer1 = 2 * B * 297 * H * heads
     layer2 = 2 * B * H * H * heads
-    logits = 2 * B * H * 45
+    logits = 2 * B * H * 45 if actor else 0
     value = 2 * B * H if with_value else 0
     t_ops = ((l1_products * layer1 + 3 * (layer2 + logits)) / H100_TF32_FLOPS
              + value / H100_F32_FLOPS)
     t_f32 = (layer1 + layer2 + logits + value) / H100_F32_FLOPS
-    n_weights = heads * (297 * H + H * H + 2 * H) + 45 * H + 45 + (H + 1 if with_value else 0)
-    nbytes = 4 * B * 297 + B * 45 + 4 * n_weights + 4 * B * (45 + (1 if with_value else 0))
+    n_weights = (heads * (297 * H + H * H + 2 * H) + (45 * H + 45 if actor else 0)
+                 + (H + 1 if with_value else 0))
+    nbytes = (4 * B * 297 + (B * 45 if actor else 0) + 4 * n_weights
+              + 4 * B * ((45 if actor else 0) + (1 if with_value else 0)))
     t_bytes = nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
             t_f32 * 1e3)
@@ -343,6 +346,17 @@ def phase_kernels(device) -> dict:
 
     modes = tuple(fac.launches_by_mode)
 
+    def critic_alone(w, obs, value, r, route_modes, where):
+        """The critic alone as the path runs it (`fused_value_forward`) and
+        in each of the route's modes forced: one launch each, counted as the
+        critic's, each equal to the two-head call's `value` bit for bit."""
+        n0 = fac.critic_launches
+        got = [fac.fused_value_forward(w, obs)] + [
+            fac._launch(r, w, obs, None, True, mode=m)[1] for m in route_modes]
+        check(fac.critic_launches == n0 + 1 + len(route_modes)
+              and all(torch.equal(g, value) for g in got),
+              f"kernel A's critic alone differs from the two-head value at {where}")
+
     def each_mode(w, obs, mask, with_value, where):
         """The forward as the path runs it, after checking that each mode,
         forced on the same rows, gives it bit for bit."""
@@ -389,6 +403,8 @@ def phase_kernels(device) -> dict:
                         shares[j] = max(shares[j], share(a, b))
                 check((outs[0][0][0] > -1e8).all().item(),
                       "kernel A masked a row with no legal action")
+                if with_value:
+                    critic_alone(w, obs, outs[0][1], "wgmma", modes, where)
         # Distillation's root prior: the raw actor head, through an all-true
         # mask, at the CLI phase's 256 games and the recipe's 1024.
         for B in (256, 1024):
@@ -407,6 +423,8 @@ def phase_kernels(device) -> dict:
             mask = mask_all[:B].contiguous()
             for with_value in (True, False):
                 got = each_mode(w, obs, mask, with_value, f"obs of 4097 B={B}")
+                if with_value:
+                    critic_alone(w, obs, got[1], "wgmma", modes, f"obs of 4097 B={B}")
                 ref = fac.fused_masked_forward_plain(w64, obs, mask, with_value)
                 for g, r in zip(got, ref):
                     if g is not None:
@@ -432,7 +450,8 @@ def phase_kernels(device) -> dict:
               f"{shares[1]:.3f} of it vs float64; kernel vs float32 plain: {shares[2]:.3f} "
               f"(at most {F32_PLAIN_SLACK}; B in {[r[0] for r in rows]}, with and without value, "
               f"and B in (1, 8192) with obs of 4097; wgmma route, its modes {modes} bit-equal "
-              f"on every row; the prep kernel equals its plain version bit for bit)", flush=True)
+              f"on every row, the critic alone equal to the two-head value in each; the prep "
+              f"kernel equals its plain version bit for bit)", flush=True)
     # The wide route (every H > 768), at H = 1024, 1280 and 2048 on seeded
     # random weights and engine obs, held the same way, its two modes bit
     # for bit; the last case puts obs of 4097 (not exact in TF32) into some
@@ -499,6 +518,9 @@ def phase_kernels(device) -> dict:
                         fac.fused_masked_forward_plain(w_h, obs, mask, with_value),
                         fac.fused_masked_forward_plain(w64_h, obs, mask, with_value)]
                 n_wide += 1 + len(wide_modes_)
+                if with_value:
+                    critic_alone(w_h, obs, outs[0][1], "wide", wide_modes_, where)
+                    n_wide += 1 + len(wide_modes_)
                 torch.cuda.synchronize()
                 for got, f32, ref in zip(*outs):
                     if got is None:
@@ -519,22 +541,23 @@ def phase_kernels(device) -> dict:
     print(f"kernel A H=1024, 1280, 2048 (wide route, random weights): max abs err {err_wide:.3g} "
           f"vs the float64 plain version, {share_wide:.3f} of the tolerance; kernel vs float32 "
           f"plain {share_wide32:.3f} (at most {F32_PLAIN_SLACK}); B in {wide_b} and 8192 with obs "
-          f"of 4097, with and without value; modes {wide_modes_} bit-equal on every row",
-          flush=True)
-    # Times at H = 768: the agent forward and the bootstrap value (B = 8192,
-    # with value), the pool slots' forwards (B = 2048, 3072, no value; 512, a
-    # full pool's snapshot slot) and the eval suite's greedy forward (B = 256,
-    # no value), then the league slot's search: its leaves (B = 32768, with
-    # value, logits dropped), its playout moves (B = 32768, no value) and its
-    # root prior (B = 1024, no value), then the host policies' greedy move (B
-    # = 1, no value), then distillation's teacher: its leaves (with value) and
-    # playout moves (no value) at 737280 lanes (the recipe's chunk) and 184320
-    # (the CLI phase's; its root prior is the B = 1024 row above), then a dp=2
-    # rank's agent and bootstrap (B = 4096), then the duel replay's search
-    # lanes at 100 games, leaves and playout moves: flat MC r8 (B = 36000) and
-    # Gumbel m16 k6 (B = 9600); each beside the addmm chain for the same rows
-    # and heads.  Both modes of the wgmma route are timed at
-    # every shape, each alone and, up to B = 8192, with its prep.
+          f"of 4097, with and without value; modes {wide_modes_} bit-equal on every row, the "
+          f"critic alone equal to the two-head value in each", flush=True)
+    # Times at H = 768: the agent forward (B = 8192, with value), the pool
+    # slots' forwards (B = 2048, 3072, no value; 512, a full pool's snapshot
+    # slot) and the eval suite's greedy forward (B = 256, no value), then the
+    # league slot's search: its leaves' lanes (B = 32768, with value), its
+    # playout moves (B = 32768, no value) and its root prior (B = 1024, no
+    # value), then the host policies' greedy move (B = 1, no value), then
+    # distillation's teacher: its leaves' lanes (with value) and playout
+    # moves (no value) at 737280 lanes (the recipe's chunk) and 184320 (the
+    # CLI phase's; its root prior is the B = 1024 row above), then a dp=2
+    # rank's agent (B = 4096), then the duel replay's search lanes at 100
+    # games, with and without value: flat MC r8 (B = 36000) and Gumbel m16
+    # k6 (B = 9600); each beside the addmm chain for the same rows and heads.
+    # (The leaves and the bootstraps take the critic alone, timed below.)
+    # Both modes of the wgmma route are timed at every shape, each alone
+    # and, up to B = 8192, with its prep.
     H = 768
     w = ac.kernel_weights(ac.import_params_npz(os.path.join(ROOT, FLAGSHIP), device=device))
     l1_products = 2 if obs_all.abs().max().item() <= 2048 else 3
@@ -600,6 +623,51 @@ def phase_kernels(device) -> dict:
             bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
             checked_against="plain version in float64, rtol/atol 1e-5; the other mode bit for bit",
             by_shape=shapes if m == "tile" else "as fused_actor_critic_tile")
+
+    # The critic alone (`fused_value_forward`: the search's leaves and the
+    # bootstrap) at the league slot's leaves (B = 32768) and the eval's
+    # Gumbel lanes (B = 9600), H = 768: the kernel alone on prepared weights
+    # in the mode B derives (the paths' handles), on a plain list with its
+    # prep, the plain version and the critic's addmm chain; beside the
+    # two-head call's kernel on the same rows, timed above.
+    critics = []
+    for B in (32768, 9600):
+        obs = obs_all[:B].contiguous()
+        x32 = obs.to(torch.float32)
+        prepared = fac.prepare_weights(w, True)
+        mode = fac.wgmma_mode(B, H)
+        ms = device_ms(lambda: fac._launch("wgmma", w, obs, None, True, prepared), 20)[0]
+        route_ms, host_ms = device_ms(lambda: fac.fused_value_forward(w, obs), 20, per_call=2)
+        plain_ms = device_ms(lambda: fac.fused_value_forward_plain(w, obs), 20)[0]
+
+        def addmm_critic(x32=x32):
+            h = torch.tanh(torch.addmm(w[7], x32, w[6]))
+            h = torch.tanh(torch.addmm(w[9], h, w[8]))
+            torch.addmm(w[11], h, w[10])
+
+        library_ms = device_ms(addmm_critic, 20)[0]
+        both_ms = next(r for r in shapes if r["B"] == B and r["with_value"])["mode_ms"][mode]
+        err = (fac.fused_value_forward(w, obs).double()
+               - fac.fused_value_forward_plain([t.double() for t in w], obs)).abs().max().item()
+        bound_ms, bound_by, bound_f32_ms = bound_a(B, H, True, l1_products, actor=False)
+        critics.append(dict(B=B, mode=mode, ms=ms, route_ms=route_ms, both_heads_ms=both_ms,
+                            plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
+                            bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
+                            host_ms=host_ms))
+        print(f"kernel A critic alone B={B} H={H} ({mode} mode): {ms:.4f} ms, with its prep "
+              f"{route_ms:.4f} ms; both heads {both_ms:.4f} ms ({ms / both_ms:.3f} of it); "
+              f"plain {plain_ms:.4f} ms, addmm chain {library_ms:.4f} ms (device clock); bound "
+              f"{bound_ms:.4f} ms by {bound_by}, {bound_f32_ms:.4f} ms on f32 CUDA cores; max "
+              f"abs err {err:.3g} vs float64; host {host_ms:.4f} ms per call", flush=True)
+    results["fused_actor_critic_critic_only"] = dict(
+        mode=critics[0]["mode"], max_abs_err=max(r["max_abs_err"] for r in critics),
+        shape=dict(B=critics[0]["B"], with_value=True, actor=False),
+        **{k: critics[0][k] for k in ("ms", "route_ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "bound_f32_ms", "host_ms")},
+        bound_peak="TF32 tensor cores (3xTF32), 494.7 TFLOP/s",
+        checked_against="the two-head call's value bit for bit in every mode; plain version in "
+                        "float64, rtol/atol 1e-5",
+        by_shape=critics)
 
     # Greedy forwards of the committed nets on prepared handles, as the paths
     # run them, no value, in the mode B derives: the all-agents ladder's h512
@@ -1936,7 +2004,7 @@ def phase_eval_h1024(device) -> dict:
 
     def kept(r, weights, obs, mask, with_value, *args, **kwargs):
         out = launch(r, weights, obs, mask, with_value, *args, **kwargs)
-        seen.append((obs.clone(), mask.clone(), with_value, out))
+        seen.append((obs.clone(), None if mask is None else mask.clone(), with_value, out))
         return out
 
     zero_launches()
@@ -1958,8 +2026,7 @@ def phase_eval_h1024(device) -> dict:
     for obs, mask, with_value, got in seen:
         where = f"eval h1024, B={obs.shape[0]} value={with_value}"
         sizes.add(obs.shape[0])
-        refs = (fac.fused_masked_forward_plain(w64, obs, mask, with_value),
-                fac.fused_masked_forward_plain(w, obs, mask, with_value))
+        refs = (plain_forward(w64, obs, mask, with_value), plain_forward(w, obs, mask, with_value))
         for g, ref, f32 in zip(got, *refs):
             if g is None:
                 continue
@@ -1988,6 +2055,16 @@ def phase_eval_h1024(device) -> dict:
     return launches
 
 
+def plain_forward(weights, obs, mask, with_value):
+    """The plain forward of a kernel A launch's arguments: (logits, value),
+    or (None, value) for the critic alone (no mask)."""
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    if mask is None:
+        return None, fac.fused_value_forward_plain(weights, obs)
+    return fac.fused_masked_forward_plain(weights, obs, mask, with_value)
+
+
 def keep_forwards(seen: list):
     """A context in which every kernel A launch whose mode the wrapper picks
     appends (route, weights, obs, mask, with_value, outputs) to `seen`."""
@@ -1997,7 +2074,8 @@ def keep_forwards(seen: list):
 
     def kept(r, weights, obs, mask, with_value, *args, **kwargs):
         out = launch(r, weights, obs, mask, with_value, *args, **kwargs)
-        seen.append((r, weights, obs.clone(), mask.clone(), with_value, out))
+        seen.append((r, weights, obs.clone(), None if mask is None else mask.clone(), with_value,
+                     out))
         return out
 
     @contextlib.contextmanager
@@ -2039,8 +2117,8 @@ def hold_forwards(seen: list, path: str) -> set:
         widths.add(H)
         sizes.add(obs.shape[0])
         w = list(weights)
-        refs = (fac.fused_masked_forward_plain([t.double() for t in w], obs, mask, with_value),
-                fac.fused_masked_forward_plain(w, obs, mask, with_value))
+        refs = (plain_forward([t.double() for t in w], obs, mask, with_value),
+                plain_forward(w, obs, mask, with_value))
         for g, ref, f32 in zip(got, *refs):
             if g is None:
                 continue
@@ -2335,6 +2413,10 @@ def phase_league(device):
     lo, hi = T * (1 + 1 + per_search) + 1, T * (1 + 3 + per_search) + 1
     check(lo <= launches["fused_actor_critic"] <= hi,
           f"league: kernel A launched {launches['fused_actor_critic']} times, not {lo}..{hi}")
+    # The critic alone: the search's leaves, one a halving round, and the bootstrap.
+    check(launches["fused_actor_critic_critic_only"] == T * rounds + 1,
+          f"league: {launches['fused_actor_critic_critic_only']} forwards of the critic alone, "
+          f"not {T} x {rounds} + 1")
     check(launches["ring_take"] == T, f"league: kernel B launched {launches['ring_take']} times")
     traj = last["rollout"][1][1]
     check(int(traj.overflow) == 0 and int(traj.done.sum()) > 0, "league: ring overflow or no episode")
@@ -2893,6 +2975,8 @@ def run_phases() -> int:
         "fused_actor_critic_tile": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_cluster": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_prep": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
+        "fused_actor_critic_critic_only": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu",
+                                           tpu_a),
         "fused_actor_critic_wide_pass": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "fused_actor_critic_wide_half": ("splendax_torch/csrc/fused_actor_critic_wgmma.cu", tpu_a),
         "ring_take": ("splendax_torch/csrc/ring_take.cu", "splendax/ops/ring_take.py:38"),

@@ -176,8 +176,9 @@ def kernel_launches() -> dict:
 
 def read_launches() -> dict:
     """The launch counters: kernel A's forwards in all ("fused_actor_critic"),
-    by route and by the wgmma and wide routes' modes, its weight
-    preparations, kernel B and the ply's kernels (`engine_ply_step`,
+    by route and by the wgmma and wide routes' modes, those of the critic
+    alone ("fused_actor_critic_critic_only"), its weight preparations,
+    kernel B and the ply's kernels (`engine_ply_step`,
     `engine_ply_observe`); and the modes derived from the forwards' B and
     the preparations derived from their weights."""
     return {**kernel_launches(), **{f"derived_{m}": n for m, n in DERIVED.items()}}

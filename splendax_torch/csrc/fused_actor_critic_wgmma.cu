@@ -102,6 +102,13 @@
 // wrapper picks the mode from B (`fused_actor_critic.wgmma_mode`); the bits
 // are the same in both.
 //
+// The critic alone.  A call without logits computes head 1 only, for
+// callers that would drop the logits (a search's leaves, the bootstrap):
+// tile mode's producer and consumers walk the head range [1, 2), cluster
+// mode and the wide route launch one head on the grid's z, and no mask is
+// read.  The critic's passes are those of the call with both heads, in the
+// same order from the same zeros, so its value has the same bits.
+//
 // Wide route (H > 768, any H).  Tile and cluster mode keep a tile's whole
 // first hidden layer in one block (64 x H x 4 bytes: 262,144 at H = 1024,
 // past the 232,448 a block may hold), so wider nets keep it in device memory
@@ -230,6 +237,7 @@ struct Params {
   float* value;  // null: actor only
   int B, H, shift;  // the ring has 1 << shift stages
   int groups;       // cluster mode: the cluster's blocks, one pass each; 0 in tile mode
+  int head0, heads;  // the heads computed: 0 the actor, 1 the critic (1, 1: the critic alone)
 };
 
 // ---------------------------------------------------------------- PTX helpers
@@ -819,10 +827,10 @@ __device__ __forceinline__ void value_partial(const Lane& l, const float (&h2)[3
   }
 }
 
-// Tile mode: both heads, a pass at a time.
+// Tile mode: heads head0 ... head0 + heads - 1 in turn, a pass at a time.
 __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
                                         const int32_t* __restrict__ x, int rows, int row0,
-                                        bool exact, bool with_value) {
+                                        bool exact, int head0, int heads) {
   const int tid = threadIdx.x, H = p.H, SH = hidden_stride(H);
   const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
   const int passes = (H + NC - 1) / NC, nk1 = K1P / KSTEP, nk2 = pad16(H) / KSTEP;
@@ -830,7 +838,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const Params& p,
   uint32_t it = 0;
   const int r0 = 16 * l.wl + l.g;  // this thread's rows r0 and r0 + 8 of the tile
 
-  for (int head = 0; head < (with_value ? 2 : 1); ++head) {
+  for (int head = head0; head < head0 + heads; ++head) {
     const float* const* w = p.w + 6 * head;
     // Layer 1: h1 = tanh(x W0 + b0), all columns, into shared memory.
     for (int q = 0; q < passes; ++q, it += nk1) {
@@ -1026,12 +1034,11 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
 
   const int tid = threadIdx.x, row0 = blockIdx.x * M, rows = min(M, p.B - row0);
   const int32_t* x = p.obs + (size_t)row0 * OBS;
-  const bool with_value = p.value != nullptr;
-  // The heads and passes this block streams: all of them in tile mode, one
-  // each in cluster mode.
-  int head0 = 0, heads = with_value ? 2 : 1, q0 = 0, nq = (H + NC - 1) / NC;
+  // The heads and passes this block streams: all of the call's in tile
+  // mode, one each in cluster mode.
+  int head0 = p.head0, heads = p.heads, q0 = 0, nq = (H + NC - 1) / NC;
   if constexpr (CL) {
-    head0 = blockIdx.z;
+    head0 = p.head0 + blockIdx.z;
     heads = 1;
     q0 = cluster_rank();
     nq = 1;
@@ -1054,9 +1061,9 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
   }
   int big = 0;
   for (int i = tid; i < rows * OBS; i += THREADS) big |= fabsf((float)__ldg(x + i)) > TF32_EXACT;
-  if (tid < M) {
+  if (tid < M) {  // the critic alone reads no mask
     int any = 0;
-    if (tid < rows)
+    if (tid < rows && p.head0 == 0)
       for (int j = 0; j < ACT; ++j) any |= p.mask[(size_t)(row0 + tid) * ACT + j];
     sm.any_legal[tid] = any;
   }
@@ -1101,7 +1108,7 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
     if constexpr (CL)
       consume_cluster(sm, p, x, rows, row0, exact, head0, q0, clk);
     else
-      consume(sm, p, x, rows, row0, exact, with_value);
+      consume(sm, p, x, rows, row0, exact, head0, heads);
   }
 }
 
@@ -1109,8 +1116,9 @@ fused_ac_wgmma_kernel(const __grid_constant__ CUtensorMap map_a0,
 // ------------------------------------------------------------ the wide route
 
 // The wide route's launches: scratch in device memory, [heads][B][pad16(H)]
-// h1, then [passes][CONSUMERS][B][HEAD_PAD] partial logits and, with the
-// critic, [passes][CONSUMERS][B] partial values.
+// h1 (a plane a head computed), then, with the actor,
+// [passes][CONSUMERS][B][HEAD_PAD] partial logits and, with the critic,
+// [passes][CONSUMERS][B] partial values.
 struct WideParams {
   const float* w[12];  // as in Params
   const int32_t* obs;
@@ -1121,6 +1129,7 @@ struct WideParams {
   float* lpart;
   float* vpart;
   int B, H;
+  int head0;  // the first head computed (grid z adds to it): 1 runs the critic alone
 };
 
 // Column group CG's 32 floats of a wide accumulator: its columns 64 CG
@@ -1160,11 +1169,12 @@ __device__ __forceinline__ void wide_h1_group(const Lane& l, float (&acc)[F], co
 }
 
 // Layer 1 of a block of BN columns (block column b): those columns of h1
-// for the tile's WM rows, bias and tanh, stored to the scratch in f32.
+// for the tile's WM rows, bias and tanh, stored to the scratch in f32 (its
+// h1 plane `plane`).
 template <int BN>
 __device__ __forceinline__ void wide_layer1(const Smem& sm, const WideParams& p,
                                             const int32_t* __restrict__ x, int rows, int row0,
-                                            bool exact, int head, int b) {
+                                            bool exact, int head, int plane, int b) {
   const int tid = threadIdx.x, g = BN / WG_N * b;
   const Lane l{tid >> 7, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3};
   float acc[BN == NC ? 64 : 32];
@@ -1174,7 +1184,7 @@ __device__ __forceinline__ void wide_layer1(const Smem& sm, const WideParams& p,
   else
     gemm_pass<true, false, BN>(sm, l, 0, 0, K1P / KSTEP, nullptr, 0, x, rows, acc);
   const float* bias = p.w[6 * head + 1];
-  float* h1 = p.h1 + ((size_t)head * p.B + row0) * pad16(p.H);
+  float* h1 = p.h1 + ((size_t)plane * p.B + row0) * pad16(p.H);
   wide_h1_group<0>(l, acc, bias, h1, p.H, rows, g);
   if constexpr (BN == NC) wide_h1_group<1>(l, acc, bias, h1, p.H, rows, g + 1);
 }
@@ -1230,7 +1240,8 @@ __device__ __forceinline__ void wide_layer2(const Smem& sm, const WideParams& p,
 
 // One layer of the wide route: a block per (BN columns, WM-row tile, head),
 // grid (blocks of columns, tiles, heads), so that the blocks running at
-// once share a tile's h1 and a head's weights in L2.  Layer 1's ring stages
+// once share a tile's h1 and a head's weights in L2.  The head of grid z is
+// head0 + z, its h1 the scratch's plane z.  Layer 1's ring stages
 // hold the block's weights of a k-step; layer 2's also the tile's h1 of
 // that k-step, from the scratch by TMA.
 template <int LAYER, int BN>
@@ -1249,7 +1260,8 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
   sm.h1 = nullptr;
   sm.vpart = nullptr;
   sm.any_legal = nullptr;
-  const int tid = threadIdx.x, b = blockIdx.x, row0 = blockIdx.y * WM, head = blockIdx.z;
+  const int tid = threadIdx.x, b = blockIdx.x, row0 = blockIdx.y * WM;
+  const int plane = blockIdx.z, head = p.head0 + plane;
   const int rows = min(WM, p.B - row0);
   const int32_t* x = p.obs + (size_t)row0 * OBS;
   if (tid == 0) {
@@ -1279,7 +1291,7 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
         tma_load(sm.ring + st * SB, map, KSTEP * it, BN * b, full_bar(sm, st));
         if constexpr (LAYER == 2)
           tma_load(sm.ring + st * SB + wide_weight_bytes(BN), &map_h1, KSTEP * it, row0,
-                   full_bar(sm, st), head);
+                   full_bar(sm, st), plane);
       }
       // Stay until the consumers have released every stage.
       for (int i = 0; i < STAGES && i < nk; ++i, ++it)
@@ -1289,7 +1301,7 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     if constexpr (LAYER == 1)
-      wide_layer1<BN>(sm, p, x, rows, row0, exact, head, b);
+      wide_layer1<BN>(sm, p, x, rows, row0, exact, head, plane, b);
     else
       wide_layer2<BN>(sm, p, rows, row0, head, b);
   }
@@ -1299,20 +1311,21 @@ fused_ac_wide_kernel(const __grid_constant__ CUtensorMap map_a,
 // order from zero, each column group's apart, then the two groups' sums,
 // then the bias, as the other modes add them; the masked-logits select.
 // Small blocks, so that a small B still spreads over the SMs: the partials'
-// loads, not their adds, take the time.
+// loads, not their adds, take the time.  The critic alone (null logits)
+// reads no mask.
 __global__ void __launch_bounds__(OUT_THREADS) wide_heads_kernel(const WideParams p) {
   __shared__ int any_legal[OUT_ROWS];
   const int tid = threadIdx.x, row0 = blockIdx.x * OUT_ROWS, rows = min(OUT_ROWS, p.B - row0);
   const int passes = (p.H + NC - 1) / NC;
   if (tid < OUT_ROWS) {
     int any = 0;
-    if (tid < rows)
+    if (tid < rows && p.logits != nullptr)
       for (int j = 0; j < ACT; ++j) any |= p.mask[(size_t)(row0 + tid) * ACT + j];
     any_legal[tid] = any;
   }
   __syncthreads();
   const size_t group = (size_t)p.B;  // rows between a pass's two consumer groups
-  for (int i = tid; i < rows * ACT; i += blockDim.x) {
+  for (int i = tid; p.logits != nullptr && i < rows * ACT; i += blockDim.x) {
     const int r = i / ACT, col = i - r * ACT;
     const float* a = p.lpart + (size_t)(row0 + r) * HEAD_PAD + col;
     float s0 = 0.f, s1 = 0.f;
@@ -1491,11 +1504,13 @@ int encode_h1(CUtensorMap* map, const float* base, int KH, int B, int heads) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Floats of the wide route's scratch for B rows (WideParams).
-size_t wide_scratch_floats(int B, int H, int heads) {
+// Floats of the wide route's scratch for B rows (WideParams), with the
+// actor and with the critic.
+size_t wide_scratch_floats(int B, int H, bool actor, bool critic) {
   const size_t passes = (H + NC - 1) / NC;
-  return (size_t)B * (heads * (size_t)pad16(H) + passes * CONSUMERS * HEAD_PAD +
-                      (heads == 2 ? passes * CONSUMERS : 0));
+  return (size_t)B * ((actor + critic) * (size_t)pad16(H) +
+                      (actor ? passes * CONSUMERS * HEAD_PAD : 0) +
+                      (critic ? passes * CONSUMERS : 0));
 }
 
 // A wide-route layer's kernel, with its shared memory limit raised once.
@@ -1594,14 +1609,16 @@ extern "C" int fused_actor_critic_wgmma_prepare(const void* const* weights, int 
 // obs int32 [B, 297], mask uint8 [B, 45], weights as listed in Params (the
 // heads and biases are read from there), `prepared` as the prepare call left
 // it; writes logits f32 [B, 45] and, unless `value` is null, value f32 [B].
-// groups = 0 runs tile mode; else cluster mode, with groups = ceil(H / 128)
-// (the blocks of a cluster, one pass each).
+// Null `logits` runs the critic alone, which reads no mask (it may be null):
+// the value's bits are those of the call with both heads.  groups = 0 runs
+// tile mode; else cluster mode, with groups = ceil(H / 128) (the blocks of a
+// cluster, one pass each).
 extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mask, int B, int H,
                                                 const void* const* weights, const void* prepared,
                                                 void* logits, void* value, int groups,
                                                 void* stream) {
   if (B <= 0) return 0;
-  if (H < 1 || H > MAX_HIDDEN) return (int)cudaErrorInvalidValue;
+  if (H < 1 || H > MAX_HIDDEN || (!logits && !value)) return (int)cudaErrorInvalidValue;
   if (groups != 0 && groups != (H + NC - 1) / NC) return (int)cudaErrorInvalidValue;
   const int HP = pad8(H);
   CUtensorMap maps[4];
@@ -1619,6 +1636,8 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
   p.B = B;
   p.H = H;
   p.groups = groups;
+  p.head0 = logits ? 0 : 1;
+  p.heads = (logits ? 1 : 0) + (value ? 1 : 0);
   const bool cl = groups > 0;
   p.shift = stage_shift(H);
   size_t smem = smem_bytes(H);
@@ -1637,7 +1656,7 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchAttribute cluster;
   const cudaLaunchConfig_t cfg =
-      cluster_config(tiles, groups, value ? 2 : 1, smem, (cudaStream_t)stream, &cluster);
+      cluster_config(tiles, groups, p.heads, smem, (cudaStream_t)stream, &cluster);
   void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &p};
   const cudaError_t err =
       cudaLaunchKernelExC(&cfg, (const void*)fused_ac_wgmma_kernel<true>, args);
@@ -1646,8 +1665,9 @@ extern "C" int fused_actor_critic_wgmma_forward(const void* obs, const void* mas
 }
 
 // The wide route (any H): obs, mask, weights, prepared and outputs as in
-// fused_actor_critic_wgmma_forward; `scratch` holds at least
-// `scratch_floats` floats, which must be wide_scratch_floats(B, H, heads);
+// fused_actor_critic_wgmma_forward (null `logits`: the critic alone);
+// `scratch` holds at least `scratch_floats` floats, which must be
+// wide_scratch_floats(B, H, with the actor, with the critic);
 // `columns` is a block's columns, 128 (a pass) or 64 (half a pass).
 // Three launches on the stream, in order: layer 1, layer 2 with the
 // partial heads, the outputs.  Each reads what the one before wrote, so
@@ -1659,10 +1679,10 @@ extern "C" int fused_actor_critic_wide_forward(const void* obs, const void* mask
                                                void* logits, void* value, int columns,
                                                void* stream) {
   if (B <= 0) return 0;
-  const int heads = value ? 2 : 1, KH = pad16(H), tiles = (B + WM - 1) / WM;
-  if (H < 1 || tiles > 65535 || (columns != NC && columns != WG_N))
+  const int heads = (logits ? 1 : 0) + (value ? 1 : 0), KH = pad16(H), tiles = (B + WM - 1) / WM;
+  if (H < 1 || heads == 0 || tiles > 65535 || (columns != NC && columns != WG_N))
     return (int)cudaErrorInvalidValue;
-  if (scratch_floats < (long long)wide_scratch_floats(B, H, heads))
+  if (scratch_floats < (long long)wide_scratch_floats(B, H, logits != nullptr, value != nullptr))
     return (int)cudaErrorInvalidValue;
   const int HP = pad8(H), passes = (H + NC - 1) / NC;
   CUtensorMap maps[4], map_h1;
@@ -1679,9 +1699,10 @@ extern "C" int fused_actor_critic_wide_forward(const void* obs, const void* mask
   p.value = (float*)value;
   p.h1 = (float*)scratch;
   p.lpart = p.h1 + (size_t)heads * B * KH;
-  p.vpart = p.lpart + (size_t)passes * CONSUMERS * B * HEAD_PAD;
+  p.vpart = p.lpart + (logits ? (size_t)passes * CONSUMERS * B * HEAD_PAD : 0);
   p.B = B;
   p.H = H;
+  p.head0 = logits ? 0 : 1;
   const int err = encode_h1(&map_h1, p.h1, KH, B, heads);
   if (err) return err;
   const cudaStream_t st = (cudaStream_t)stream;

@@ -19,19 +19,23 @@ tile, head) (half mode; `wide_mode(B, H, with_value)`); B is cut into calls
 of at most `WIDE_MAX_ROWS` rows.  All sum in one order, so a row's outputs
 are the same bits in every mode and at every B.  On a CPU
 tensor it runs `fused_masked_forward_plain`, the same function in plain
-PyTorch.  The kernels are held within rtol/atol 1e-5 of
-the plain version, which computes in the weights' dtype: on the committed
-nets the plain float32 version is itself that far from the exact forward,
-so float64 weights give the reference.
+PyTorch.  `fused_value_forward` runs the critic alone, for callers that
+would drop the logits (a search's leaves, the bootstrap): the same kernels
+on one head, whose value has the bits of the call with both heads.  The
+kernels are held within rtol/atol 1e-5 of the plain version, which
+computes in the weights' dtype: on the committed nets the plain float32
+version is itself that far from the exact forward, so float64 weights give
+the reference.
 
 Counters (in `splendax_torch.trace`'s registry, read here as module
 attributes): `launches` counts forwards that launched a kernel (one each,
 `kernel_a.launches`), `launches_by_route` splits them by route
 (`kernel_a.route.<route>`), `launches_by_mode` splits the `wgmma` route's by
 mode (`kernel_a.mode.<mode>`), `launches_by_wide_mode` the `wide` route's
-(`kernel_a.wide_mode.<mode>`), and `prep_launches` counts the launches of
-the weight preparation of the `wgmma` and `wide` routes (`kernel_a.prep`);
-`launch_counts()` reads them all.
+(`kernel_a.wide_mode.<mode>`), `critic_launches` counts the forwards of
+the critic alone among them (`kernel_a.heads.critic`), and `prep_launches`
+counts the launches of the weight preparation of the `wgmma` and `wide`
+routes (`kernel_a.prep`); `launch_counts()` reads them all.
 
 `weights` is the list of the 12 weight and bias tensors in the JAX package's
 layout, [in, out]: aw0 ab0 aw1 ab1 aw2 ab2 cw0 cb0 cw1 cb1 cw2 cb2
@@ -106,7 +110,13 @@ def column_groups(H: int) -> int:
     return -(-H // PASS_COLUMNS)
 
 
-def launch_shape(B: int, H: int, with_value: bool, mode: str):
+def heads(with_value: bool, actor: bool = True) -> int:
+    """The heads a forward computes: the actor unless `actor` is False
+    (the critic alone), the critic with `with_value`."""
+    return int(actor) + int(with_value)
+
+
+def launch_shape(B: int, H: int, with_value: bool, mode: str, actor: bool = True):
     """(grid, cluster) of the `wgmma` kernel's launch, as the C side forms
     them: tile mode one block per 64-row tile; cluster mode one per tile,
     pass and head, a cluster over the passes of one tile and head."""
@@ -114,7 +124,7 @@ def launch_shape(B: int, H: int, with_value: bool, mode: str):
     if mode == "tile":
         return (tiles, 1, 1), (1, 1, 1)
     g = column_groups(H)
-    return (tiles, g, 2 if with_value else 1), (1, g, 1)
+    return (tiles, g, heads(with_value, actor)), (1, g, 1)
 
 
 def wide_chunks(B: int) -> list[tuple[int, int]]:
@@ -122,13 +132,14 @@ def wide_chunks(B: int) -> list[tuple[int, int]]:
     return [(c, min(WIDE_MAX_ROWS, B - c)) for c in range(0, B, WIDE_MAX_ROWS)]
 
 
-def wide_scratch_floats(B: int, H: int, with_value: bool) -> int:
+def wide_scratch_floats(B: int, H: int, with_value: bool, actor: bool = True) -> int:
     """Floats of the wide route's scratch for a launch of B rows, as the C
-    side lays it out: h1 [heads, B, pad16(H)] in f32, then the partial
-    logits [passes, 2 groups of 64 columns, B, 48] and, with the value, the
-    partial values [passes, 2, B]."""
-    heads, passes = (2 if with_value else 1), column_groups(H)
-    return B * (heads * pad16(H) + passes * 2 * WIDE_HEAD_PAD + (passes * 2 if with_value else 0))
+    side lays it out: h1 [heads, B, pad16(H)] in f32, then, with the actor,
+    the partial logits [passes, 2 groups of 64 columns, B, 48] and, with the
+    value, the partial values [passes, 2, B]."""
+    passes = column_groups(H)
+    return B * (heads(with_value, actor) * pad16(H) + (passes * 2 * WIDE_HEAD_PAD if actor else 0)
+                + (passes * 2 if with_value else 0))
 
 
 def wide_mode(B: int, H: int, with_value: bool) -> str:
@@ -143,13 +154,13 @@ def wide_mode(B: int, H: int, with_value: bool) -> str:
     return "half" if blocks <= WIDE_HALF_MAX_BLOCKS else "pass"
 
 
-def wide_launch_shape(B: int, H: int, with_value: bool, mode: str) -> dict:
+def wide_launch_shape(B: int, H: int, with_value: bool, mode: str, actor: bool = True) -> dict:
     """The grids of a wide-route launch of B rows (one chunk) in `mode`, as
     the C side forms them: layer 1 and layer 2 a block per (128 or 64
     columns, 128-row tile, head), no cluster; the outputs a block per
     WIDE_OUT_ROWS rows."""
     blocks = column_groups(H) * (2 if mode == "half" else 1)
-    layer = (blocks, -(-B // WIDE_ROWS), 2 if with_value else 1)
+    layer = (blocks, -(-B // WIDE_ROWS), heads(with_value, actor))
     return {"layers": layer, "heads": (-(-B // WIDE_OUT_ROWS), 1, 1)}
 
 
@@ -159,6 +170,8 @@ def __getattr__(name: str):
         return trace.counter("kernel_a.launches")
     if name == "prep_launches":
         return trace.counter("kernel_a.prep")
+    if name == "critic_launches":
+        return trace.counter("kernel_a.heads.critic")
     if name == "launches_by_route":
         return {r: trace.counter("kernel_a.route." + r) for r in ROUTES}
     if name == "launches_by_mode":
@@ -176,7 +189,8 @@ def launch_counts() -> dict:
             **{f"fused_actor_critic_{m}": c("kernel_a.mode." + m) for m in MODES["wgmma"]},
             **{f"fused_actor_critic_wide_{m}": c("kernel_a.wide_mode." + m)
                for m in MODES["wide"]},
-            "fused_actor_critic_prep": c("kernel_a.prep")}
+            "fused_actor_critic_prep": c("kernel_a.prep"),
+            "fused_actor_critic_critic_only": c("kernel_a.heads.critic")}
 
 
 def pad8(n: int) -> int:
@@ -338,19 +352,25 @@ def masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask | ~any_legal, logits, BIG_NEG)
 
 
+def fused_value_forward_plain(weights, obs):
+    """The critic alone in plain PyTorch, in the weights' dtype: the value
+    of `fused_masked_forward_plain`, bit for bit."""
+    cw0, cb0, cw1, cb1, cw2, cb2 = weights[6:]
+    x = obs.to(cw0.dtype)
+    v = torch.tanh(x @ cw0 + cb0)
+    v = torch.tanh(v @ cw1 + cb1)
+    return (v @ cw2 + cb2)[:, 0]
+
+
 def fused_masked_forward_plain(weights, obs, mask, with_value: bool = True):
     """The forward in plain PyTorch, in the weights' dtype: float32 as the
     kernel takes them, or float64 for a reference closer to exact."""
-    aw0, ab0, aw1, ab1, aw2, ab2, cw0, cb0, cw1, cb1, cw2, cb2 = weights
+    aw0, ab0, aw1, ab1, aw2, ab2 = weights[:6]
     x = obs.to(aw0.dtype)
     h = torch.tanh(x @ aw0 + ab0)
     h = torch.tanh(h @ aw1 + ab1)
     logits = masked_logits(h @ aw2 + ab2, mask)
-    if not with_value:
-        return logits, None
-    v = torch.tanh(x @ cw0 + cb0)
-    v = torch.tanh(v @ cw1 + cb1)
-    return logits, (v @ cw2 + cb2)[:, 0]
+    return logits, (fused_value_forward_plain(weights, obs) if with_value else None)
 
 
 SOURCE = "fused_actor_critic_wgmma"  # both routes' library
@@ -407,10 +427,13 @@ def prepare_weights(weights, with_value: bool = True, lib=None) -> torch.Tensor:
 
 
 def _check(weights, obs, mask):
+    """The hidden width of checked inputs; `mask` None for the critic
+    alone."""
     dev = obs.device
     if obs.dtype != torch.int32 or obs.dim() != 2 or obs.shape[1] != OBS_DIM:
         raise ValueError(f"obs must be int32 [B, {OBS_DIM}], got {obs.dtype} {tuple(obs.shape)}")
-    if mask.dtype != torch.bool or tuple(mask.shape) != (obs.shape[0], ACT_DIM):
+    if mask is not None and (mask.dtype != torch.bool
+                             or tuple(mask.shape) != (obs.shape[0], ACT_DIM)):
         raise ValueError(f"mask must be bool [B, {ACT_DIM}], got {mask.dtype} {tuple(mask.shape)}")
     if len(weights) != 12:
         raise ValueError("weights must hold 12 tensors")
@@ -423,7 +446,8 @@ def _check(weights, obs, mask):
         if tuple(w.shape) != s or w.dtype != torch.float32 or w.device != dev:
             raise ValueError(f"weights[{i}] must be float32 {s} on {dev}, got "
                              f"{w.dtype} {tuple(w.shape)} on {w.device}")
-    for name, t in [("obs", obs), ("mask", mask)] + [(f"weights[{i}]", w) for i, w in enumerate(weights)]:
+    tensors = [("obs", obs)] + ([("mask", mask)] if mask is not None else [])
+    for name, t in tensors + [(f"weights[{i}]", w) for i, w in enumerate(weights)]:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}")
     return H
@@ -443,6 +467,20 @@ def fused_masked_forward(weights, obs: torch.Tensor, mask: torch.Tensor, with_va
     return _launch(route(H), weights, obs, mask, with_value)
 
 
+def fused_value_forward(weights, obs: torch.Tensor) -> torch.Tensor:
+    """(weights, int32 obs [B, 297]) -> value f32 [B]: the critic alone,
+    for callers that would drop the logits.  On the card one forward of
+    the route and mode `fused_masked_forward` would take with the value,
+    on the critic's head only (counted in `critic_launches`); its value is
+    that call's, bit for bit.  On a CPU tensor `fused_value_forward_plain`."""
+    if obs.device.type == "cpu":
+        return fused_value_forward_plain(weights, obs)
+    if obs.device.type != "cuda":
+        raise ValueError(f"fused_value_forward: unsupported device {obs.device}")
+    H = _check(weights, obs, None)
+    return _launch(route(H), weights, obs, None, True)[1]
+
+
 def max_clusters(H: int) -> int:
     """How many cluster-mode clusters at hidden width H the card holds at
     once."""
@@ -460,18 +498,25 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
     unless given `prepared`, and runs in the mode the shape gives
     (`wgmma_mode`, `wide_mode`) unless given `mode`.  `route(H)` and the
     modes name what the path runs; a measurement or a test may force
-    another route or mode, or a probe's build."""
+    another route or mode, or a probe's build.  `mask` None with
+    `with_value` runs the critic alone: (None, value), in the mode of the
+    call with both heads."""
     if r not in ROUTES:
         raise ValueError(f"unknown route {r!r}")
+    actor = mask is not None
+    if not (actor or with_value):
+        raise ValueError("a forward without the mask computes the value: with_value must be True")
     B, H = obs.shape[0], weights[0].shape[1]
     if mode is None:
         mode = wgmma_mode(B, H) if r == "wgmma" else wide_mode(B, H, with_value)
     if mode not in MODES[r]:
         raise ValueError(f"unknown mode {mode!r}")
-    logits = torch.empty((B, ACT_DIM), dtype=torch.float32, device=obs.device)
+    logits = torch.empty((B, ACT_DIM), dtype=torch.float32, device=obs.device) if actor else None
     value = torch.empty((B,), dtype=torch.float32, device=obs.device) if with_value else None
     if B == 0:
         return logits, value
+    logits_ptr = logits.data_ptr() if actor else None
+    mask_ptr = mask.data_ptr() if actor else None
     value_ptr = value.data_ptr() if with_value else None
     lib = _lib() if lib is None else lib
     if prepared is None:
@@ -480,18 +525,18 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
     if r == "wgmma":
         groups = column_groups(H) if mode == "cluster" else 0
         err = lib.fused_actor_critic_wgmma_forward(
-            obs.data_ptr(), mask.data_ptr(), B, H, _ptrs(weights), prepared.data_ptr(),
-            logits.data_ptr(), value_ptr, groups, _stream(obs))
+            obs.data_ptr(), mask_ptr, B, H, _ptrs(weights), prepared.data_ptr(),
+            logits_ptr, value_ptr, groups, _stream(obs))
     else:
-        scratch = torch.empty(wide_scratch_floats(min(B, WIDE_MAX_ROWS), H, with_value),
+        scratch = torch.empty(wide_scratch_floats(min(B, WIDE_MAX_ROWS), H, with_value, actor),
                               dtype=torch.float32, device=obs.device)
         columns = PASS_COLUMNS if mode == "pass" else PASS_COLUMNS // 2
         err = 0
         for c0, n in wide_chunks(B):
             err = lib.fused_actor_critic_wide_forward(
-                obs.data_ptr() + 4 * OBS_DIM * c0, mask.data_ptr() + ACT_DIM * c0, n, H,
-                _ptrs(weights), prepared.data_ptr(), scratch.data_ptr(), scratch.numel(),
-                logits.data_ptr() + 4 * ACT_DIM * c0,
+                obs.data_ptr() + 4 * OBS_DIM * c0, mask_ptr + ACT_DIM * c0 if actor else None,
+                n, H, _ptrs(weights), prepared.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                logits_ptr + 4 * ACT_DIM * c0 if actor else None,
                 value_ptr + 4 * c0 if with_value else None, columns, _stream(obs))
             if err != 0:
                 break
@@ -500,4 +545,6 @@ def _launch(r: str, weights, obs, mask, with_value: bool, prepared=None, lib=Non
     trace.count("kernel_a.launches")
     trace.count("kernel_a.route." + r)
     trace.count(("kernel_a.mode." if r == "wgmma" else "kernel_a.wide_mode.") + mode)
+    if not actor:
+        trace.count("kernel_a.heads.critic")
     return logits, value

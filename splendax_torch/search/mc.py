@@ -15,8 +15,9 @@ B x 45 x rollouts games.  A network is given as `ctx`, its 12 weights in the
 fused forward's layout (`models.actor_critic.kernel_weights`, or a pool
 slot), best as a `PreparedWeights` handle (`as_ctx` builds one), so that a
 search prepares them once; every forward runs the fused actor-critic
-kernel: playout moves without the value, leaves with it (the kernel has no
-critic-only mode, so the logits are computed and dropped).
+kernel: playout moves on the actor alone, leaves on the critic alone
+(`fused_value_forward`, the value's bits those of the call with both
+heads).
 
 On the card in fast mode the flat batch of root children and each playout
 step (the ply, the frozen lanes, the next obs and mask) are each one
@@ -44,7 +45,7 @@ from ..env import core
 from ..env.core import select
 from ..models import actor_critic as ac
 from ..ops import engine_ply
-from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward
+from ..ops.fused_actor_critic import PreparedWeights, fused_masked_forward, fused_value_forward
 from ..selfplay.opponents import uniform_legal_action
 
 _NEG = -float("inf")
@@ -111,8 +112,7 @@ def leaf_values(states: GameState, me: torch.Tensor, ctx=None, obs=None) -> torc
     else:
         if obs is None:
             obs = encode_observation(states)  # from the point of view of to_play
-        every = torch.ones((obs.shape[0], R.TOTAL_ACTIONS), dtype=torch.bool, device=obs.device)
-        _, v = fused_masked_forward(ctx, obs, every, with_value=True)
+        v = fused_value_forward(ctx, obs)
         live = torch.where(states.to_play == me, v, -v)
     live = torch.clamp(live, -0.95, 0.95)
     return torch.where(term, term_v, live)

@@ -64,7 +64,7 @@ from ..engine.state import GameState
 from ..env import core
 from ..env import ring as ring_lib
 from ..models import actor_critic as ac
-from ..ops.fused_actor_critic import ACT_DIM, fused_masked_forward
+from ..ops.fused_actor_critic import ACT_DIM, fused_masked_forward, fused_value_forward
 from ..parallel import collectives
 from ..parallel import mesh as mesh_lib
 from ..search import gumbel
@@ -510,7 +510,7 @@ def update_step(cfg: PPOConfig, ts: TrainState):
             ts, traj = rollout(cfg, ts)
         with torch.no_grad(), trace.span("gae"):
             # The CURRENT slot still holds the params the rollout ran.
-            _, last_value = fused_masked_forward(ts.pool.slot(ts.pool.pool_size), ts.obs, ts.mask)
+            last_value = fused_value_forward(ts.pool.slot(ts.pool.pool_size), ts.obs)
             adv, returns = _gae(cfg, traj, last_value)
             b_adv = _normalise(adv.reshape(-1), ts.mesh)
             batch = tuple(x.reshape((-1,) + tuple(x.shape[2:])) for x in (

@@ -824,6 +824,111 @@ def test_refused_wide_launch_raises(cuda, tmp_path):
     assert fac.launch_counts() == counts
 
 
+# Kernel A's critic alone (H, B, mode): tile mode at the league slot's leaves
+# (1,024 games x m 8 x k0 4) and the eval's Gumbel lanes (100 x 16 x 6);
+# cluster mode at a 1,024-game bootstrap and the eval's 100 games; the wide
+# route's pass and half modes at H = 1024; ragged last tiles (4127 and 65
+# rows in 64-row tiles, 129 in the wide route's 128).
+CRITIC_CASES = [(768, 32768, "tile"), (768, 9600, "tile"), (768, 1024, "cluster"),
+                (768, 100, "cluster"), (1024, 8192, "pass"), (1024, 8192, "half"),
+                (1024, 1024, "pass"), (1024, 1024, "half"), (768, 4127, "tile"),
+                (768, 4127, "cluster"), (100, 65, "tile"), (100, 65, "cluster"),
+                (1280, 129, "pass"), (1280, 129, "half")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, B, mode", CRITIC_CASES)
+def test_critic_alone_equals_the_two_head_value(cuda, H, B, mode):
+    """Kernel A without the mask runs the critic alone: no logits, and the
+    value of the call with both heads bit for bit, forced into each mode of
+    the route, with a last tile of obs past 2048 (layer 1's third product)
+    beside exact ones; one launch, counted as the critic's and in the mode
+    given.  `fused_value_forward` (a list or a handle) takes the mode the
+    two-head call derives and equals its value too."""
+    r = fac.route(H)
+    rng = np.random.RandomState(H + B)
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(rng, H), device=cuda))
+    obs = torch.as_tensor(rng.randint(0, 8, size=(B, 297)).astype(np.int32), device=cuda)
+    obs[B - 1, 3] = 4097
+    mask = torch.as_tensor(rng.rand(B, 45) < 0.4, device=cuda)
+    _, both = fac._launch(r, w, obs, mask, True, mode=mode)
+
+    def modes():
+        return fac.launches_by_mode if r == "wgmma" else fac.launches_by_wide_mode
+
+    n0, m0, c0 = fac.launches, modes(), fac.critic_launches
+    logits, value = fac._launch(r, w, obs, None, True, mode=mode)
+    torch.cuda.synchronize()
+    assert logits is None and torch.equal(value, both)
+    assert (fac.launches, fac.critic_launches) == (n0 + 1, c0 + 1)
+    assert {m: n - m0[m] for m, n in modes().items()} == {m: int(m == mode) for m in m0}
+    derived = fac.fused_masked_forward(w, obs, mask)[1]
+    assert torch.equal(derived, both)
+    for weights in (w, fac.PreparedWeights(w)):
+        assert torch.equal(fac.fused_value_forward(weights, obs), derived)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [768, 1024])
+def test_critic_alone_on_no_rows(cuda, H):
+    """B = 0 on either route: an empty float32 value on the card, nothing
+    launched or prepared."""
+    w = ac.kernel_weights(ac.params_from_jax(numpy_params(np.random.RandomState(H), H),
+                                             device=cuda))
+    counts = fac.launch_counts()
+    v = fac.fused_value_forward(w, torch.zeros((0, 297), dtype=torch.int32, device=cuda))
+    assert v.shape == (0,) and v.dtype == torch.float32 and v.is_cuda
+    assert fac.launch_counts() == counts
+
+
+@pytest.mark.cuda
+def test_static_slot_search_runs_the_critic_alone(cuda, monkeypatch):
+    """One search call of the league recipe's static slot (Gumbel m 8, k0
+    4, horizon 2 on 1,024 games of the committed h768 net, 32,768 lanes in
+    tile mode): `rounds` forwards of the critic alone, one leaf evaluation
+    a halving round, and none with both heads; on the same draws its moves
+    and values equal those of the search whose leaves take the two-head
+    forward's value."""
+    from splendax_torch import bench
+    from splendax_torch.search import gumbel, mc
+
+    cfg = bench.league_config("static")
+    B, m, k0, hz = cfg.n_search_static, cfg.search_m, cfg.search_k0, cfg.search_horizon
+    rounds, lanes = m.bit_length() - 1, B * m * k0
+    assert fac.wgmma_mode(lanes, cfg.hidden) == "tile"
+    st, obs, mask = _midgame(B, 41, 4)
+    st, obs, mask = st.map(lambda x: x.to(cuda)), obs.to(cuda), mask.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    draws = {"g": gumbel.gumbel_noise((B, 45), g, cuda),
+             "playout": [[gumbel.gumbel_noise((lanes, 45), g, cuda) for _ in range(hz)]
+                         for _ in range(rounds)]}
+    path = os.path.join(ROOT, "runs/ppo_splendor_2b_h768/ppo_splendor_params.npz")
+    ctx = fac.PreparedWeights(ac.kernel_weights(ac.import_params_npz(path, device=cuda)))
+    fn = ppo.gumbel_search_fn(m=m, k0=k0, horizon=hz, greedy_final=True)
+    fn(ctx, obs, mask, st, draws=draws)  # the handle's preparation
+    calls, launch = [], fac._launch
+
+    def kept(r, weights, obs, mask, with_value, *args, **kw):
+        calls.append((obs.shape[0], mask is not None, with_value))
+        return launch(r, weights, obs, mask, with_value, *args, **kw)
+
+    monkeypatch.setattr(fac, "_launch", kept)
+    c0, info = fac.critic_launches, {}
+    got = fn(ctx, obs, mask, st, draws=draws, info=info)
+    torch.cuda.synchronize()
+    assert fac.critic_launches - c0 == rounds
+    assert calls.count((lanes, False, True)) == rounds
+    assert not any(actor and value for _, actor, value in calls), calls
+    every = torch.ones((lanes, 45), dtype=torch.bool, device=cuda)
+    monkeypatch.setattr(mc, "fused_value_forward",
+                        lambda w, o: fac.fused_masked_forward(w, o, every[:o.shape[0]])[1])
+    want_info = {}
+    want = fn(ctx, obs, mask, st, draws=draws, info=want_info)
+    assert torch.equal(got, want)
+    for k in ("q_hat", "final", "alive"):
+        assert torch.equal(info[k], want_info[k]), k
+
+
 @pytest.mark.cuda
 def test_ladder_pair_card_plays_the_cpu_games(cuda):
     """The ladder pair noble vs ppo_1750m_wallmatch (H=256), whose replayed

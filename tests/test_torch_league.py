@@ -347,17 +347,24 @@ def test_league_forwards_run_the_fused_forward(monkeypatch):
     """Per turn of the static league the fused forward is called for the
     agent, for each pool slot with games, and 1 + rounds * (horizon + 1)
     times by the search (root prior; per halving round `horizon` playout
-    plies without the value and one leaf evaluation with it)."""
+    plies without the value and one leaf evaluation of the critic alone)."""
+    from splendax_torch.search import mc
+
     cfg = tiny_cfg(search_static=True, p_search=0.25)
     ts = ppo.init_train_state(cfg, device="cpu")
     calls = []
-    real = fac.fused_masked_forward_plain
+    real, real_value = fac.fused_masked_forward_plain, mc.fused_value_forward
 
     def counting(weights, obs, mask, with_value=True):
         calls.append((obs.shape[0], with_value))
         return real(weights, obs, mask, with_value)
 
+    def counting_value(weights, obs):
+        calls.append((obs.shape[0], "critic"))
+        return real_value(weights, obs)
+
     monkeypatch.setattr(fac, "fused_masked_forward_plain", counting)
+    monkeypatch.setattr(mc, "fused_value_forward", counting_value)
     pool = pool_lib.set_current(ts.pool, ts.params)
     r = ring.make_ring(2 * cfg.num_envs, ts.generator, "cpu", window=cfg.num_envs)
     ppo.rollout_turn(cfg, ac.kernel_weights(ts.params), pool, ts.env_state, ts.obs, ts.mask,
@@ -365,6 +372,6 @@ def test_league_forwards_run_the_fused_forward(monkeypatch):
     S_rows, lanes = cfg.n_search_static, cfg.n_search_static * cfg.search_m * cfg.search_k0
     rounds = cfg.search_m.bit_length() - 1
     search_calls = [(S_rows, False)] + rounds * (cfg.search_horizon * [(lanes, False)]
-                                                  + [(lanes, True)])
+                                                  + [(lanes, "critic")])
     # The empty pool puts every other game on CURRENT: one slot forward.
     assert calls == [(16, True), (16 - S_rows, False)] + search_calls

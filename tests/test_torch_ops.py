@@ -92,6 +92,43 @@ def test_cpu_forward_matches_pallas_kernel_and_launches_nothing(batch, hidden):
     np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("hidden", [37, 100, 769, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_value_forward_plain_is_the_two_head_value(batch, hidden, dtype):
+    """The critic alone in plain PyTorch (`fused_value_forward_plain`, and
+    `fused_value_forward` on a CPU tensor, on the weights as a list or a
+    `PreparedWeights` handle) gives the two-head plain forward's value bit
+    for bit, at widths of both routes, in float32 and float64 (the
+    reference the kernels are held to); the CPU path launches nothing and
+    counts no forward of the critic alone."""
+    flat = numpy_params(np.random.RandomState(hidden), hidden)
+    w = [t.to(dtype) for t in ac.kernel_weights(ac.params_from_jax(flat, device="cpu"))]
+    obs, mask = torch.from_numpy(batch[0][:65]), torch.from_numpy(batch[1][:65])
+    _, want = fac.fused_masked_forward_plain(w, obs, mask)
+    before = fac.launch_counts()
+    assert torch.equal(fac.fused_value_forward_plain(w, obs), want)
+    if dtype == torch.float32:
+        for weights in (w, fac.PreparedWeights(w)):
+            got = fac.fused_value_forward(weights, obs)
+            assert got.dtype == torch.float32 and got.shape == (65,)
+            assert torch.equal(got, want)
+        assert torch.equal(fac.fused_masked_forward(w, obs, mask)[1], want)
+    assert fac.launch_counts() == before
+
+
+def test_critic_alone_refusals():
+    """A forward without the mask runs the critic alone, so it must compute
+    the value; a tensor on neither the CPU nor the card is refused."""
+    flat = numpy_params(np.random.RandomState(0), 16)
+    w = ac.kernel_weights(ac.params_from_jax(flat, device="cpu"))
+    obs = torch.zeros((4, 297), dtype=torch.int32)
+    with pytest.raises(ValueError, match="with_value"):
+        fac._launch("wgmma", w, obs, None, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fac.fused_value_forward(w, obs.to("meta"))
+    assert fac.heads(True) == 2 and fac.heads(False) == 1 and fac.heads(True, actor=False) == 1
+
+
 def test_flagship_weights_match_jax_forward():
     """The committed h768 flagship through `import_params_npz`: logits and
     values within 1e-4 of JAX `ac.forward` + `masked_logits` at B=64.  1e-4,

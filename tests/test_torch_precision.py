@@ -404,14 +404,15 @@ def test_wgmma_mode_is_a_function_of_b_and_h(hidden):
     for B in (1, 63, 64, 65, 512, fac.CLUSTER_MAX_ROWS, fac.CLUSTER_MAX_ROWS + 1, 8192, 737280):
         mode = fac.wgmma_mode(B, hidden)
         assert mode == ("cluster" if B <= fac.CLUSTER_MAX_ROWS else "tile")
-        for with_value in (True, False):
+        # Both heads, the actor alone and the critic alone (no actor).
+        for with_value, actor in ((True, True), (False, True), (True, False)):
             for m in ("tile", "cluster"):
-                grid, cluster = fac.launch_shape(B, hidden, with_value, m)
+                grid, cluster = fac.launch_shape(B, hidden, with_value, m, actor=actor)
                 assert grid[0] == -(-B // 64)
                 assert all(g % c == 0 for g, c in zip(grid, cluster))
                 assert cluster[0] * cluster[1] * cluster[2] <= fac.PORTABLE_CLUSTER
                 if m == "cluster":
-                    assert grid[1:] == (groups, 2 if with_value else 1)
+                    assert grid[1:] == (groups, 2 if with_value and actor else 1)
                     assert cluster == (1, groups, 1)
                 else:
                     assert grid[1:] == (1, 1) and cluster == (1, 1, 1)
@@ -459,6 +460,13 @@ def test_wide_launch_shape(hidden):
             assert floats == n * (heads * kh + passes * 2 * 48 + (passes * 2 if with_value else 0))
             # the scratch follows the chunk, so it stops growing past WIDE_MAX_ROWS
             assert floats <= fac.wide_scratch_floats(fac.WIDE_MAX_ROWS, hidden, with_value)
+        # The critic alone: one head on the layers' z, in the mode of the call
+        # with both heads; the scratch its h1 plane and the partial values.
+        for mode, blocks in (("pass", passes), ("half", 2 * passes)):
+            shape = fac.wide_launch_shape(chunks[0][1], hidden, True, mode, actor=False)
+            assert shape["layers"] == (blocks, -(-chunks[0][1] // 128), 1)
+        assert fac.wide_scratch_floats(chunks[0][1], hidden, True, actor=False) == (
+            chunks[0][1] * (kh + passes * 2))
     if hidden == 1024:
         # The pool slot's forward (B = 1024, no value) in the mode it
         # derives: 128 blocks a layer, near the H100's 132 SMs, not 64; the

@@ -158,6 +158,66 @@ def test_leaf_values_match_jax(net):
     assert np.abs(got[~term.numpy()]).max() <= 0.95
 
 
+def two_head_value(weights, obs):
+    """A leaf's value as the two-head forward gives it: through an all-true
+    mask, the logits dropped."""
+    every = torch.ones((obs.shape[0], A), dtype=torch.bool, device=obs.device)
+    return mc.fused_masked_forward(weights, obs, every, with_value=True)[1]
+
+
+@pytest.mark.parametrize("handle", [False, True])
+def test_leaf_values_take_the_critic_alone(handle, monkeypatch):
+    """`leaf_values` scores live leaves with the critic alone
+    (`fused_value_forward`): the same values, bit for bit, as with the
+    two-head forward's value, live and finished games, both seats, on the
+    weights as a list or a `PreparedWeights` handle; on the CPU no forward
+    of the critic alone is counted."""
+    from splendax_torch.ops import fused_actor_critic as fac
+
+    ctx = nets()[1]
+    ctx = mc.as_ctx(ctx) if handle else ctx
+    st, _, _ = midgame(96, 60, 1)
+    me = torch.from_numpy(np.random.RandomState(2).randint(0, 2, 96)).to(torch.int32)
+    before = fac.critic_launches
+    got = mc.leaf_values(st, me, ctx)
+    assert fac.critic_launches == before
+    monkeypatch.setattr(mc, "fused_value_forward", two_head_value)
+    assert torch.equal(got, mc.leaf_values(st, me, ctx))
+
+
+@pytest.mark.parametrize("algo", ["gumbel", "cgumbel", "mc"])
+def test_searches_with_the_critic_alone_play_as_before(algo, monkeypatch):
+    """With a net on fixed draws, the Gumbel search (plain and censored) and
+    flat MC, whose leaves take the critic alone, give the same actions and
+    the same values, bit for bit, as with the two-head forward's value at
+    the leaves."""
+    _, ctx = nets()
+    B = 16 if algo == "mc" else 32
+    st, obs, mask = midgame(B, 41, 21)
+    key = jax.random.PRNGKey(23)
+    if algo == "mc":
+        draws = playout_draws(key, 2, B * A * 2, True)
+        q_fn = mc.mc_search_q(rollouts=2, horizon=2)
+
+        def run():
+            return q_fn(ctx, obs, mask, st, draws=draws), {}
+    else:
+        censored = algo == "cgumbel"
+        draws = gumbel_draws(key, B, M, K0, HZ, True, censored)
+        fn = port_gumbel(ctx, censored, False)
+
+        def run():
+            info = {}
+            return fn(ctx, obs, mask, st, draws=draws, info=info), info
+    got, info = run()
+    monkeypatch.setattr(mc, "fused_value_forward", two_head_value)
+    want, info_want = run()
+    assert torch.equal(got, want)
+    for k in ("cand", "alive", "q_hat", "final"):
+        if k in info:
+            assert torch.equal(info[k], info_want[k]), k
+
+
 # ---- playouts and Q tables ------------------------------------------------------
 
 

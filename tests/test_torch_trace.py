@@ -193,21 +193,22 @@ def test_launch_counters_read_from_the_registry():
     assert list(fac.launch_counts()) == [
         "fused_actor_critic", "fused_actor_critic_wgmma", "fused_actor_critic_wide",
         "fused_actor_critic_tile", "fused_actor_critic_cluster",
-        "fused_actor_critic_wide_pass", "fused_actor_critic_wide_half", "fused_actor_critic_prep"]
+        "fused_actor_critic_wide_pass", "fused_actor_critic_wide_half", "fused_actor_critic_prep",
+        "fused_actor_critic_critic_only"]
     assert list(fac.launches_by_route) == ["wgmma", "wide"]
     assert list(fac.launches_by_mode) == ["tile", "cluster"]
     assert list(fac.launches_by_wide_mode) == ["pass", "half"]
     before = (fac.launch_counts(), rt.launches)
     for name in ("kernel_a.launches", "kernel_a.route.wide", "kernel_a.wide_mode.half",
-                 "kernel_a.prep", "kernel_b.launches"):
+                 "kernel_a.prep", "kernel_a.heads.critic", "kernel_b.launches"):
         trace.count(name)
     n = fac.launch_counts()
     assert {k: n[k] - before[0][k] for k in n if n[k] != before[0][k]} == {
         "fused_actor_critic": 1, "fused_actor_critic_wide": 1, "fused_actor_critic_wide_half": 1,
-        "fused_actor_critic_prep": 1}
+        "fused_actor_critic_prep": 1, "fused_actor_critic_critic_only": 1}
     assert rt.launches == before[1] + 1
-    assert (fac.launches, fac.prep_launches) == (n["fused_actor_critic"],
-                                                 n["fused_actor_critic_prep"])
+    assert (fac.launches, fac.prep_launches, fac.critic_launches) == (
+        n["fused_actor_critic"], n["fused_actor_critic_prep"], n["fused_actor_critic_critic_only"])
     bench.zero_launches()
     assert set(bench.kernel_launches().values()) == {0}
     trace.count("kernel_b.launches")
